@@ -1,0 +1,119 @@
+"""PFN-masked attention.
+
+Port of ``pfn_tpu/ops/attention.py``. The PFN rule: every token attends to
+all train tokens (positions < ``single_eval_pos``) and, in addition, to
+itself. The rule is a function of one scalar, never a materialised mask in the
+kernel path.
+
+  * :func:`pfn_attention_reference`: dense torch, f32 accumulation. The plain
+    path on the CPU, and ``impl="dense"`` on the card.
+  * :func:`pfn_tpu_torch.ops.flash_attention.pfn_flash_attention`: the
+    hand-written Hopper kernel.
+
+:func:`pfn_attention` dispatches between them. The mesh branch of the JAX
+dispatch is not ported (ROADMAP.md queue 1 item 14).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pfn_tpu_torch.ops.flash_attention import pfn_flash_attention, pfn_flash_prefix_attention
+
+
+def pfn_mask(seq_len: int, single_eval_pos, device=None) -> torch.Tensor:
+    """Boolean (T, T) PFN mask: mask[q, k] = (k < sep) | (k == q)."""
+    idx = torch.arange(seq_len, device=device)
+    return (idx[None, :] < single_eval_pos) | (idx[None, :] == idx[:, None])
+
+
+def pfn_attention_reference(q, k, v, single_eval_pos, scale=None):
+    """Dense PFN-masked scaled dot-product attention.
+
+    q, k, v: (B, H, T, D). Logits and softmax in f32, weights cast to v's
+    dtype, the weighted sum accumulated in f32 and returned in v's dtype.
+    """
+    T, D = q.shape[-2], q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (D**0.5)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    mask = pfn_mask(T, single_eval_pos, device=q.device)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(weights.float(), v.float()).to(v.dtype)
+
+
+def pfn_prefix_attention_reference(q, k, v, single_eval_pos, scale=None):
+    """Dense prefix-only attention (keys < sep, no diagonal) with logsumexp.
+
+    q: (B, H, Tq, D) may be a sequence shard; k, v: (B, H, Tk, D) are full.
+    Returns (o, lse (B, H, Tq)); empty-prefix rows (sep == 0) get o = 0 and
+    lse ~ -1e30, as the kernel does.
+    """
+    D = q.shape[-1]
+    Tk = k.shape[-2]
+    scale = scale if scale is not None else 1.0 / (D**0.5)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    allowed = (torch.arange(Tk, device=q.device) < single_eval_pos)[None, None, None, :]
+    s = torch.where(allowed, s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(allowed, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.matmul((p / l).to(v.dtype).float(), v.float()).to(v.dtype)
+    return o, (m + torch.log(l))[..., 0]
+
+
+def pfn_attention_prefix_merge(q, k_full, v_full, k_self, v_self, single_eval_pos, q_global_start, scale=None):
+    """PFN attention as prefix attention plus an exact self-attention merge.
+
+    For an eval token i the PFN rule is softmax over {j < sep} ∪ {i}. With
+    the prefix pass's output o_p and logsumexp lse, adding the one self key is
+    exact logsumexp algebra:
+
+        w   = sigmoid(s_ii - lse)          (s_ii = scale * <q_i, k_i>)
+        out = o_p + w * (v_i - o_p)        for i >= sep; o_p for i < sep
+
+    The prefix pass is the kernel's prefix variant on a CUDA tensor and the
+    dense prefix path on a CPU tensor.
+    """
+    B, H, Tq, D = q.shape
+    scale = scale if scale is not None else 1.0 / (D**0.5)
+    prefix = pfn_flash_prefix_attention if q.is_cuda else pfn_prefix_attention_reference
+    o_p, lse = prefix(q, k_full, v_full, single_eval_pos, scale=scale)
+    s_self = (q.float() * k_self.float()).sum(dim=-1) * scale  # (B, H, Tq)
+    w = torch.sigmoid(s_self - lse)[..., None].to(o_p.dtype)
+    merged = o_p + w * (v_self - o_p)
+    gi = q_global_start + torch.arange(Tq, device=q.device)
+    is_train = (gi < single_eval_pos)[None, None, :, None]
+    return torch.where(is_train, o_p, merged)
+
+
+def pfn_attention(q, k, v, single_eval_pos, impl: str = "auto", scale=None):
+    """Dispatching PFN attention; ``scale`` overrides 1/sqrt(head_dim).
+
+    impl:
+      * "auto", "flash": the kernel on a CUDA tensor. On a CPU tensor "auto"
+        runs the dense path and "flash" raises: the kernel has no CPU build.
+      * "prefix": the prefix variant of the kernel plus the exact self merge
+        (the dense prefix path on the CPU).
+      * "dense": the dense path, on any device.
+      * "fused": raises; the whole-layer kernels are not ported yet.
+    """
+    if impl == "dense":
+        return pfn_attention_reference(q, k, v, single_eval_pos, scale=scale)
+    if impl == "prefix":
+        return pfn_attention_prefix_merge(q, k, v, k, v, single_eval_pos, 0, scale=scale)
+    if impl == "fused":
+        raise NotImplementedError(
+            "attention_impl='fused' needs the fused whole-layer kernels, which are not ported yet "
+            "(ROADMAP.md queue 2 items 4-6)"
+        )
+    if impl in ("flash", "auto"):
+        if q.is_cuda:
+            return pfn_flash_attention(q, k, v, single_eval_pos, scale=scale)
+        if impl == "flash":
+            raise RuntimeError(
+                "impl='flash' needs a CUDA tensor: the PFN flash kernel has no CPU build "
+                "(use impl='auto' or 'dense' on the CPU)"
+            )
+        return pfn_attention_reference(q, k, v, single_eval_pos, scale=scale)
+    raise ValueError(f"unknown attention impl {impl!r}")

@@ -1,0 +1,89 @@
+"""The port stands on torch alone.
+
+  * Every pfn_tpu_torch module imports with jax blocked, and importing
+    builds, loads or launches nothing.
+  * No source of the port, and not chip_smoke.py, imports jax or pfn_tpu.
+  * The kernel wrapper refuses CPU tensors (it never falls back).
+  * chip_smoke.py fails, printing no result line, without a CUDA device and
+    when it stands alone in a directory.
+"""
+
+import ast
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "pfn_tpu_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+import pfn_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(pfn_tpu_torch.__path__, "pfn_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+from pfn_tpu_torch.ops import _ext
+assert _ext._lib is None, "a library was loaded at import"
+assert sum(_ext.launch_counts.values()) == 0
+bad = sorted(m for m, mod in sys.modules.items()
+             if mod is not None and (m == "pfn_tpu" or m.startswith(("pfn_tpu.", "jax", "triton"))))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_every_module_imports_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 20
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    assert not _imported_roots(path) & {"jax", "jaxlib", "flax", "optax", "pfn_tpu"}
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    from pfn_tpu_torch.ops import _ext
+
+    q = torch.zeros(2, 8, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        _ext.flash_fwd(q, q, q, torch.zeros(1, dtype=torch.int32), True)
+    assert _ext.launch_counts["pfn_flash_fwd"] == 0
+
+
+def _run_smoke(cwd: Path, home: Path):
+    env = {"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": "", "HOME": str(home)}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    proc = _run_smoke(ROOT, tmp_path)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert "CUDA" in proc.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run_smoke(tmp_path, tmp_path)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
