@@ -6,17 +6,33 @@
 Phases, each printing one JSON line:
   1. card: the device, and its name and power limit from nvidia-smi (also
      printed raw on a line of its own). TF32 must be off for matmuls.
-  2. build: compiles the CUDA kernel from the checkout's sources.
+  2. build: compiles the CUDA sources of the checkout, one nvcc each, all at
+     once, and reports ptxas's registers and spills of every kernel.
   3. kernel: the PFN flash-attention forward kernel, both variants, against
      its plain dense f32 version over T in {127, 128, 129, 2010}, sep in
      {0, 1, T//2, T-1}, head dim in {32, 64, 128}, f32 and bf16, plus
      Tq != Tk for the prefix variant; then its time beside the plain
      version's at the main-path shape (B*H = 32, T = 2010, D = 128, bf16).
-  4. slice: GP-regression inference at the Fig-3a width (emsize 512, 4 heads,
+  4. kernel_bwd: the dq and dk/dv kernels of the backward, both variants,
+     against their plain dense f32 version over the same grid (the prefix
+     variant with a nonzero dlse); f32 at atol = rtol = 1e-4, bf16 by
+     experiments/flash_equivalence.py's rule against the dense bf16 path's
+     own error; then autograd through pfn_attention(impl="flash") and
+     impl="prefix" on the card against the dense path, under the same rule.
+  5. kernel_bwd_timing: both backward kernels beside the plain backward and
+     the dense bf16 backward at the training microbatch (B*H = 16, T = 2010,
+     D = 128, bf16).
+  6. slice: GP-regression inference at the Fig-3a width (emsize 512, 4 heads,
      nhid 1024, 6 layers, bf16, seeded random weights through the weight
      bridge) at T = 2010: positional logits for 8 datasets, a PFNRegressor
      predict and predict_quantiles, the f64 exact-GP oracle and the analytic
      KL; kernel path against the dense path and an f32 model.
+  7. train: the round-5 Fig-3a recipe at full width through train(...): 2
+     epochs of 2 updates (100 datasets each) with a checkpoint after epoch 1
+     and a second train(...) call that resumes it; every kernel launched
+     exactly 6 layers x 25 microbatches x 4 updates times; one update on the
+     kernel path against the dense path; update time, datasets/s and peak
+     memory; a PFNRegressor from the result predicts a held-out dataset.
 Then the kernels line, and last {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits nonzero and prints no result line.
@@ -37,10 +53,17 @@ ROOT = Path(__file__).resolve().parent
 
 F32_TOL = 2e-5  # atol and rtol for f32, as tests/test_flash_attention.py uses
 BF16_LSE_TOL = 1e-4  # lse from the same bf16 inputs: only the f32 summation order differs
+F32_GRAD_TOL = 1e-4  # atol and rtol of f32 gradients, as tests/test_flash_attention.py uses
+BF16_GRAD_FLOOR = 0.02  # bf16 gradient error floor of experiments/flash_equivalence.py
 # The slice at the Fig-3a width (experiments/fig3a_longrun.py:173-179), depth
 # and widths uncut; the weights are random.
 FIG3A = dict(T=2010, datasets=8, n_ctx=1000, positions=[1, 10, 100, 1000, 2000], emsize=512, nhead=4,
              nhid=1024, nlayers=6, buckets=1000, grid=8192)
+# Training at the round-5 Fig-3a recipe (ROUND5.md:27-28,
+# experiments/fig3a_longrun.py:168-182): widths uncut, 100 datasets per
+# update (4 x 25 microbatches), 2 epochs of 2 updates.
+FIG3A_TRAIN = dict(T=2010, emsize=512, nhead=4, nhid=1024, nlayers=6, batch_size=4, agg=25, updates=2,
+                   buckets=10_000, bucket_seq_cap=128, grid=8192, lr=1e-4, timed_updates=4)
 TIMING_SEPS = [400, 1000, 2000]
 REPEATS = 5  # slice requests after the first call; their median is reported
 
@@ -108,10 +131,15 @@ def phase_card():
 def phase_build():
     from pfn_tpu_torch.ops import _ext
 
-    info = _ext.build()
-    ptxas = [line.strip() for line in info["log"].splitlines() if "registers" in line or "spill" in line]
-    emit({"phase": "build", "seconds": info["seconds"], "built": info["built"],
-          "library": str(Path(info["path"]).relative_to(ROOT)), "ptxas": ptxas})
+    t0 = time.perf_counter()
+    libraries = _ext.build()
+    seconds = time.perf_counter() - t0
+    emit({"phase": "build", "seconds": seconds, "libraries": {
+        name: {"seconds": info["seconds"], "built": info["built"],
+               "library": str(Path(info["path"]).relative_to(ROOT)),
+               "ptxas": [line.strip() for line in info["log"].splitlines()
+                         if "registers" in line or "spill" in line]}
+        for name, info in libraries.items()}})
 
 
 def phase_kernel_cases(device):
@@ -221,6 +249,158 @@ def phase_kernel_timing(device, smi: str):
     return rows
 
 
+def _grad_errors(got, gold, dense=None) -> dict:
+    """bf16 rule of experiments/flash_equivalence.py: each gradient's max
+    error over the gold gradient's max |.|, beside the dense bf16 path's. A
+    gradient that vanishes in exact arithmetic (dq and dk of a diagonal-only
+    row set) is normalised by 1e-3 of the largest gold gradient instead."""
+    floor = 1e-3 * max(float(g.abs().max()) for g in gold)
+    out = {}
+    for name, a, g, d in zip("qkv", got, gold, dense or (None,) * 3):
+        den = max(float(g.abs().max()), floor)
+        out[f"d{name}"] = max_abs(a, g) / den if den > 0 else max_abs(a, g)
+        if d is not None:
+            out[f"d{name}_dense"] = max_abs(d, g) / den if den > 0 else max_abs(d, g)
+    return out
+
+
+def _bf16_ok(errs: dict) -> bool:
+    return all(errs[f"d{n}"] <= max(BF16_GRAD_FLOOR, 3 * errs[f"d{n}_dense"]) for n in "qkv")
+
+
+def phase_kernel_bwd_cases(device):
+    """The dq and dk/dv kernels against their plain version over the forward's
+    grid; bf16 also against the dense bf16 path's own error."""
+    import torch
+
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.ops.attention import pfn_attention, pfn_attention_reference, pfn_prefix_attention_reference
+    from pfn_tpu_torch.ops.flash_attention import _flash_bwd, _flash_bwd_plain, _flash_fwd, _flash_fwd_plain
+
+    g = torch.Generator(device=device).manual_seed(2)
+    B, H = 2, 2
+    worst, n = {}, 0
+    for include_diag in (True, False):
+        variant = "diag" if include_diag else "prefix"
+        for T in (127, 128, 129, 2010):
+            for Tq in ([T] if include_diag else [T, T // 2 + 1]):
+                for sep in sorted({0, 1, T // 2, T - 1}):
+                    for D in (32, 64, 128):
+                        for dtype in (torch.float32, torch.bfloat16):
+                            def rand(*shape):
+                                return torch.randn(*shape, generator=g, device=device)
+
+                            qs = (rand(B * H, Tq, D) * D**-0.5).to(dtype)
+                            k, v = rand(B * H, T, D).to(dtype), rand(B * H, T, D).to(dtype)
+                            do = rand(B * H, Tq, D).to(dtype)
+                            dlse = None if include_diag else rand(B * H, Tq)
+                            o, lse = _flash_fwd(qs, k, v, sep, include_diag)
+                            got = _flash_bwd(qs, k, v, o, lse, do, dlse, sep, include_diag)
+                            torch.cuda.synchronize()
+                            f32 = [t.float() for t in (qs, k, v)]
+                            o32, lse32 = _flash_fwd_plain(*f32, sep, T, include_diag)
+                            gold = _flash_bwd_plain(*f32, o32, lse32, do.float(), dlse, sep, T, include_diag)
+                            case = dict(variant=variant, T=T, Tq=Tq, sep=sep, D=D, dtype=str(dtype))
+                            if not all(bool(torch.isfinite(t).all()) for t in got):
+                                raise AssertionError(f"non-finite gradient {case}")
+                            if all(float(t.abs().max()) == 0.0 for t in gold):
+                                if any(float(t.abs().max()) != 0.0 for t in got):
+                                    raise AssertionError(f"gradients must be exactly zero: {case}")
+                            if dtype == torch.float32:
+                                for name, a, b in zip("qkv", got, gold):
+                                    if not torch.allclose(a, b, atol=F32_GRAD_TOL, rtol=F32_GRAD_TOL):
+                                        raise AssertionError(f"d{name} mismatch {case}: {max_abs(a, b)}")
+                                errs = {f"d{name}": max_abs(a, b) for name, a, b in zip("qkv", got, gold)}
+                            else:
+                                # The dense bf16 path's gradient on the same inputs (scale
+                                # already in qs), by autograd.
+                                leaves = [t.reshape(B, H, -1, D).detach().requires_grad_() for t in (qs, k, v)]
+                                if include_diag:
+                                    out = pfn_attention_reference(*leaves, sep, scale=1.0)
+                                    loss = (out.float() * do.reshape(B, H, Tq, D).float()).sum()
+                                else:
+                                    out, lse_d = pfn_prefix_attention_reference(*leaves, sep, scale=1.0)
+                                    loss = ((out.float() * do.reshape(B, H, Tq, D).float()).sum()
+                                            + (lse_d * dlse.reshape(B, H, Tq)).sum())
+                                dense = [t.reshape(B * H, -1, D) for t in torch.autograd.grad(loss, leaves)]
+                                errs = _grad_errors(got, gold, dense)
+                                if not _bf16_ok(errs):
+                                    raise AssertionError(f"bf16 gradient error over budget {case}: {errs}")
+                            key = f"{variant}/{case['dtype']}"
+                            w = worst.setdefault(key, {"cases": 0})
+                            w["cases"] += 1
+                            for name, e in errs.items():
+                                w[name] = max(w.get(name, 0.0), e)
+                            n += 1
+    # Autograd through the dispatch on the card, against the dense path.
+    B, H, T, D, sep = 2, 4, 2010, 128, 1000
+    q, k, v = (torch.randn(B, H, T, D, generator=g, device=device).to(torch.bfloat16) for _ in range(3))
+    w_out = torch.randn(B, H, T, D, generator=g, device=device)
+
+    def grads(impl, dtype):
+        leaves = [t.to(dtype).detach().requires_grad_() for t in (q, k, v)]
+        loss = (pfn_attention(*leaves, sep, impl=impl).float() * w_out).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    gold, dense = grads("dense", torch.float32), grads("dense", torch.bfloat16)
+    dispatch = {}
+    for impl in ("flash", "prefix"):
+        before = dict(_ext.launch_counts)
+        errs = _grad_errors(grads(impl, torch.bfloat16), gold, dense)
+        launched = {name: count - before[name] for name, count in _ext.launch_counts.items()}
+        if not _bf16_ok(errs):
+            raise AssertionError(f"impl={impl!r} bf16 gradient error over budget: {errs}")
+        if min(launched.values()) < 1:
+            raise AssertionError(f"impl={impl!r} did not launch every kernel: {launched}")
+        dispatch[impl] = errs
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_bwd", "cases": n, "worst": worst, "tol_f32": F32_GRAD_TOL,
+          "bf16_rule": f"err/max|gold| <= max({BF16_GRAD_FLOOR}, 3 * dense_bf16_err/max|gold|) per gradient",
+          "dispatch_autograd": dispatch})
+    return worst
+
+
+def phase_kernel_bwd_timing(device, smi: str):
+    """Backward kernels, plain backward and dense bf16 backward at the
+    training microbatch (B 4 x H 4, T = 2010, D = 128, bf16)."""
+    import torch
+
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.ops.attention import pfn_attention_reference
+    from pfn_tpu_torch.ops.flash_attention import _flash_bwd_plain, _flash_fwd
+
+    g = torch.Generator(device=device).manual_seed(3)
+    B, H, T, D = 4, 4, 2010, 128
+    q, k, v, do4 = (torch.randn(B, H, T, D, generator=g, device=device).to(torch.bfloat16) for _ in range(4))
+    qs = (q * D**-0.5).reshape(B * H, T, D)
+    kf, vf, do = k.reshape(B * H, T, D), v.reshape(B * H, T, D), do4.reshape(B * H, T, D)
+    rows = []
+    for sep in TIMING_SEPS:
+        sep_t = torch.full((1,), sep, dtype=torch.int32, device=device)
+        o, lse = _flash_fwd(qs, kf, vf, sep_t, True)
+        delta = (do.float() * o.float()).sum(-1)
+        dq = _ext.flash_bwd_dq(qs, kf, vf, do, lse, delta, sep_t, True)
+        dk, dv = _ext.flash_bwd_dkv(qs, kf, vf, do, lse, delta, sep_t, True)
+        plain = _flash_bwd_plain(qs, kf, vf, o, lse, do, None, sep_t, T, True)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        dense_out = pfn_attention_reference(*leaves, sep_t)
+        rows.append({
+            "sep": sep,
+            "dq_ms": cuda_ms(lambda: _ext.flash_bwd_dq(qs, kf, vf, do, lse, delta, sep_t, True)),
+            "dkv_ms": cuda_ms(lambda: _ext.flash_bwd_dkv(qs, kf, vf, do, lse, delta, sep_t, True)),
+            "plain_ms": cuda_ms(lambda: _flash_bwd_plain(qs, kf, vf, o, lse, do, None, sep_t, T, True)),
+            "dense_bf16_bwd_ms": cuda_ms(
+                lambda: torch.autograd.grad(dense_out, leaves, do4, retain_graph=True)),
+            "dq_ms_again": cuda_ms(lambda: _ext.flash_bwd_dq(qs, kf, vf, do, lse, delta, sep_t, True)),
+            "dkv_ms_again": cuda_ms(lambda: _ext.flash_bwd_dkv(qs, kf, vf, do, lse, delta, sep_t, True)),
+            "max_abs_err": {f"d{n}": max_abs(a, b) for n, a, b in zip("qkv", (dq, dk, dv), plain)},
+            "gflop_14_T_sep_D": 14.0 * B * H * T * sep * D / 1e9,
+        })
+    emit({"phase": "kernel_bwd_timing", "shape": {"BH": B * H, "T": T, "D": D, "dtype": "bf16"},
+          "card": smi, "rows": rows})
+    return rows
+
+
 def phase_slice(device, smi: str, size: dict = FIG3A):
     import numpy as np
     import torch
@@ -317,6 +497,147 @@ def phase_slice(device, smi: str, size: dict = FIG3A):
     return launches
 
 
+def _param_vector(state_dict):
+    """All entries of a state_dict, by sorted name, as one f32 vector."""
+    import torch
+
+    return torch.cat([state_dict[name].detach().float().reshape(-1) for name in sorted(state_dict)])
+
+
+def phase_train(device, smi: str, size: dict = FIG3A_TRAIN):
+    """The round-5 Fig-3a recipe at full width through ``train(...)``: epoch 1
+    into a checkpoint, a second call that resumes it and runs epoch 2."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pfn_tpu_torch.distributions import get_bucket_limits
+    from pfn_tpu_torch.inference import PFNRegressor
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.priors import GPPrior, sample_y_for_buckets
+    from pfn_tpu_torch.train import (
+        TrainConfig,
+        TrainState,
+        build_model,
+        full_support_bar_criterion,
+        seeded_flax_params,
+        state_dict_from_flax_params,
+        train,
+    )
+    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step, make_train_step_from_batch
+
+    T, k = size["T"], size["agg"]
+    prior = GPPrior(num_features=1, noise=1e-4, outputscale=1.0, lengthscale=0.6, grid=size["grid"])
+    ys = sample_y_for_buckets(prior, 100_000, T, seed=7, max_seq_len=size["bucket_seq_cap"], device=device)
+    criterion = full_support_bar_criterion(get_bucket_limits(size["buckets"], ys=ys)).to(device)
+    ckdir = tempfile.mkdtemp(prefix="pfn_train_")
+    cfg = TrainConfig(
+        emsize=size["emsize"], nhid=size["nhid"], nlayers=size["nlayers"], nhead=size["nhead"], bptt=T,
+        batch_size=size["batch_size"], aggregate_k_gradients=k, epochs=2, steps_per_epoch=size["updates"] * k,
+        lr=size["lr"], warmup_epochs=2, eval_pos_sampler="mixture", eval_pos_max=min(2000, T),
+        dtype=torch.bfloat16, checkpoint_dir=ckdir, checkpoint_every=1, device=device, seed=0,
+    )
+    # Seeded random weights through the weight bridge, not the fresh init:
+    # at the fresh init an eval token at the grid's x = 0.0 is an exact zero
+    # row (zero encoder bias), whose gradient 12 LayerNorms amplify past the
+    # f32 range, so the clipped update is zero (the JAX package does the
+    # same; ROADMAP.md queue 3). Nonzero out_proj also lets attention reach
+    # the loss, so the kernel and dense paths below differ.
+    init = state_dict_from_flax_params(
+        seeded_flax_params(1, cfg.emsize, cfg.nhid, cfg.nlayers, size["buckets"], seed=0), cfg.nlayers)
+    initial = _param_vector(init).to(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = train(prior, criterion, dataclasses.replace(cfg, epochs=1), init_params=init)
+    after_epoch1 = _param_vector(first.model.state_dict())
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        result = train(prior, criterion, cfg, init_params=init)
+    train_s = time.perf_counter() - t0
+    print(log.getvalue(), end="", flush=True)
+    launches = {name: _ext.launch_counts[name] for name in ("pfn_flash_fwd", "pfn_flash_bwd_dq", "pfn_flash_bwd_dkv")}
+    expected = cfg.nlayers * k * 2 * size["updates"]
+    stats = first.epoch_stats + result.epoch_stats
+    after_epoch2 = _param_vector(result.model.state_dict())
+
+    # One update on the kernel path and on the dense path (and an f32 dense
+    # model as the yardstick), from the same params, batch and sep.
+    g = torch.Generator(device=device).manual_seed(5)
+    batch = [prior.sample(size["batch_size"], T, generator=g, device=device) for _ in range(2)]
+    xs, ys_b, tys = (torch.stack([b[i] for b in batch]) for i in range(3))
+    one = {}
+    for name, over in {"kernel_bf16": {}, "dense_bf16": {"attention_impl": "dense"},
+                       "dense_f32": {"attention_impl": "dense", "dtype": torch.float32}}.items():
+        pcfg = dataclasses.replace(cfg, aggregate_k_gradients=2, steps_per_epoch=2, eval_pos_sampler="fixed",
+                                   fixed_eval_pos=T // 2, checkpoint_dir=None, **over)
+        model = build_model(prior, criterion, pcfg)
+        model.load_state_dict(result.model.state_dict())
+        optimizer, _, schedule = _make_optimizer(pcfg, model)
+        state = TrainState(model, optimizer, torch.Generator(device=device).manual_seed(0))
+        m = make_train_step_from_batch(criterion, pcfg, schedule)(state, xs, ys_b, tys)
+        one[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    budget = {key: 2 * abs(one["dense_bf16"][key] - one["dense_f32"][key]) + 1e-3 * abs(one["dense_f32"][key])
+              for key in ("loss", "grad_norm")}
+    diff = {key: abs(one["kernel_bf16"][key] - one["dense_bf16"][key]) for key in budget}
+
+    # Update time, continuing from the trained weights: the first update of a
+    # new optimizer state, then the median of the rest.
+    optimizer, _, schedule = _make_optimizer(cfg, result.model)
+    state = TrainState(result.model, optimizer, torch.Generator(device=device).manual_seed(1))
+    step = make_train_step(prior, criterion, cfg, schedule)
+    update_ms = []
+    for _ in range(1 + size["timed_updates"]):
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        float(step(state)["loss"])
+        torch.cuda.synchronize(device)
+        update_ms.append((time.perf_counter() - t1) * 1e3)
+    median_ms = float(np.median(update_ms[1:]))
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    # sep, the prior's draws and the clip stay on the device: an update
+    # enqueues its work without waiting for the card.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    no_host_sync = bool(np.isfinite(float(metrics["loss"])))
+
+    # Held-out prediction from the trained model.
+    x, y, _ = prior.sample(1, T, generator=torch.Generator(device=device).manual_seed(11), device=device)
+    x_np, y_np = x[0].cpu().numpy(), y[0].cpu().numpy()
+    mean, std = PFNRegressor.from_train_result(result).fit(x_np[:1000], y_np[:1000]).predict(
+        x_np[1000:], return_std=True)
+
+    checks = {
+        "resumed": "resumed from" in log.getvalue(),
+        "epochs": [s["epoch"] for s in stats] == [1, 2],
+        "lr": [s["lr"] for s in stats] == [0.0, cfg.lr / 2],
+        "losses_finite": all(np.isfinite(s["mean_loss"]) and np.isfinite(s["grad_norm"]) for s in stats),
+        "lr0_epoch_keeps_params": bool(torch.equal(after_epoch1, initial)),
+        "params_changed_in_epoch2": bool((after_epoch2 != after_epoch1).any()),
+        "launches": all(n == expected for n in launches.values()),
+        "kernel_vs_dense_update": all(diff[key] <= budget[key] for key in budget),
+        "predict_finite": bool(np.isfinite(mean).all() and np.isfinite(std).all() and (std > 0).all()),
+        "update_without_host_sync": no_host_sync,
+    }
+    emit({
+        "phase": "train", "card": smi, "size": size, "dtype": "bf16", "epoch_stats": stats,
+        "train_calls_s": train_s, "launches": launches, "expected_launches": expected,
+        "update_ms": {"first": update_ms[0], f"median_of_{size['timed_updates']}": median_ms},
+        "datasets_per_s": size["batch_size"] * k / (median_ms / 1e3), "peak_memory_gb": peak_gb,
+        "one_update": one, "one_update_diff": diff, "one_update_budget": budget, "checks": checks,
+    })
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train checks failed: {failed}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -328,13 +649,25 @@ def main() -> int:
     phase_build()
     phase_kernel_cases(device)
     timing = phase_kernel_timing(device, smi)
-    launches = phase_slice(device, smi)
-    main_row = next(r for r in timing if r["sep"] == 1000)
-    emit({"kernels": [{
-        "name": "pfn_flash_fwd", "route": "cuda", "source": "pfn_tpu_torch/ops/csrc/pfn_flash_fwd.cu",
-        "replaces": "pfn_tpu/ops/flash_attention.py:255", "launches": launches,
-        "max_abs_err": main_row["max_abs_err"], "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
-    }]})
+    phase_kernel_bwd_cases(device)
+    bwd_timing = phase_kernel_bwd_timing(device, smi)
+    phase_slice(device, smi)
+    launches = phase_train(device, smi)
+    fwd = next(r for r in timing if r["sep"] == 1000)
+    bwd = next(r for r in bwd_timing if r["sep"] == 1000)
+    bwd_source = "pfn_tpu_torch/ops/csrc/pfn_flash_bwd.cu"
+    emit({"kernels": [
+        {"name": "pfn_flash_fwd", "route": "cuda", "source": "pfn_tpu_torch/ops/csrc/pfn_flash_fwd.cu",
+         "replaces": "pfn_tpu/ops/flash_attention.py:255", "launches": launches["pfn_flash_fwd"],
+         "max_abs_err": fwd["max_abs_err"], "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"]},
+        {"name": "pfn_flash_bwd_dq", "route": "cuda", "source": bwd_source,
+         "replaces": "pfn_tpu/ops/flash_attention.py:315", "launches": launches["pfn_flash_bwd_dq"],
+         "max_abs_err": bwd["max_abs_err"]["dq"], "ms": bwd["dq_ms"], "plain_ms": bwd["plain_ms"]},
+        {"name": "pfn_flash_bwd_dkv", "route": "cuda", "source": bwd_source,
+         "replaces": "pfn_tpu/ops/flash_attention.py:340", "launches": launches["pfn_flash_bwd_dkv"],
+         "max_abs_err": max(bwd["max_abs_err"]["dk"], bwd["max_abs_err"]["dv"]), "ms": bwd["dkv_ms"],
+         "plain_ms": bwd["plain_ms"]},
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
                                  "count": torch.cuda.device_count()}})
     return 0

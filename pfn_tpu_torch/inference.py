@@ -8,9 +8,11 @@ Port of ``PFNRegressor`` from ``pfn_tpu/inference.py``:
     mean, std = reg.predict(X_query, return_std=True)
     lo, hi = reg.predict_quantiles(X_query, (0.05, 0.95))
 
+    reg = PFNRegressor.from_train_result(train(prior, criterion, cfg))
+    reg = PFNRegressor.from_checkpoint(cfg.checkpoint_dir, prior, criterion, cfg)
+
 The forward runs on the model's device; inputs and outputs are numpy.
-``PFNClassifier`` and the checkpoint constructors wait for later slices
-(ROADMAP.md queue 1 items 6 and 10).
+``PFNClassifier`` waits for a later slice (ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import torch
 
 from pfn_tpu_torch.evals.harness import pfn_predict
 from pfn_tpu_torch.priors.transforms import normalize_by_used_features
+from pfn_tpu_torch.train.checkpoints import latest_state_checkpoint, restore_checkpoint
+from pfn_tpu_torch.train.loop import build_model
 from pfn_tpu_torch.train.losses import Criterion
 
 
@@ -40,6 +44,22 @@ class _PFNEstimator:
     normalize_x: bool = False
     _ctx_x: np.ndarray | None = None
     _ctx_y: np.ndarray | None = None
+
+    @classmethod
+    def from_train_result(cls, result, **kw):
+        """Wrap a ``pfn_tpu_torch.train.train(...)`` TrainResult."""
+        return cls(result.model, result.criterion, **kw)
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_dir: str, prior, criterion: Criterion, cfg, **kw):
+        """Rebuild the model from its TrainConfig and load the weights of the
+        newest full-state checkpoint written by train(checkpoint_dir=...)."""
+        latest = latest_state_checkpoint(checkpoint_dir)
+        if latest is None:
+            raise FileNotFoundError(f"no checkpoints under {checkpoint_dir}")
+        model = build_model(prior, criterion, cfg)
+        model.load_state_dict(restore_checkpoint(latest[0], map_location="cpu")["model"], strict=True)
+        return cls(model.eval(), criterion, **kw)
 
     @property
     def num_features(self) -> int:

@@ -8,6 +8,7 @@ from pfn_tpu_torch.models.transformer import (
     PFNEncoderLayer,
     PFNTransformer,
     TransformerConfig,
+    num_params,
 )
 
 __all__ = [
@@ -18,4 +19,5 @@ __all__ = [
     "PFNEncoderLayer",
     "PFNTransformer",
     "TransformerConfig",
+    "num_params",
 ]

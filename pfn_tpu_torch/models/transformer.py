@@ -181,3 +181,9 @@ class PFNTransformer(nn.Module):
             tokens = layer(tokens, single_eval_pos)
         return self.decoder(tokens.float())
 
+
+
+def num_params(model: nn.Module) -> int:
+    """Number of parameter entries (the JAX package's ``num_params`` of the
+    params tree), which ``get_openai_lr`` takes."""
+    return sum(p.numel() for p in model.parameters())

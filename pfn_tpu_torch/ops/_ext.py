@@ -1,12 +1,13 @@
 """Build, load and launch the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled with ``nvcc`` into a shared library
-with a plain C interface and bound with ``ctypes``: no PyTorch headers, so a
-build takes seconds. The library is built on first use into
-``build/pfn_tpu_torch/`` at the root of the checkout, under a name that
-carries the hash of its source and flags, so an edited source is rebuilt and
-an unchanged one is reused. Nothing is built or loaded when this module is
-imported.
+Each source under ``csrc/`` is compiled with ``nvcc`` into a shared library
+of its own with a plain C interface and bound with ``ctypes``: no PyTorch
+headers, so a build takes seconds. The libraries are built on first use into
+``build/pfn_tpu_torch/`` at the root of the checkout, under names that carry
+the hash of their source and flags, so an edited source is rebuilt and an
+unchanged one is reused. :func:`build` compiles every missing library at
+once, one ``nvcc`` process per source. Nothing is built or loaded when this
+module is imported.
 
 Every launch goes through a wrapper here that checks device, dtype, shape,
 contiguity and alignment, allocates the outputs with ``torch.empty``, launches
@@ -31,13 +32,26 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v",
 )
-SOURCE = Path(__file__).resolve().parent / "csrc" / "pfn_flash_fwd.cu"
-FLASH_FWD_HEAD_DIMS = (32, 64, 128)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {
+    "pfn_flash_fwd": _CSRC / "pfn_flash_fwd.cu",
+    "pfn_flash_bwd": _CSRC / "pfn_flash_bwd.cu",
+}
+# Head dims the forward and both backward kernels are instantiated for.
+FLASH_HEAD_DIMS = (32, 64, 128)
 
 # Kernel launches since the last reset_launch_counts(), by kernel name.
-launch_counts = {"pfn_flash_fwd": 0}
+launch_counts = {"pfn_flash_fwd": 0, "pfn_flash_bwd_dq": 0, "pfn_flash_bwd_dkv": 0}
 
-_lib: ctypes.CDLL | None = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signature of each entry point: pointers, then int sizes and flags, then the stream.
+_SIGNATURES = {
+    "pfn_flash_fwd": ("pfn_flash_fwd", [_P] * 6 + [_I] * 6 + [_P]),
+    "pfn_flash_bwd_dq": ("pfn_flash_bwd", [_P] * 8 + [_I] * 6 + [_P]),
+    "pfn_flash_bwd_dkv": ("pfn_flash_bwd", [_P] * 9 + [_I] * 6 + [_P]),
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
@@ -59,44 +73,107 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: put the CUDA toolkit's bin/ on PATH or set CUDA_HOME")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{SOURCE.stem}-{digest}.so"
+def library_path(name: str) -> Path:
+    source = SOURCES[name]
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 
-def build() -> dict:
-    """Compile the kernel source unless a library for its current hash exists.
+def build(names=None) -> dict:
+    """Compile the sources ``names`` (default: all) whose library for the
+    current hash is missing, one nvcc process each, all started together.
 
-    Returns {"path", "seconds", "built", "log"}; ``log`` holds ptxas's
-    per-kernel register and shared-memory report. Raises if nvcc fails.
+    Returns {name: {"path", "seconds", "built", "log"}}; ``log`` holds
+    ptxas's per-kernel register and shared-memory report. Raises if any nvcc
+    fails.
     """
-    out = library_path()
-    if out.exists():
-        return {"path": str(out), "seconds": 0.0, "built": False, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return {"path": str(out), "seconds": seconds, "built": True, "log": proc.stdout + proc.stderr}
+    names = list(SOURCES) if names is None else list(names)
+    results, running = {}, {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            results[name] = {"path": str(out), "seconds": 0.0, "built": False, "log": ""}
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, cmd, tmp, out, time.perf_counter())
+    failures = []
+    for name, (proc, cmd, tmp, out, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, out)
+        results[name] = {"path": str(out), "seconds": seconds, "built": True, "log": log}
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return results
 
 
-def _library() -> ctypes.CDLL:
-    """Build if needed and load the library, once per process."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build()["path"])
-        lib.pfn_flash_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.pfn_flash_fwd.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _entry(name: str):
+    """The C entry point ``name``, building and loading its library once per
+    process."""
+    source, argtypes = _SIGNATURES[name]
+    if source not in _libs:
+        _libs[source] = ctypes.CDLL(build([source])[source]["path"])
+    fn = getattr(_libs[source], name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_flash_inputs(name: str, q, k, v, sep, include_diag: bool, extra=()) -> None:
+    """The checks every flash kernel needs: q (BH, Tq, D), k and v (BH, Tk,
+    D) and the tensors in ``extra`` (name, tensor) of q's shape, one dtype,
+    one CUDA device, contiguous and 16-byte aligned; sep a one-element int32
+    tensor on that device."""
+    if not (q.is_cuda and all(t.device == q.device for t in (k, v, sep, *(t for _, t in extra)))):
+        raise ValueError(f"{name}: every input must lie on one CUDA device")
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(t.dtype != q.dtype for t in (k, v)):
+        raise ValueError(f"{name}: dtypes {q.dtype}, {k.dtype}, {v.dtype}; need all float32 or all bfloat16")
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    for tname, t in extra:
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name}: {tname} {tuple(t.shape)} {t.dtype} must match q {tuple(q.shape)} {q.dtype}")
+    BH, Tq, D = q.shape
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} not in {FLASH_HEAD_DIMS}")
+    if include_diag and Tq != k.shape[1]:
+        raise ValueError(f"{name}: the diagonal variant needs Tq == Tk, got {Tq} and {k.shape[1]}")
+    if BH > 65535:
+        raise ValueError(f"{name}: B*H = {BH} exceeds the grid's y limit 65535")
+    if sep.dtype != torch.int32 or sep.numel() != 1:
+        raise ValueError(f"{name}: sep must be a one-element int32 tensor")
+    for tname, t in (("q", q), ("k", k), ("v", v), *extra):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {tname} must be contiguous and 16-byte aligned")
+
+
+def _check_rows(name: str, q, **rows) -> None:
+    """Per-row f32 inputs (lse, delta): contiguous (BH, Tq) on q's device."""
+    for rname, t in rows.items():
+        if t.shape != q.shape[:2] or t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {rname} must be a contiguous float32 {tuple(q.shape[:2])} tensor on q's device")
+
+
+def _launch(name: str, q, *args) -> None:
+    """Launch entry point ``name`` on q's device and current stream."""
+    fn = _entry(name)
+    with torch.cuda.device(q.device):
+        err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+    launch_counts[name] += 1
+
+
+def _flags(q, k, include_diag: bool) -> tuple:
+    BH, Tq, D = q.shape
+    return BH, Tq, k.shape[1], D, int(q.dtype == torch.bfloat16), int(include_diag)
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sep: torch.Tensor,
@@ -108,37 +185,42 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sep: torch.Tens
     int32 tensor on the same device. Returns (o (BH, Tq, D) in q's dtype,
     lse (BH, Tq) float32).
     """
-    if not (q.is_cuda and k.device == q.device and v.device == q.device and sep.device == q.device):
-        raise ValueError("pfn_flash_fwd: q, k, v and sep must lie on one CUDA device")
-    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"pfn_flash_fwd: dtypes {q.dtype}, {k.dtype}, {v.dtype}; need all float32 or all bfloat16")
-    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
-        raise ValueError(f"pfn_flash_fwd: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    BH, Tq, D = q.shape
-    Tk = k.shape[1]
-    if D not in FLASH_FWD_HEAD_DIMS:
-        raise ValueError(f"pfn_flash_fwd: head dim {D} not in {FLASH_FWD_HEAD_DIMS}")
-    if include_diag and Tq != Tk:
-        raise ValueError(f"pfn_flash_fwd: the diagonal variant needs Tq == Tk, got {Tq} and {Tk}")
-    if BH > 65535:
-        raise ValueError(f"pfn_flash_fwd: B*H = {BH} exceeds the grid's y limit 65535")
-    if sep.dtype != torch.int32 or sep.numel() != 1:
-        raise ValueError("pfn_flash_fwd: sep must be a one-element int32 tensor")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"pfn_flash_fwd: {name} must be contiguous and 16-byte aligned")
+    _check_flash_inputs("pfn_flash_fwd", q, k, v, sep, include_diag)
     o = torch.empty_like(q)
-    lse = torch.empty((BH, Tq), dtype=torch.float32, device=q.device)
-    if BH == 0 or Tq == 0:
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
         return o, lse
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.pfn_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), sep.data_ptr(),
-            BH, Tq, Tk, D, int(q.dtype == torch.bfloat16), int(include_diag),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"pfn_flash_fwd: launch failed with CUDA error {err}")
-    launch_counts["pfn_flash_fwd"] += 1
+    _launch("pfn_flash_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            sep.data_ptr(), *_flags(q, k, include_diag))
     return o, lse
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, sep, include_diag: bool) -> torch.Tensor:
+    """Launch the dq kernel of the PFN flash-attention backward.
+
+    q and do: (BH, Tq, D); k, v: (BH, Tk, D); one dtype, contiguous, on one
+    CUDA device, q scaled as in the forward. lse (from the forward) and delta
+    = rowsum(do * o) [- dlse]: (BH, Tq) float32. Returns dq (BH, Tq, D) in
+    q's dtype, the gradient with respect to the scaled q.
+    """
+    _check_flash_inputs("pfn_flash_bwd_dq", q, k, v, sep, include_diag, extra=(("do", do),))
+    _check_rows("pfn_flash_bwd_dq", q, lse=lse, delta=delta)
+    dq = torch.empty_like(q)
+    if q.numel() == 0:
+        return dq
+    _launch("pfn_flash_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), sep.data_ptr(), *_flags(q, k, include_diag))
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, sep, include_diag: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dk/dv kernel of the PFN flash-attention backward; inputs as
+    :func:`flash_bwd_dq`. Returns (dk, dv), (BH, Tk, D) in k's dtype."""
+    _check_flash_inputs("pfn_flash_bwd_dkv", q, k, v, sep, include_diag, extra=(("do", do),))
+    _check_rows("pfn_flash_bwd_dkv", q, lse=lse, delta=delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if k.numel() == 0:
+        return dk, dv
+    _launch("pfn_flash_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), sep.data_ptr(), *_flags(q, k, include_diag))
+    return dk, dv

@@ -8,9 +8,11 @@ kernel path.
   * :func:`pfn_attention_reference`: dense torch, f32 accumulation. The plain
     path on the CPU, and ``impl="dense"`` on the card.
   * :func:`pfn_tpu_torch.ops.flash_attention.pfn_flash_attention`: the
-    hand-written Hopper kernel.
+    hand-written Hopper kernels, forward and backward.
 
-:func:`pfn_attention` dispatches between them. The mesh branch of the JAX
+:func:`pfn_attention` dispatches between them by the JAX package's rule: the
+kernel where ``flash_supported`` holds (a CUDA tensor whose head dim the
+kernels are built for), the dense path elsewhere. The mesh branch of the JAX
 dispatch is not ported (ROADMAP.md queue 1 item 14).
 """
 
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from pfn_tpu_torch.ops.flash_attention import pfn_flash_attention, pfn_flash_prefix_attention
+from pfn_tpu_torch.ops.flash_attention import flash_supported, pfn_flash_attention, pfn_flash_prefix_attention
 
 
 def pfn_mask(seq_len: int, single_eval_pos, device=None) -> torch.Tensor:
@@ -72,12 +74,13 @@ def pfn_attention_prefix_merge(q, k_full, v_full, k_self, v_self, single_eval_po
         w   = sigmoid(s_ii - lse)          (s_ii = scale * <q_i, k_i>)
         out = o_p + w * (v_i - o_p)        for i >= sep; o_p for i < sep
 
-    The prefix pass is the kernel's prefix variant on a CUDA tensor and the
-    dense prefix path on a CPU tensor.
+    The prefix pass is the kernel's prefix variant where ``flash_supported``
+    holds for the keys, and the dense prefix path elsewhere (the JAX merge's
+    ``prefix_impl="auto"``). Gradients flow through the prefix pass's lse.
     """
     B, H, Tq, D = q.shape
     scale = scale if scale is not None else 1.0 / (D**0.5)
-    prefix = pfn_flash_prefix_attention if q.is_cuda else pfn_prefix_attention_reference
+    prefix = pfn_flash_prefix_attention if flash_supported(k_full) else pfn_prefix_attention_reference
     o_p, lse = prefix(q, k_full, v_full, single_eval_pos, scale=scale)
     s_self = (q.float() * k_self.float()).sum(dim=-1) * scale  # (B, H, Tq)
     w = torch.sigmoid(s_self - lse)[..., None].to(o_p.dtype)
@@ -91,10 +94,12 @@ def pfn_attention(q, k, v, single_eval_pos, impl: str = "auto", scale=None):
     """Dispatching PFN attention; ``scale`` overrides 1/sqrt(head_dim).
 
     impl:
-      * "auto", "flash": the kernel on a CUDA tensor. On a CPU tensor "auto"
-        runs the dense path and "flash" raises: the kernel has no CPU build.
-      * "prefix": the prefix variant of the kernel plus the exact self merge
-        (the dense prefix path on the CPU).
+      * "auto": the kernel where ``flash_supported(q)`` holds, the dense path
+        elsewhere (a CPU tensor, or a head dim the kernels lack).
+      * "flash": the kernel. It raises on a CPU tensor (the kernel has no CPU
+        build) and on a head dim the kernels lack.
+      * "prefix": the prefix pass plus the exact self merge; the prefix pass
+        follows the "auto" rule.
       * "dense": the dense path, on any device.
       * "fused": raises; the whole-layer kernels are not ported yet.
     """
@@ -107,13 +112,13 @@ def pfn_attention(q, k, v, single_eval_pos, impl: str = "auto", scale=None):
             "attention_impl='fused' needs the fused whole-layer kernels, which are not ported yet "
             "(ROADMAP.md queue 2 items 4-6)"
         )
-    if impl in ("flash", "auto"):
-        if q.is_cuda:
-            return pfn_flash_attention(q, k, v, single_eval_pos, scale=scale)
-        if impl == "flash":
-            raise RuntimeError(
-                "impl='flash' needs a CUDA tensor: the PFN flash kernel has no CPU build "
-                "(use impl='auto' or 'dense' on the CPU)"
-            )
+    if impl == "flash" and not q.is_cuda:
+        raise RuntimeError(
+            "impl='flash' needs a CUDA tensor: the PFN flash kernel has no CPU build "
+            "(use impl='auto' or 'dense' on the CPU)"
+        )
+    if impl == "flash" or (impl == "auto" and flash_supported(q)):
+        return pfn_flash_attention(q, k, v, single_eval_pos, scale=scale)
+    if impl == "auto":
         return pfn_attention_reference(q, k, v, single_eval_pos, scale=scale)
     raise ValueError(f"unknown attention impl {impl!r}")

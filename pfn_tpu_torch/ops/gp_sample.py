@@ -186,7 +186,9 @@ def gp_sample_paths_grid_from_normals(idx, latent, eps, grid_size: int, lengthsc
         raise ValueError(f"unknown grid method {method!r}")
     x = grid[idx][..., None]
     f = torch.gather(f_grid, 1, idx)
-    y = f + torch.sqrt(torch.as_tensor(noise, dtype=torch.float32, device=device)) * eps.float()
+    # A Python-float noise becomes a 0-dim CPU tensor, which multiplies a
+    # CUDA tensor without a host-to-device copy (a copy would sync the host).
+    y = f + torch.sqrt(torch.as_tensor(noise, dtype=torch.float32)) * eps.float()
     return x, y
 
 

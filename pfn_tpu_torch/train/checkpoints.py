@@ -1,18 +1,77 @@
-"""The weight bridge between the JAX package's params tree and the port.
+"""Training-state checkpoints, and the weight bridge from the JAX package.
 
-``state_dict_from_flax_params`` repeats the mapping and transposes of
-``pfn_tpu.train.checkpoints.export_torch_state_dict`` without importing jax:
-it takes the flax params tree as nested dicts of numpy arrays and returns the
-port's ``state_dict``, under the reference's torch names, so that a
-``PFNTransformer`` loaded from it with ``strict=True`` computes what the JAX
-model computes. Full training-state checkpoints wait for the training slice
-(ROADMAP.md queue 1 item 6).
+  * :func:`save_checkpoint` / :func:`restore_checkpoint`: one ``torch.save``
+    file per checkpoint directory (``epoch_N/`` under a run's
+    ``checkpoint_dir``). The train loop stores the model, the optimizer
+    state, the step, the training generator's state and the epoch, so a
+    resumed run continues the uninterrupted one exactly.
+  * :func:`prune_state_checkpoints` / :func:`latest_state_checkpoint`:
+    retention and discovery of ``epoch_N`` directories, as in the JAX
+    package.
+  * :func:`state_dict_from_flax_params` repeats the mapping and transposes of
+    ``pfn_tpu.train.checkpoints.export_torch_state_dict`` without importing
+    jax: it takes the flax params tree as nested dicts of numpy arrays and
+    returns the port's ``state_dict``, under the reference's torch names, so
+    that a ``PFNTransformer`` loaded from it with ``strict=True`` computes
+    what the JAX model computes.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
+from typing import Any
+
 import numpy as np
 import torch
+
+_STATE_FILE = "state.pt"
+
+
+def save_checkpoint(path: str, state: Any) -> None:
+    """Write ``state`` (nested dicts of tensors and Python scalars) into the
+    directory ``path``, replacing an earlier checkpoint there atomically."""
+    os.makedirs(path, exist_ok=True)
+    target = os.path.join(path, _STATE_FILE)
+    tmp = f"{target}.{os.getpid()}.tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, target)
+
+
+def restore_checkpoint(path: str, map_location=None) -> Any:
+    """Read what :func:`save_checkpoint` wrote into ``path``. Only tensors,
+    containers and scalars are unpickled (``weights_only``)."""
+    return torch.load(os.path.join(path, _STATE_FILE), map_location=map_location, weights_only=True)
+
+
+def _epoch_dirs(checkpoint_dir: str) -> list[tuple[int, str]]:
+    """(epoch, name) of every ``epoch_N`` entry under ``checkpoint_dir``."""
+    found = []
+    for name in os.listdir(checkpoint_dir):
+        if name.startswith("epoch_"):
+            try:
+                found.append((int(name.split("_", 1)[1]), name))
+            except ValueError:
+                continue
+    return sorted(found)
+
+
+def prune_state_checkpoints(checkpoint_dir: str, keep: int) -> None:
+    """Delete all but the newest ``keep`` epoch_N checkpoints."""
+    for _, name in _epoch_dirs(checkpoint_dir)[:-keep]:
+        shutil.rmtree(os.path.join(checkpoint_dir, name), ignore_errors=True)
+
+
+def latest_state_checkpoint(checkpoint_dir: str):
+    """(path, epoch) of the newest ``epoch_N`` checkpoint under
+    ``checkpoint_dir``, or None."""
+    if not os.path.isdir(checkpoint_dir):
+        return None
+    found = _epoch_dirs(checkpoint_dir)
+    if not found:
+        return None
+    epoch, name = found[-1]
+    return os.path.join(checkpoint_dir, name), epoch
 
 
 def _tensor(a) -> torch.Tensor:

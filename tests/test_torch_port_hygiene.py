@@ -3,7 +3,7 @@
   * Every pfn_tpu_torch module imports with jax blocked, and importing
     builds, loads or launches nothing.
   * No source of the port, and not chip_smoke.py, imports jax or pfn_tpu.
-  * The kernel wrapper refuses CPU tensors (it never falls back).
+  * The kernel wrappers refuse CPU tensors (they never fall back).
   * chip_smoke.py fails, printing no result line, without a CUDA device and
     when it stands alone in a directory.
 """
@@ -28,7 +28,7 @@ names = [m.name for m in pkgutil.walk_packages(pfn_tpu_torch.__path__, "pfn_tpu_
 for name in names:
     importlib.import_module(name)
 from pfn_tpu_torch.ops import _ext
-assert _ext._lib is None, "a library was loaded at import"
+assert not _ext._libs, "a library was loaded at import"
 assert sum(_ext.launch_counts.values()) == 0
 bad = sorted(m for m, mod in sys.modules.items()
              if mod is not None and (m == "pfn_tpu" or m.startswith(("pfn_tpu.", "jax", "triton"))))
@@ -64,9 +64,17 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     from pfn_tpu_torch.ops import _ext
 
     q = torch.zeros(2, 8, 32)
+    rows = torch.zeros(2, 8)
+    sep = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        _ext.flash_fwd(q, q, q, torch.zeros(1, dtype=torch.int32), True)
-    assert _ext.launch_counts["pfn_flash_fwd"] == 0
+        _ext.flash_fwd(q, q, q, sep, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        _ext.flash_bwd_dq(q, q, q, q, rows, rows, sep, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        _ext.flash_bwd_dkv(q, q, q, q, rows, rows, sep, False)
+    assert set(_ext.launch_counts) == {"pfn_flash_fwd", "pfn_flash_bwd_dq", "pfn_flash_bwd_dkv"}
+    assert sum(_ext.launch_counts.values()) == 0
+    assert not _ext._libs
 
 
 def _run_smoke(cwd: Path, home: Path):
