@@ -33,7 +33,24 @@ Phases, each printing one JSON line:
      exactly 6 layers x 25 microbatches x 4 updates times; one update on the
      kernel path against the dense path; update time, datasets/s and peak
      memory; a PFNRegressor from the result predicts a held-out dataset.
-Then the kernels line, and last {"ok": true, "device": {...}}.
+  8. fused_kernel: the fused encoder-layer forward kernel against its plain
+     version (y, r and lse) over T in {1, 16, 100, 127, 128, 129, 512}, sep
+     in {0, 1, T//2, T-1, T}, B in {1, 3} (and 64 at T = 100), (D, H, F) in
+     {(512, 4, 1024), (64, 2, 96), (32, 2, 48)}, f32 at atol = rtol = 3e-5,
+     bf16 by the rule err <= 2 * plain_bf16_err + 1e-3 against an f32 gold.
+  9. fused_timing: one layer at the bench.py flagship shape (B 64, T 100,
+     D 512, H 4, F 1024, bf16): the kernel, its plain version and the port's
+     unfused PFNEncoderLayer forward, beside the bound.
+ 10. fused_path: fused_forward at the bench.py flagship model (6 layers, 100
+     buckets, bf16, seeded weights, 64 GP datasets of T = 100): logits
+     against the unfused forward in bf16 and f32, the kernel launched once
+     per layer per forward, the median of 5 forwards fused against unfused,
+     and the fused layer's backward on the card raising.
+ 11. library_timing: F.scaled_dot_product_attention with the boolean PFN
+     mask, forward and backward, at the flash kernels' timing shapes (the
+     library yardstick of the kernels line; the port never calls it).
+Then the kernels line (each kernel's launches on its path, error, time,
+plain time, bound and library time), and last {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits nonzero and prints no result line.
 It also fails when there is no CUDA device, and when the package beside it
@@ -66,6 +83,18 @@ FIG3A_TRAIN = dict(T=2010, emsize=512, nhead=4, nhid=1024, nlayers=6, batch_size
                    buckets=10_000, bucket_seq_cap=128, grid=8192, lr=1e-4, timed_updates=4)
 TIMING_SEPS = [400, 1000, 2000]
 REPEATS = 5  # slice requests after the first call; their median is reported
+# The bench.py flagship (bench.py:22-30): emsize 512, 4 heads, nhid 1024, 6
+# layers, 100 buckets, B 64 datasets of T 100 from the grid-2048 GP prior.
+FLAGSHIP = dict(B=64, T=100, emsize=512, nhead=4, nhid=1024, nlayers=6, buckets=100, grid=2048, sep=50)
+FUSED_TIMING_SEPS = [10, 50, 90]
+FUSED_F32_TOL = 3e-5  # atol and rtol, as tests/test_fused_layer.py uses
+# f32 fused path against the f32 unfused forward: 6 layers of f32
+# summation-order differences (each within FUSED_F32_TOL), then the decoder.
+FUSED_PATH_F32_TOL = 1e-3
+# The card's peaks for the bound (H100 SXM data sheet, dense, at the 700 W
+# limit): bf16 tensor cores and HBM.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def emit(obj) -> None:
@@ -90,6 +119,71 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the bf16 products over the tensor-core peak."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def pfn_pairs(T: int, sep: int) -> int:
+    """(query, key) pairs the PFN rule allows in one (b, h): every query sees
+    the keys below sep, and a query at or past sep also itself."""
+    s = min(max(sep, 0), T)
+    return T * s + (T - s)
+
+
+def flash_bound(kind: str, BH: int, T: int, D: int, sep: int) -> dict:
+    """Bound of a flash kernel (diagonal variant, bf16) on this run's sep:
+    2 FLOPs per allowed pair and head-dim entry for each product (fwd: QK^T,
+    PV; dq: QK^T, dO V^T, dS K; dk/dv: those two and dS^T Q, P^T dO); bytes
+    of each input read once and each output written once."""
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
+    tensor = BH * T * D * 2
+    rows = BH * T * 4
+    nbytes = {"fwd": 4 * tensor + rows, "dq": 5 * tensor + 2 * rows, "dkv": 6 * tensor + 2 * rows}[kind]
+    return bound(2 * products * D * BH * pfn_pairs(T, sep), nbytes)
+
+
+def fused_layer_bound(B: int, T: int, D: int, H: int, F: int, sep: int) -> dict:
+    """Bound of the fused layer forward in bf16: the four GEMMs and the
+    attention's allowed pairs; x read and y, r, lse written in f32, the
+    weights in bf16, the biases and LayerNorm parameters in f32."""
+    M = B * T
+    flops = 2 * M * D * 3 * D + 2 * M * D * D + 4 * M * D * F + 4 * (D // H) * B * H * pfn_pairs(T, sep)
+    nbytes = 3 * M * D * 4 + M * H * 4 + 2 * (4 * D * D + 2 * D * F) + 4 * (9 * D + F)
+    return {"gflop": flops / 1e9, "mbytes": nbytes / 1e6, **bound(flops, nbytes)}
+
+
+def device_profile(fn, top: int = 8) -> dict:
+    """One call of fn() under torch.profiler, after a warm-up call: the wall
+    time from a synchronize to a synchronize, the device time of its kernels
+    (their sum, so overlapping kernels would count twice; this path runs one
+    stream), the idle share of the card in between, and the kernels that took
+    most of it: [name, ms, launches]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            kernels.append([e.key[:120], us / 1e3, e.count])
+    kernels.sort(key=lambda k: -k[1])
+    device_ms = sum(k[1] for k in kernels)
+    return {"wall_ms": wall_ms, "device_ms": device_ms if kernels else "not measured",
+            "idle_share": 1.0 - device_ms / wall_ms if kernels else "not measured", "kernels": kernels[:top]}
 
 
 def timed_request(fn):
@@ -347,7 +441,8 @@ def phase_kernel_bwd_cases(device):
     for impl in ("flash", "prefix"):
         before = dict(_ext.launch_counts)
         errs = _grad_errors(grads(impl, torch.bfloat16), gold, dense)
-        launched = {name: count - before[name] for name, count in _ext.launch_counts.items()}
+        launched = {name: _ext.launch_counts[name] - before[name]
+                    for name in ("pfn_flash_fwd", "pfn_flash_bwd_dq", "pfn_flash_bwd_dkv")}
         if not _bf16_ok(errs):
             raise AssertionError(f"impl={impl!r} bf16 gradient error over budget: {errs}")
         if min(launched.values()) < 1:
@@ -638,6 +733,233 @@ def phase_train(device, smi: str, size: dict = FIG3A_TRAIN):
     return launches
 
 
+def _fused_params(D: int, F: int, g, device) -> dict:
+    """Random fused-layer weights in the JAX layout, f32: matrices
+    N(0, 1/fan_in), biases N(0, 0.3^2), LayerNorm scales 1 + N(0, 0.3^2)."""
+    import torch
+
+    from pfn_tpu_torch.ops import _ext
+
+    p = {}
+    for k, shape in _ext.fused_param_shapes(D, F).items():
+        a = torch.randn(*shape, generator=g, device=device)
+        p[k] = a / shape[0] ** 0.5 if a.dim() == 2 else 0.3 * a + (1.0 if k.endswith("_g") else 0.0)
+    return p
+
+
+def phase_fused_kernel(device):
+    """The fused layer kernel against its plain version: y, r and lse."""
+    import torch
+
+    from pfn_tpu_torch.ops.fused_layer import fused_layer_fwd, fused_layer_fwd_plain
+
+    g = torch.Generator(device=device).manual_seed(4)
+    worst, n = {}, 0
+    for D, H, F in ((512, 4, 1024), (64, 2, 96), (32, 2, 48)):
+        p = _fused_params(D, F, g, device)
+        for T in (1, 16, 100, 127, 128, 129, 512):
+            for B in ((1, 3, 64) if T == 100 else (1, 3)):
+                for sep in sorted({0, 1, T // 2, T - 1, T}):
+                    x = torch.randn(B, T, D, generator=g, device=device)
+                    gold = fused_layer_fwd_plain(x, p, sep, H, torch.float32)
+                    for dtype in (torch.float32, torch.bfloat16):
+                        got = fused_layer_fwd(x, p, sep, H, dtype)
+                        torch.cuda.synchronize()
+                        case = dict(D=D, H=H, F=F, T=T, B=B, sep=sep, dtype=str(dtype))
+                        if not all(bool(torch.isfinite(t).all()) for t in got):
+                            raise AssertionError(f"fused kernel: non-finite output {case}")
+                        errs = {name: max_abs(a, b) for name, a, b in zip(("y", "r", "lse"), got, gold)}
+                        if dtype == torch.float32:
+                            for name, a, b in zip(("y", "r", "lse"), got, gold):
+                                if not torch.allclose(a, b, atol=FUSED_F32_TOL, rtol=FUSED_F32_TOL):
+                                    raise AssertionError(f"fused kernel: {name} mismatch {case}: {errs[name]}")
+                        else:
+                            plain = fused_layer_fwd_plain(x, p, sep, H, torch.bfloat16)
+                            for name, a, b in zip(("y", "r", "lse"), plain, gold):
+                                budget = 2 * max_abs(a, b) + 1e-3
+                                errs[f"{name}_budget"] = budget
+                                if errs[name] > budget:
+                                    raise AssertionError(
+                                        f"fused kernel: bf16 {name} error {errs[name]} over budget {budget}: {case}")
+                        w = worst.setdefault(case["dtype"], {"cases": 0})
+                        w["cases"] += 1
+                        for name in ("y", "r", "lse"):
+                            w[name] = max(w.get(name, 0.0), errs[name])
+                            if f"{name}_budget" in errs:
+                                w[f"{name}_worst_share_of_budget"] = max(
+                                    w.get(f"{name}_worst_share_of_budget", 0.0), errs[name] / errs[f"{name}_budget"])
+                        n += 1
+    emit({"phase": "fused_kernel", "cases": n, "worst": worst, "tol_f32": FUSED_F32_TOL,
+          "bf16_rule": "err <= 2 * plain_bf16_err + 1e-3 against the plain f32 gold, for y, r and lse"})
+
+
+def _load_layer(layer, p: dict) -> None:
+    """Copy fused-layer weights in the JAX layout into a PFNEncoderLayer."""
+    import torch
+
+    with torch.no_grad():
+        layer.self_attn.in_proj_weight.copy_(p["wqkv"].t())
+        layer.self_attn.in_proj_bias.copy_(p["bqkv"])
+        for name, w, b in (("self_attn.out_proj", "wout", "bout"), ("linear1", "w1", "b1"), ("linear2", "w2", "b2")):
+            layer.get_submodule(name).weight.copy_(p[w].t())
+            layer.get_submodule(name).bias.copy_(p[b])
+        for i in (1, 2):
+            layer.get_submodule(f"norm{i}").weight.copy_(p[f"ln{i}_g"])
+            layer.get_submodule(f"norm{i}").bias.copy_(p[f"ln{i}_b"])
+
+
+def phase_fused_timing(device, smi: str, size: dict = FLAGSHIP):
+    """One fused layer at the flagship shape, bf16: the kernel, its plain
+    version and the unfused PFNEncoderLayer forward (cuBLAS and the flash
+    forward kernel), beside the bound."""
+    import torch
+
+    from pfn_tpu_torch.models import PFNEncoderLayer
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.ops.fused_layer import _kernel_params, fused_layer_fwd_plain
+
+    B, T, D, H, F = size["B"], size["T"], size["emsize"], size["nhead"], size["nhid"]
+    g = torch.Generator(device=device).manual_seed(6)
+    p = _fused_params(D, F, g, device)
+    kp = _kernel_params(p, torch.bfloat16)
+    x = torch.randn(B, T, D, generator=g, device=device)
+    layer = PFNEncoderLayer(D, H, F, dtype=torch.bfloat16).to(device).eval()
+    _load_layer(layer, p)
+    rows = []
+    with torch.no_grad():
+        for sep in FUSED_TIMING_SEPS:
+            sep_t = torch.full((1,), sep, dtype=torch.int32, device=device)
+            y, _, _ = _ext.fused_layer_fwd(x, kp, sep_t, H)
+            y_plain, _, _ = fused_layer_fwd_plain(x, p, sep_t, H, torch.bfloat16)
+            rows.append({
+                "sep": sep,
+                "kernel_ms": cuda_ms(lambda: _ext.fused_layer_fwd(x, kp, sep_t, H)),
+                "plain_ms": cuda_ms(lambda: fused_layer_fwd_plain(x, p, sep_t, H, torch.bfloat16)),
+                "unfused_layer_ms": cuda_ms(lambda: layer(x, sep_t)),
+                "kernel_ms_again": cuda_ms(lambda: _ext.fused_layer_fwd(x, kp, sep_t, H)),
+                "max_abs_err": max_abs(y, y_plain),
+                **fused_layer_bound(B, T, D, H, F, sep),
+            })
+    emit({"phase": "fused_timing", "shape": {"B": B, "T": T, "D": D, "H": H, "F": F, "dtype": "bf16"},
+          "card": smi, "device_kernels_per_layer": 8, "rows": rows})
+    return rows
+
+
+def phase_fused_path(device, smi: str, size: dict = FLAGSHIP):
+    """fused_forward at the bench.py flagship model against the unfused
+    forward; the kernel's launches on the fused path."""
+    import numpy as np
+    import torch
+
+    from pfn_tpu_torch.models import PFNTransformer, TransformerConfig
+    from pfn_tpu_torch.models.fused_apply import _layer_params, fused_forward
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.ops.fused_layer import fused_encoder_layer
+    from pfn_tpu_torch.priors import GPPrior
+    from pfn_tpu_torch.train import seeded_flax_params, state_dict_from_flax_params
+
+    B, T = size["B"], size["T"]
+    cfg = TransformerConfig(num_features=1, n_out=size["buckets"], emsize=size["emsize"], nhead=size["nhead"],
+                            nhid=size["nhid"], nlayers=size["nlayers"], dtype=torch.bfloat16)
+    state_dict = state_dict_from_flax_params(
+        seeded_flax_params(1, cfg.emsize, cfg.nhid, cfg.nlayers, cfg.n_out, seed=0), cfg.nlayers)
+    for name in ("self_attn.out_proj.weight", "linear2.weight"):
+        if not bool(state_dict[f"transformer_encoder.layers.0.{name}"].abs().sum() > 0):
+            raise AssertionError(f"{name} is zero: attention would not reach the output")
+
+    def build(**over):
+        model = PFNTransformer(dataclasses.replace(cfg, **over)).to(device).eval()
+        model.load_state_dict(state_dict, strict=True)
+        return model
+
+    model = build()
+    prior = GPPrior(num_features=1, noise=1e-4, outputscale=1.0, lengthscale=0.6, grid=size["grid"])
+    x, y, _ = prior.sample(B, T, generator=torch.Generator(device=device).manual_seed(13), device=device)
+    sep = torch.full((1,), size["sep"], dtype=torch.int32, device=device)
+    with torch.no_grad():
+        _ext.reset_launch_counts()
+        fused_runs = [timed_request(lambda: fused_forward(model, x, y, sep)) for _ in range(1 + REPEATS)]
+        launched = dict(_ext.launch_counts)
+        unfused_runs = [timed_request(lambda: model(x, y, sep)) for _ in range(1 + REPEATS)]
+        logits = fused_runs[-1][2]
+        unfused = unfused_runs[-1][2]
+        model_f32 = build(dtype=torch.float32)
+        unfused_f32 = model_f32(x, y, sep)
+        fused_f32 = fused_forward(model_f32, x, y, sep)
+        profiles = {"fused": device_profile(lambda: fused_forward(model, x, y, sep)),
+                    "unfused": device_profile(lambda: model(x, y, sep))}
+    expected = cfg.nlayers * (1 + REPEATS)
+    err_fused_vs_f32 = max_abs(logits, unfused_f32)
+    err_unfused_vs_f32 = max_abs(unfused, unfused_f32)
+    budget = 2 * err_unfused_vs_f32 + 1e-3
+    err_f32 = max_abs(fused_f32, unfused_f32)
+
+    # The backward kernels are not ported: on the card the backward raises.
+    tokens = torch.randn(B, T, cfg.emsize, device=device, requires_grad=True)
+    out = fused_encoder_layer(tokens, _layer_params(model.transformer_encoder.layers[0], cfg.dtype), sep, cfg.nhead,
+                              cfg.dtype)
+    try:
+        out.sum().backward()
+        backward_message = None
+    except NotImplementedError as e:
+        backward_message = str(e)
+
+    latency = {name: {"first": runs[0][0], f"median_of_{REPEATS}": float(np.median([r[0] for r in runs[1:]]))}
+               for name, runs in (("fused", fused_runs), ("unfused", unfused_runs))}
+    wall = {name: {"first": runs[0][1], f"median_of_{REPEATS}": float(np.median([r[1] for r in runs[1:]]))}
+            for name, runs in (("fused", fused_runs), ("unfused", unfused_runs))}
+    checks = {
+        "logits_shape": tuple(logits.shape) == (B, T, cfg.n_out),
+        "logits_finite": bool(torch.isfinite(logits).all()),
+        "fused_vs_unfused_bf16_budget": err_fused_vs_f32 <= budget,
+        "fused_vs_unfused_f32": err_f32 <= FUSED_PATH_F32_TOL,
+        "launches": launched["pfn_fused_layer_fwd"] == expected,
+        "no_flash_launch_on_fused_path": launched["pfn_flash_fwd"] == 0,
+        "backward_raises_on_card": backward_message is not None and "queue 2 items 5-6" in backward_message,
+    }
+    emit({
+        "phase": "fused_path", "card": smi, "size": size, "dtype": "bf16", "latency_ms": latency, "wall_ms": wall,
+        "err_fused_bf16_vs_unfused_f32": err_fused_vs_f32, "err_unfused_bf16_vs_f32": err_unfused_vs_f32,
+        "budget": budget, "err_fused_vs_unfused_bf16": max_abs(logits, unfused),
+        "err_fused_f32_vs_unfused_f32": err_f32, "tol_f32": FUSED_PATH_F32_TOL, "launches": launched,
+        "expected_launches": expected, "profiles": profiles, "checks": checks,
+    })
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"fused_path checks failed: {failed}")
+    return launched["pfn_fused_layer_fwd"], latency
+
+
+def phase_library_timing(device, smi: str):
+    """F.scaled_dot_product_attention with the boolean PFN mask at the flash
+    kernels' timing shapes: the forward at B*H = 32, the backward (dq, dk, dv
+    together) and forward + backward at B*H = 16; T = 2010, D = 128, bf16,
+    sep = 1000. A yardstick only: the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from pfn_tpu_torch.ops.attention import pfn_attention_reference, pfn_mask
+
+    g = torch.Generator(device=device).manual_seed(8)
+    T, D, sep = 2010, 128, 1000
+    mask = pfn_mask(T, sep, device=device)
+    q, k, v = (torch.randn(8, 4, T, D, generator=g, device=device).to(torch.bfloat16) for _ in range(3))
+    with torch.no_grad():
+        err = max_abs(F.scaled_dot_product_attention(q, k, v, attn_mask=mask), pfn_attention_reference(q, k, v, sep))
+        fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    leaves = [t[:4].detach().requires_grad_() for t in (q, k, v)]
+    do = torch.randn(4, 4, T, D, generator=g, device=device).to(torch.bfloat16)
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+    fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(*leaves, attn_mask=mask),
+                                                     leaves, do))
+    result = {"sdpa_fwd_ms": fwd_ms, "sdpa_bwd_ms": bwd_ms, "sdpa_fwd_bwd_ms": fwd_bwd_ms,
+              "sdpa_vs_dense_bf16_max_abs": err}
+    emit({"phase": "library_timing", "card": smi, "shape": {"T": T, "D": D, "sep": sep, "dtype": "bf16",
+          "fwd_BH": 32, "bwd_BH": 16}, **result})
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -653,20 +975,32 @@ def main() -> int:
     bwd_timing = phase_kernel_bwd_timing(device, smi)
     phase_slice(device, smi)
     launches = phase_train(device, smi)
+    phase_fused_kernel(device)
+    fused_timing = phase_fused_timing(device, smi)
+    fused_launches, _ = phase_fused_path(device, smi)
+    library = phase_library_timing(device, smi)
     fwd = next(r for r in timing if r["sep"] == 1000)
     bwd = next(r for r in bwd_timing if r["sep"] == 1000)
+    fused = next(r for r in fused_timing if r["sep"] == FLAGSHIP["sep"])
     bwd_source = "pfn_tpu_torch/ops/csrc/pfn_flash_bwd.cu"
     emit({"kernels": [
         {"name": "pfn_flash_fwd", "route": "cuda", "source": "pfn_tpu_torch/ops/csrc/pfn_flash_fwd.cu",
          "replaces": "pfn_tpu/ops/flash_attention.py:255", "launches": launches["pfn_flash_fwd"],
-         "max_abs_err": fwd["max_abs_err"], "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"]},
+         "max_abs_err": fwd["max_abs_err"], "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"],
+         **flash_bound("fwd", 32, 2010, 128, 1000), "library_ms": library["sdpa_fwd_ms"]},
         {"name": "pfn_flash_bwd_dq", "route": "cuda", "source": bwd_source,
          "replaces": "pfn_tpu/ops/flash_attention.py:315", "launches": launches["pfn_flash_bwd_dq"],
-         "max_abs_err": bwd["max_abs_err"]["dq"], "ms": bwd["dq_ms"], "plain_ms": bwd["plain_ms"]},
+         "max_abs_err": bwd["max_abs_err"]["dq"], "ms": bwd["dq_ms"], "plain_ms": bwd["plain_ms"],
+         **flash_bound("dq", 16, 2010, 128, 1000), "library_ms": library["sdpa_bwd_ms"]},
         {"name": "pfn_flash_bwd_dkv", "route": "cuda", "source": bwd_source,
          "replaces": "pfn_tpu/ops/flash_attention.py:340", "launches": launches["pfn_flash_bwd_dkv"],
          "max_abs_err": max(bwd["max_abs_err"]["dk"], bwd["max_abs_err"]["dv"]), "ms": bwd["dkv_ms"],
-         "plain_ms": bwd["plain_ms"]},
+         "plain_ms": bwd["plain_ms"], **flash_bound("dkv", 16, 2010, 128, 1000),
+         "library_ms": library["sdpa_bwd_ms"]},
+        {"name": "pfn_fused_layer_fwd", "route": "cuda", "source": "pfn_tpu_torch/ops/csrc/pfn_fused_layer_fwd.cu",
+         "replaces": "pfn_tpu/ops/fused_layer.py:324", "launches": fused_launches,
+         "max_abs_err": fused["max_abs_err"], "ms": fused["kernel_ms"], "plain_ms": fused["plain_ms"],
+         "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"], "library_ms": fused["unfused_layer_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
                                  "count": torch.cuda.device_count()}})

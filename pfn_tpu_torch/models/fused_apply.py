@@ -1,0 +1,91 @@
+"""The model forward with the layer stack on the fused whole-layer kernel.
+
+Port of ``pfn_tpu/models/fused_apply.py``. :func:`fused_forward` computes
+``PFNTransformer.forward`` from the same module and weights, with the embed
+and the f32 decoder through the model's own modules and each encoder layer as
+one :func:`pfn_tpu_torch.ops.fused_layer.fused_encoder_layer` call. The
+layers' numerics are the TPU kernel's (see that module), so in bf16 the
+result differs from the unfused forward by rounding; in f32 the two agree.
+
+Supported subset: the flagship configs (default Linear x/y encoders, no
+positional encoding, no SeqBN, dropout 0, dense FFN, tanh GELU) at widths
+the kernel is built for, T <= 512. Anything else raises.
+``PFNTransformer.forward`` does not dispatch here; training through this
+path waits for the backward kernels (ROADMAP.md queue 2 items 5-6).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pfn_tpu_torch.models.decoders import MLPDecoder
+from pfn_tpu_torch.models.encoders import LinearEncoder
+from pfn_tpu_torch.models.positional import NoPositionalEncoding
+from pfn_tpu_torch.models.transformer import PFNEncoderLayer, PFNTransformer, TransformerConfig
+from pfn_tpu_torch.ops import _ext
+from pfn_tpu_torch.ops.fused_layer import fused_encoder_layer
+
+
+def fused_supported(cfg: TransformerConfig) -> str | None:
+    """None if the fused path can run this config, else the reason not."""
+    checks = [
+        (cfg.encoder in (None, LinearEncoder), "custom x-encoder"),
+        (cfg.y_encoder in (None, LinearEncoder), "custom y-encoder"),
+        (cfg.pos_encoder in (None, NoPositionalEncoding), "positional encoding"),
+        (cfg.decoder in (None, MLPDecoder), "custom decoder"),
+        (not cfg.input_normalization, "SeqBN input normalization"),
+        (cfg.dropout == 0.0, "dropout > 0"),
+        (cfg.num_experts == 0, "MoE FFN"),
+        (not cfg.exact_gelu, "exact (erf) GELU — kernel implements tanh"),
+        (cfg.emsize % cfg.nhead == 0, "emsize % nhead != 0"),
+    ]
+    for ok, reason in checks:
+        if not ok:
+            return reason
+    return _ext.fused_shape_error(cfg.emsize, cfg.nhead, cfg.nhid)
+
+
+def _layer_params(layer: PFNEncoderLayer, dtype: torch.dtype) -> dict:
+    """A port layer's weights in the JAX layout: (in, out) matrices,
+    pre-cast to the compute dtype; biases and LayerNorm parameters as they
+    are (f32)."""
+    attn = layer.self_attn
+    return {
+        "wqkv": attn.in_proj_weight.t().to(dtype).contiguous(),
+        "bqkv": attn.in_proj_bias,
+        "wout": attn.out_proj.weight.t().to(dtype).contiguous(),
+        "bout": attn.out_proj.bias,
+        "ln1_g": layer.norm1.weight,
+        "ln1_b": layer.norm1.bias,
+        "w1": layer.linear1.weight.t().to(dtype).contiguous(),
+        "b1": layer.linear1.bias,
+        "w2": layer.linear2.weight.t().to(dtype).contiguous(),
+        "b2": layer.linear2.bias,
+        "ln2_g": layer.norm2.weight,
+        "ln2_b": layer.norm2.bias,
+    }
+
+
+def fused_forward(model: PFNTransformer, x: torch.Tensor, y: torch.Tensor, single_eval_pos) -> torch.Tensor:
+    """``model(x, y, single_eval_pos)`` with the layer stack on the fused
+    kernel: (B, T, F), (B, T) -> (B, T, n_out) f32."""
+    cfg = model.config
+    reason = fused_supported(cfg)
+    if reason is not None:
+        raise ValueError(f"fused path does not support this config: {reason}")
+    T = x.shape[1]
+    if T > _ext.FUSED_MAX_SEQ:
+        # The kernel holds a (32, T) f32 score row buffer per block: the
+        # short-sequence regime. Long sequences belong to the flash kernels.
+        raise ValueError(
+            f"fused path is for short sequences (T <= {_ext.FUSED_MAX_SEQ}, got {T}) — use "
+            "attention_impl='flash' for the long-context regime"
+        )
+    dtype = cfg.dtype
+    x_emb = model.encoder(x.to(dtype).float())
+    y_emb = model.y_encoder(y[..., None].to(dtype).float())
+    pos = torch.arange(T, device=x.device)[None, :, None]
+    tokens = x_emb + torch.where(pos < single_eval_pos, y_emb, torch.zeros_like(y_emb))
+    for layer in model.transformer_encoder.layers:
+        tokens = fused_encoder_layer(tokens, _layer_params(layer, dtype), single_eval_pos, cfg.nhead, dtype)
+    return model.decoder(tokens.float())

@@ -46,7 +46,7 @@ class TransformerConfig:
     nlayers: int = 6
     dropout: float = 0.0
     input_normalization: bool = False
-    attention_impl: str = "auto"  # 'auto' | 'flash' | 'prefix' | 'dense'
+    attention_impl: str = "auto"  # 'auto' | 'flash' | 'prefix' | 'dense' | 'fused' (as 'auto' here)
     dtype: torch.dtype = torch.float32  # compute dtype; parameters are f32
     encoder: Callable | None = None
     y_encoder: Callable | None = None

@@ -36,12 +36,31 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "pfn_flash_fwd": _CSRC / "pfn_flash_fwd.cu",
     "pfn_flash_bwd": _CSRC / "pfn_flash_bwd.cu",
+    "pfn_fused_layer_fwd": _CSRC / "pfn_fused_layer_fwd.cu",
 }
 # Head dims the forward and both backward kernels are instantiated for.
 FLASH_HEAD_DIMS = (32, 64, 128)
+# Head dims the fused layer's attention is instantiated for, and its longest
+# sequence (one block holds a (32, T) f32 score row buffer).
+FUSED_HEAD_DIMS = (16, 32, 64, 128)
+FUSED_MAX_SEQ = 512
+# The fused layer's parameters, in the order of its C entry point (the JAX
+# package's ``_PARAM_ORDER``); the four matrices are in the compute dtype.
+FUSED_PARAM_ORDER = (
+    "wqkv", "bqkv", "wout", "bout", "ln1_g", "ln1_b",
+    "w1", "b1", "w2", "b2", "ln2_g", "ln2_b",
+)
+FUSED_MATRICES = ("wqkv", "wout", "w1", "w2")
+
+
+def fused_param_shapes(D: int, F: int) -> dict:
+    """{name: shape} of the fused layer's parameters at width D and FFN
+    width F, in ``FUSED_PARAM_ORDER``."""
+    return {"wqkv": (D, 3 * D), "bqkv": (3 * D,), "wout": (D, D), "bout": (D,), "ln1_g": (D,), "ln1_b": (D,),
+            "w1": (D, F), "b1": (F,), "w2": (F, D), "b2": (D,), "ln2_g": (D,), "ln2_b": (D,)}
 
 # Kernel launches since the last reset_launch_counts(), by kernel name.
-launch_counts = {"pfn_flash_fwd": 0, "pfn_flash_bwd_dq": 0, "pfn_flash_bwd_dkv": 0}
+launch_counts = {"pfn_flash_fwd": 0, "pfn_flash_bwd_dq": 0, "pfn_flash_bwd_dkv": 0, "pfn_fused_layer_fwd": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of each entry point: pointers, then int sizes and flags, then the stream.
@@ -49,6 +68,7 @@ _SIGNATURES = {
     "pfn_flash_fwd": ("pfn_flash_fwd", [_P] * 6 + [_I] * 6 + [_P]),
     "pfn_flash_bwd_dq": ("pfn_flash_bwd", [_P] * 8 + [_I] * 6 + [_P]),
     "pfn_flash_bwd_dkv": ("pfn_flash_bwd", [_P] * 9 + [_I] * 6 + [_P]),
+    "pfn_fused_layer_fwd": ("pfn_fused_layer_fwd", [_P] * 21 + [_I] * 6 + [_P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -224,3 +244,76 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, sep, include_diag: bool) -> tuple[tor
     _launch("pfn_flash_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), sep.data_ptr(), *_flags(q, k, include_diag))
     return dk, dv
+
+
+def fused_shape_error(D: int, H: int, F: int, T: int | None = None) -> str | None:
+    """Why the fused layer kernel does not take widths (D, H, F) and
+    sequence length T, or None if it does."""
+    if D % H:
+        return f"emsize {D} % nhead {H} != 0"
+    if D // H not in FUSED_HEAD_DIMS:
+        return f"head dim {D // H} not in {FUSED_HEAD_DIMS}"
+    if D % 16 or F % 16:
+        return f"emsize {D} and nhid {F} must be multiples of 16"
+    if T is not None and T > FUSED_MAX_SEQ:
+        return f"sequence length {T} > {FUSED_MAX_SEQ}"
+    return None
+
+
+def fused_layer_fwd(x: torch.Tensor, params: dict, sep: torch.Tensor,
+                    nhead: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the fused encoder-layer forward: one call, which enqueues the
+    layer's device kernels (eight in bf16, seven in f32) on the current
+    stream and counts one launch.
+
+    x: (B, T, D) float32; ``params`` holds the entries of
+    ``FUSED_PARAM_ORDER`` in the JAX package's layout: the four matrices
+    (wqkv (D, 3D), wout (D, D), w1 (D, F), w2 (F, D)) all float32 or all
+    bfloat16, which is the compute dtype, and the eight vectors float32; all
+    contiguous on x's CUDA device. ``sep``: a one-element int32 tensor there.
+    Returns (y, r (B, T, D), lse (B, T, H)), all float32.
+    """
+    name = "pfn_fused_layer_fwd"
+    ordered = [params[k] for k in FUSED_PARAM_ORDER]
+    if not (x.is_cuda and all(t.device == x.device for t in (sep, *ordered))):
+        raise ValueError(f"{name}: every input must lie on one CUDA device")
+    if x.dtype != torch.float32 or x.dim() != 3:
+        raise ValueError(f"{name}: x must be a float32 (B, T, D) tensor, got {x.dtype} {tuple(x.shape)}")
+    B, T, D = x.shape
+    F = params["w1"].shape[-1]
+    reason = fused_shape_error(D, nhead, F, T)
+    if reason is not None:
+        raise ValueError(f"{name}: {reason}")
+    cdt = params["wqkv"].dtype
+    for k, shape in fused_param_shapes(D, F).items():
+        want = cdt if k in FUSED_MATRICES else torch.float32
+        t = params[k]
+        if tuple(t.shape) != shape or t.dtype != want:
+            raise ValueError(f"{name}: {k} is {t.dtype} {tuple(t.shape)}, need {want} {shape}")
+    if cdt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: compute dtype {cdt}; need float32 or bfloat16")
+    # int sizes in the kernels, and grid limits: B items on the attention's z
+    # axis, B*T rows in 128-row GEMM tiles on y.
+    if B * T * 3 * D >= 2**31 or B > 65535 or B * T > 65535 * 128:
+        raise ValueError(f"{name}: B {B} x T {T} is too large for the kernel's indexing and grid")
+    if sep.dtype != torch.int32 or sep.numel() != 1:
+        raise ValueError(f"{name}: sep must be a one-element int32 tensor")
+    for tname, t in (("x", x), *zip(FUSED_PARAM_ORDER, ordered)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {tname} must be contiguous and 16-byte aligned")
+    y = torch.empty_like(x)
+    r = torch.empty_like(x)
+    lse = torch.empty((B, T, nhead), dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return y, r, lse
+    # Scratch for the intermediates that pass between the layer's kernels. It
+    # is freed when this returns, before the kernels have run: the caching
+    # allocator hands its blocks only to later work on this stream.
+    qkv = torch.empty((B * T, 3 * D), dtype=cdt, device=x.device)
+    attn = torch.empty((B * T, D), dtype=cdt, device=x.device)
+    rc = torch.empty((B * T, D), dtype=cdt, device=x.device)
+    g = torch.empty((B * T, F), dtype=cdt, device=x.device)
+    _launch(name, x, x.data_ptr(), *(t.data_ptr() for t in ordered), y.data_ptr(), r.data_ptr(), lse.data_ptr(),
+            qkv.data_ptr(), attn.data_ptr(), rc.data_ptr(), g.data_ptr(), sep.data_ptr(),
+            B, T, D, nhead, F, int(cdt == torch.bfloat16))
+    return y, r, lse

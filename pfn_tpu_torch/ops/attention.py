@@ -101,17 +101,17 @@ def pfn_attention(q, k, v, single_eval_pos, impl: str = "auto", scale=None):
       * "prefix": the prefix pass plus the exact self merge; the prefix pass
         follows the "auto" rule.
       * "dense": the dense path, on any device.
-      * "fused": raises; the whole-layer kernels are not ported yet.
+      * "fused": as "auto". The fused whole-layer kernel replaces the whole
+        layer, not this op (``models.fused_apply.fused_forward``); a model
+        configured with it evaluates through the ordinary path, as in the
+        JAX package.
     """
+    if impl == "fused":
+        impl = "auto"
     if impl == "dense":
         return pfn_attention_reference(q, k, v, single_eval_pos, scale=scale)
     if impl == "prefix":
         return pfn_attention_prefix_merge(q, k, v, k, v, single_eval_pos, 0, scale=scale)
-    if impl == "fused":
-        raise NotImplementedError(
-            "attention_impl='fused' needs the fused whole-layer kernels, which are not ported yet "
-            "(ROADMAP.md queue 2 items 4-6)"
-        )
     if impl == "flash" and not q.is_cuda:
         raise RuntimeError(
             "impl='flash' needs a CUDA tensor: the PFN flash kernel has no CPU build "

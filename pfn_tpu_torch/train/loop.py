@@ -31,6 +31,7 @@ from typing import Any, Callable
 
 import torch
 
+from pfn_tpu_torch.device import require_cuda
 from pfn_tpu_torch.models.transformer import PFNTransformer, TransformerConfig, num_params
 from pfn_tpu_torch.train.checkpoints import (
     latest_state_checkpoint,
@@ -49,10 +50,11 @@ _BUILTIN_SAMPLERS = ("weighted", "uniform", "mixture")
 @dataclasses.dataclass
 class TrainConfig:
     """The JAX package's TrainConfig (the reference train() signature), plus
-    the training ``device`` (None: the current CUDA device if there is one,
-    else the CPU). The fields for options the port does not have yet (a mesh,
-    fsdp, experts, the fused path, dropout, custom modules) are kept and
-    raise, naming their ROADMAP.md item."""
+    the training ``device`` (None: the current CUDA device, and an error
+    when there is no card; pass "cpu" to train on the CPU). The fields for
+    options the port does not have yet (a mesh, fsdp, experts, the fused
+    path, dropout, custom modules) are kept and raise, naming their
+    ROADMAP.md item."""
 
     emsize: int = 200
     nhid: int = 200
@@ -122,7 +124,7 @@ def _check_ported(cfg: TrainConfig, mesh=None) -> None:
         "a device mesh": (mesh is not None, "queue 1 item 14 (parallelism)"),
         "fsdp": (cfg.fsdp, "queue 1 item 14 (parallelism)"),
         "num_experts > 0": (cfg.num_experts > 0, "queue 1 item 14 (MoE)"),
-        "attention_impl='fused'": (cfg.attention_impl == "fused", "queue 2 items 4-6 (fused whole-layer kernels)"),
+        "attention_impl='fused'": (cfg.attention_impl == "fused", "queue 2 items 5-6 (fused backward kernels)"),
         "dropout > 0": (cfg.dropout > 0, "queue 1 item 9 (dropout)"),
         "custom encoder, y_encoder, pos_encoder or decoder": (
             any(m is not None for m in (cfg.encoder, cfg.y_encoder, cfg.pos_encoder, cfg.decoder)),
@@ -138,7 +140,7 @@ def _check_ported(cfg: TrainConfig, mesh=None) -> None:
 def _device(cfg: TrainConfig) -> torch.device:
     if cfg.device is not None:
         return torch.device(cfg.device)
-    return torch.device("cuda", torch.cuda.current_device()) if torch.cuda.is_available() else torch.device("cpu")
+    return require_cuda()
 
 
 def _updates_per_epoch(cfg: TrainConfig) -> int:

@@ -109,14 +109,16 @@ def test_prefix_merge_equals_pfn_rule(sep):
 
 
 def test_dispatch_on_cpu():
-    """auto runs the dense path on a CPU tensor; flash and fused raise."""
+    """auto runs the dense path on a CPU tensor; flash raises; fused is auto,
+    as pfn_tpu/ops/attention.py:246-250 makes it."""
     q, k, v = _t(*_qkv(40, D=32))
     _close(tattn.pfn_attention(q, k, v, 17), tattn.pfn_attention_reference(q, k, v, 17))
     _close(tattn.pfn_attention(q, k, v, 17, impl="dense"), tattn.pfn_attention_reference(q, k, v, 17))
     with pytest.raises(RuntimeError, match="CUDA"):
         tattn.pfn_attention(q, k, v, 17, impl="flash")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.pfn_attention(q, k, v, 17, impl="fused")
+    assert torch.equal(tattn.pfn_attention(q, k, v, 17, impl="fused"), tattn.pfn_attention(q, k, v, 17))
+    want = jattn.pfn_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)), 17, impl="fused")
+    _close(tattn.pfn_attention(q, k, v, 17, impl="fused"), want)
     with pytest.raises(ValueError):
         tattn.pfn_attention(q, k, v, 17, impl="nope")
 

@@ -72,7 +72,11 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         _ext.flash_bwd_dq(q, q, q, q, rows, rows, sep, True)
     with pytest.raises(ValueError, match="CUDA"):
         _ext.flash_bwd_dkv(q, q, q, q, rows, rows, sep, False)
-    assert set(_ext.launch_counts) == {"pfn_flash_fwd", "pfn_flash_bwd_dq", "pfn_flash_bwd_dkv"}
+    params = {k: torch.zeros(s) for k, s in _ext.fused_param_shapes(32, 48).items()}
+    with pytest.raises(ValueError, match="CUDA"):
+        _ext.fused_layer_fwd(torch.zeros(2, 8, 32), params, sep, 2)
+    assert set(_ext.launch_counts) == {"pfn_flash_fwd", "pfn_flash_bwd_dq", "pfn_flash_bwd_dkv",
+                                       "pfn_fused_layer_fwd"}
     assert sum(_ext.launch_counts.values()) == 0
     assert not _ext._libs
 

@@ -171,6 +171,17 @@ def test_flash_supported_is_the_auto_dispatch_rule():
     assert not flash_supported(torch.zeros(1, 2, 8, 64))
 
 
+def test_device_default_needs_a_card(monkeypatch, criterion):
+    """TrainConfig.device=None means the current CUDA device: without a card
+    training raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(PRIOR, criterion, _cfg(device=None))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(PRIOR, criterion, _cfg(device=None, epochs=1))
+    assert next(build_model(PRIOR, criterion, _cfg()).parameters()).device.type == "cpu"
+
+
 @pytest.mark.parametrize("supported", [True, False])
 def test_auto_and_prefix_follow_flash_supported(monkeypatch, supported):
     """impl='auto' and the prefix pass of impl='prefix' take the kernel path
