@@ -41,12 +41,29 @@ Phases, each printing one JSON line:
   9. fused_timing: one layer at the bench.py flagship shape (B 64, T 100,
      D 512, H 4, F 1024, bf16): the kernel, its plain version and the port's
      unfused PFNEncoderLayer forward, beside the bound.
- 10. fused_path: fused_forward at the bench.py flagship model (6 layers, 100
+ 10. fused_bwd_kernel: the fused layer's two backward kernels (FFN, then
+     attention) against fused_layer_bwd_plain on fused_kernel's grid, r and
+     lse from the forward kernel: dx and all 12 gradients, f32 at atol =
+     rtol = 3e-4, bf16 by the kernel_bwd rule against the plain bf16
+     backward's own error and an f32 gold; a repeat call bitwise equal.
+ 11. fused_bwd_timing: both backward kernels at the flagship shape beside
+     their plain versions, the unfused PFNEncoderLayer's backward and the
+     bound.
+ 12. fused_path: fused_forward at the bench.py flagship model (6 layers, 100
      buckets, bf16, seeded weights, 64 GP datasets of T = 100): logits
      against the unfused forward in bf16 and f32, the kernel launched once
      per layer per forward, the median of 5 forwards fused against unfused,
-     and the fused layer's backward on the card raising.
- 11. library_timing: F.scaled_dot_product_attention with the boolean PFN
+     and one backward through it on the card (each backward kernel launched
+     once per layer, no flash kernel).
+ 13. fused_train: train(...) with attention_impl="fused" at the bench.py
+     config (B 64, T 100, the flagship model, 100 buckets on (-4, 4), lr
+     1e-4, the uniform sampler, grid-2048 GP prior), seeded weights: 2
+     epochs of 2 updates with a checkpoint and a resume; each fused kernel
+     launched 6 layers x 4 updates times and no flash kernel; one update
+     fused against unfused (bf16 budget, f32 1e-4 relative); no host sync
+     inside a fused update; update times fused and unfused, peak memory, a
+     profile of one fused update.
+ 14. library_timing: F.scaled_dot_product_attention with the boolean PFN
      mask, forward and backward, at the flash kernels' timing shapes (the
      library yardstick of the kernels line; the port never calls it).
 Then the kernels line (each kernel's launches on its path, error, time,
@@ -88,9 +105,13 @@ REPEATS = 5  # slice requests after the first call; their median is reported
 FLAGSHIP = dict(B=64, T=100, emsize=512, nhead=4, nhid=1024, nlayers=6, buckets=100, grid=2048, sep=50)
 FUSED_TIMING_SEPS = [10, 50, 90]
 FUSED_F32_TOL = 3e-5  # atol and rtol, as tests/test_fused_layer.py uses
+FUSED_BWD_F32_TOL = 3e-4  # atol and rtol of f32 gradients, as tests/test_fused_layer.py uses
 # f32 fused path against the f32 unfused forward: 6 layers of f32
 # summation-order differences (each within FUSED_F32_TOL), then the decoder.
 FUSED_PATH_F32_TOL = 1e-3
+# One f32 update fused against unfused: loss and grad norm, relative (f32
+# summation-order differences through 6 layers and back).
+FUSED_TRAIN_F32_TOL = 1e-4
 # The card's peaks for the bound (H100 SXM data sheet, dense, at the 700 W
 # limit): bf16 tensor cores and HBM.
 PEAK_BF16_FLOPS = 989e12
@@ -157,12 +178,31 @@ def fused_layer_bound(B: int, T: int, D: int, H: int, F: int, sep: int) -> dict:
     return {"gflop": flops / 1e9, "mbytes": nbytes / 1e6, **bound(flops, nbytes)}
 
 
+def fused_layer_bwd_bound(kind: str, B: int, T: int, D: int, H: int, F: int, sep: int) -> dict:
+    """Bound of one of the fused layer's backward kernels in bf16, counting
+    the products of the TPU kernel's body with its recompute. ffn: h1, f and
+    their three gradients' products, six of 2 M D F; reads r and dy, writes
+    dr (f32), the FFN weights in bf16 and their gradients in f32. attn: qkv,
+    ao, dWout, dO, dWqkv, dx, 24 M D^2 in all, and six products (s, o, dp,
+    dq, dk, dv) over the allowed pairs; reads x, dr, lse, writes dx, the
+    attention weights in bf16 and their gradients in f32."""
+    M = B * T
+    if kind == "ffn":
+        flops = 12 * M * D * F
+        nbytes = 3 * M * D * 4 + 2 * D * F * 2 + 2 * D * F * 4 + 4 * (2 * F + 5 * D)
+    else:
+        flops = 24 * M * D * D + 12 * (D // H) * B * H * pfn_pairs(T, sep)
+        nbytes = 3 * M * D * 4 + M * H * 4 + 4 * D * D * 2 + 4 * D * D * 4 + 4 * (11 * D)
+    return {"gflop": flops / 1e9, "mbytes": nbytes / 1e6, **bound(flops, nbytes)}
+
+
 def device_profile(fn, top: int = 8) -> dict:
     """One call of fn() under torch.profiler, after a warm-up call: the wall
     time from a synchronize to a synchronize, the device time of its kernels
     (their sum, so overlapping kernels would count twice; this path runs one
-    stream), the idle share of the card in between, and the kernels that took
-    most of it: [name, ms, launches]."""
+    stream; annotated ranges such as the optimizer step's are left out, their
+    kernels count), the idle share of the card in between, and the kernels
+    that took most of it: [name, ms, launches]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -178,7 +218,7 @@ def device_profile(fn, top: int = 8) -> dict:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
-        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0 and not getattr(e, "is_user_annotation", False):
             kernels.append([e.key[:120], us / 1e3, e.count])
     kernels.sort(key=lambda k: -k[1])
     device_ms = sum(k[1] for k in kernels)
@@ -343,23 +383,29 @@ def phase_kernel_timing(device, smi: str):
     return rows
 
 
-def _grad_errors(got, gold, dense=None) -> dict:
+def _rel_errors(got: dict, gold: dict, dense: dict | None = None) -> dict:
     """bf16 rule of experiments/flash_equivalence.py: each gradient's max
     error over the gold gradient's max |.|, beside the dense bf16 path's. A
     gradient that vanishes in exact arithmetic (dq and dk of a diagonal-only
     row set) is normalised by 1e-3 of the largest gold gradient instead."""
-    floor = 1e-3 * max(float(g.abs().max()) for g in gold)
+    floor = 1e-3 * max(float(g.abs().max()) for g in gold.values())
     out = {}
-    for name, a, g, d in zip("qkv", got, gold, dense or (None,) * 3):
+    for name, g in gold.items():
         den = max(float(g.abs().max()), floor)
-        out[f"d{name}"] = max_abs(a, g) / den if den > 0 else max_abs(a, g)
-        if d is not None:
-            out[f"d{name}_dense"] = max_abs(d, g) / den if den > 0 else max_abs(d, g)
+        out[name] = max_abs(got[name], g) / den if den > 0 else max_abs(got[name], g)
+        if dense is not None:
+            out[f"{name}_dense"] = max_abs(dense[name], g) / den if den > 0 else max_abs(dense[name], g)
     return out
 
 
-def _bf16_ok(errs: dict) -> bool:
-    return all(errs[f"d{n}"] <= max(BF16_GRAD_FLOOR, 3 * errs[f"d{n}_dense"]) for n in "qkv")
+def _grad_errors(got, gold, dense=None) -> dict:
+    """:func:`_rel_errors` of the (dq, dk, dv) triples."""
+    names = ("dq", "dk", "dv")
+    return _rel_errors(dict(zip(names, got)), dict(zip(names, gold)), dense and dict(zip(names, dense)))
+
+
+def _bf16_ok(errs: dict, names=("dq", "dk", "dv")) -> bool:
+    return all(errs[n] <= max(BF16_GRAD_FLOOR, 3 * errs[f"{n}_dense"]) for n in names)
 
 
 def phase_kernel_bwd_cases(device):
@@ -845,16 +891,127 @@ def phase_fused_timing(device, smi: str, size: dict = FLAGSHIP):
     return rows
 
 
+def phase_fused_bwd_kernel(device):
+    """Both fused backward kernels against fused_layer_bwd_plain on the grid
+    of phase_fused_kernel: dx and all 12 gradients; r and lse from the
+    forward kernel; a repeat call bitwise equal."""
+    import torch
+
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.ops.fused_layer import fused_layer_bwd, fused_layer_bwd_plain, fused_layer_fwd, \
+        fused_layer_fwd_plain
+
+    names = ("dx", *_ext.FUSED_PARAM_ORDER)
+    g = torch.Generator(device=device).manual_seed(9)
+    worst, n = {}, 0
+    for D, H, F in ((512, 4, 1024), (64, 2, 96), (32, 2, 48)):
+        p = _fused_params(D, F, g, device)
+        for T in (1, 16, 100, 127, 128, 129, 512):
+            for B in ((1, 3, 64) if T == 100 else (1, 3)):
+                for sep in sorted({0, 1, T // 2, T - 1, T}):
+                    x = torch.randn(B, T, D, generator=g, device=device)
+                    dy = torch.randn(B, T, D, generator=g, device=device)
+
+                    def grads(bwd, dtype, r, lse):
+                        dx, dp = bwd(x, p, sep, r, lse, dy, H, dtype)
+                        return {"dx": dx, **dp}
+
+                    gold = grads(fused_layer_bwd_plain, torch.float32,
+                                 *fused_layer_fwd_plain(x, p, sep, H, torch.float32)[1:])
+                    for dtype in (torch.float32, torch.bfloat16):
+                        _, r, lse = fused_layer_fwd(x, p, sep, H, dtype)
+                        got = grads(fused_layer_bwd, dtype, r, lse)
+                        again = grads(fused_layer_bwd, dtype, r, lse)
+                        torch.cuda.synchronize()
+                        case = dict(D=D, H=H, F=F, T=T, B=B, sep=sep, dtype=str(dtype))
+                        if not all(bool(torch.isfinite(t).all()) for t in got.values()):
+                            raise AssertionError(f"fused backward: non-finite gradient {case}")
+                        if not all(torch.equal(got[k], again[k]) for k in names):
+                            raise AssertionError(f"fused backward: a repeat call differs {case}")
+                        if dtype == torch.float32:
+                            plain = grads(fused_layer_bwd_plain, dtype, r, lse)
+                            errs = {k: max_abs(got[k], plain[k]) for k in names}
+                            for k in names:
+                                if not torch.allclose(got[k], plain[k], atol=FUSED_BWD_F32_TOL,
+                                                      rtol=FUSED_BWD_F32_TOL):
+                                    raise AssertionError(f"fused backward: {k} mismatch {case}: {errs[k]}")
+                        else:
+                            dense = grads(fused_layer_bwd_plain, dtype,
+                                          *fused_layer_fwd_plain(x, p, sep, H, dtype)[1:])
+                            errs = _rel_errors(got, gold, dense)
+                            if not _bf16_ok(errs, names):
+                                raise AssertionError(f"fused backward: bf16 error over budget {case}: {errs}")
+                        w = worst.setdefault(case["dtype"], {"cases": 0})
+                        w["cases"] += 1
+                        for k, e in errs.items():
+                            w[k] = max(w.get(k, 0.0), e)
+                        n += 1
+    emit({"phase": "fused_bwd_kernel", "cases": n, "worst": worst, "tol_f32": FUSED_BWD_F32_TOL,
+          "bf16_rule": f"err/max|gold| <= max({BF16_GRAD_FLOOR}, 3 * plain_bf16_err/max|gold|) per gradient, "
+                       "against the plain f32 backward of the plain f32 forward",
+          "repeat_bitwise_equal": True})
+
+
+def phase_fused_bwd_timing(device, smi: str, size: dict = FLAGSHIP):
+    """The fused layer's two backward kernels at the flagship shape, bf16,
+    beside their plain versions, the unfused PFNEncoderLayer's backward
+    (autograd through cuBLAS and the flash backward kernels) and the bound."""
+    import torch
+
+    from pfn_tpu_torch.models import PFNEncoderLayer
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.ops.fused_layer import _bwd_attn_plain, _bwd_ffn_plain, _kernel_params, \
+        fused_layer_bwd_plain
+
+    B, T, D, H, F = size["B"], size["T"], size["emsize"], size["nhead"], size["nhid"]
+    g = torch.Generator(device=device).manual_seed(10)
+    p = _fused_params(D, F, g, device)
+    kp = _kernel_params(p, torch.bfloat16)
+    x = torch.randn(B, T, D, generator=g, device=device)
+    dy = torch.randn(B, T, D, generator=g, device=device)
+    layer = PFNEncoderLayer(D, H, F, dtype=torch.bfloat16).to(device)
+    _load_layer(layer, p)
+    rows = []
+    for sep in FUSED_TIMING_SEPS:
+        sep_t = torch.full((1,), sep, dtype=torch.int32, device=device)
+        _, r, lse = _ext.fused_layer_fwd(x, kp, sep_t, H)
+        dr, dp_ffn = _ext.fused_layer_bwd_ffn(r, kp, dy)
+        dx, dp_attn = _ext.fused_layer_bwd_attn(x, kp, lse, dr, sep_t, H)
+        dx_plain, dp_plain = fused_layer_bwd_plain(x, p, sep_t, r, lse, dy, H, torch.bfloat16)
+        dr_plain, _ = _bwd_ffn_plain(r, p, dy, torch.bfloat16)
+        leaves = [x.detach().requires_grad_(), *layer.parameters()]
+        out = layer(leaves[0], sep_t)
+        ffn_err = max([max_abs(dr, dr_plain)] + [max_abs(v, dp_plain[k]) for k, v in dp_ffn.items()])
+        attn_err = max([max_abs(dx, dx_plain)] + [max_abs(v, dp_plain[k]) for k, v in dp_attn.items()])
+        rows.append({
+            "sep": sep,
+            "ffn_kernel_ms": cuda_ms(lambda: _ext.fused_layer_bwd_ffn(r, kp, dy)),
+            "attn_kernel_ms": cuda_ms(lambda: _ext.fused_layer_bwd_attn(x, kp, lse, dr, sep_t, H)),
+            "ffn_plain_ms": cuda_ms(lambda: _bwd_ffn_plain(r, p, dy, torch.bfloat16)),
+            "attn_plain_ms": cuda_ms(lambda: _bwd_attn_plain(x, p, sep_t, lse, dr, H, torch.bfloat16)),
+            "unfused_layer_bwd_ms": cuda_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)),
+            "ffn_kernel_ms_again": cuda_ms(lambda: _ext.fused_layer_bwd_ffn(r, kp, dy)),
+            "attn_kernel_ms_again": cuda_ms(lambda: _ext.fused_layer_bwd_attn(x, kp, lse, dr, sep_t, H)),
+            "ffn_max_abs_err": ffn_err,
+            "attn_max_abs_err": attn_err,
+            "ffn_bound": fused_layer_bwd_bound("ffn", B, T, D, H, F, sep),
+            "attn_bound": fused_layer_bwd_bound("attn", B, T, D, H, F, sep),
+        })
+    emit({"phase": "fused_bwd_timing", "shape": {"B": B, "T": T, "D": D, "H": H, "F": F, "dtype": "bf16"},
+          "card": smi, "device_kernels_per_layer": {"ffn": 14, "attn": 19}, "rows": rows})
+    return rows
+
+
 def phase_fused_path(device, smi: str, size: dict = FLAGSHIP):
     """fused_forward at the bench.py flagship model against the unfused
-    forward; the kernel's launches on the fused path."""
+    forward; the kernel's launches on the fused path; one backward through
+    it on the card."""
     import numpy as np
     import torch
 
     from pfn_tpu_torch.models import PFNTransformer, TransformerConfig
-    from pfn_tpu_torch.models.fused_apply import _layer_params, fused_forward
+    from pfn_tpu_torch.models.fused_apply import fused_forward
     from pfn_tpu_torch.ops import _ext
-    from pfn_tpu_torch.ops.fused_layer import fused_encoder_layer
     from pfn_tpu_torch.priors import GPPrior
     from pfn_tpu_torch.train import seeded_flax_params, state_dict_from_flax_params
 
@@ -894,15 +1051,14 @@ def phase_fused_path(device, smi: str, size: dict = FLAGSHIP):
     budget = 2 * err_unfused_vs_f32 + 1e-3
     err_f32 = max_abs(fused_f32, unfused_f32)
 
-    # The backward kernels are not ported: on the card the backward raises.
-    tokens = torch.randn(B, T, cfg.emsize, device=device, requires_grad=True)
-    out = fused_encoder_layer(tokens, _layer_params(model.transformer_encoder.layers[0], cfg.dtype), sep, cfg.nhead,
-                              cfg.dtype)
-    try:
-        out.sum().backward()
-        backward_message = None
-    except NotImplementedError as e:
-        backward_message = str(e)
+    # The backward on the card: each backward kernel launched once per layer,
+    # finite gradients for every parameter.
+    before = dict(_ext.launch_counts)
+    model.zero_grad(set_to_none=True)
+    fused_forward(model, x, y, sep).sum().backward()
+    bwd_launched = {k: _ext.launch_counts[k] - before[k] for k in _ext.launch_counts}
+    grads_finite = all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+    model.zero_grad(set_to_none=True)
 
     latency = {name: {"first": runs[0][0], f"median_of_{REPEATS}": float(np.median([r[0] for r in runs[1:]]))}
                for name, runs in (("fused", fused_runs), ("unfused", unfused_runs))}
@@ -915,19 +1071,157 @@ def phase_fused_path(device, smi: str, size: dict = FLAGSHIP):
         "fused_vs_unfused_f32": err_f32 <= FUSED_PATH_F32_TOL,
         "launches": launched["pfn_fused_layer_fwd"] == expected,
         "no_flash_launch_on_fused_path": launched["pfn_flash_fwd"] == 0,
-        "backward_raises_on_card": backward_message is not None and "queue 2 items 5-6" in backward_message,
+        "backward_launches": all(bwd_launched[k] == cfg.nlayers for k in (
+            "pfn_fused_layer_fwd", "pfn_fused_layer_bwd_ffn", "pfn_fused_layer_bwd_attn")),
+        "backward_no_flash_launch": all(bwd_launched[k] == 0 for k in (
+            "pfn_flash_fwd", "pfn_flash_bwd_dq", "pfn_flash_bwd_dkv")),
+        "backward_grads_finite": grads_finite,
     }
     emit({
         "phase": "fused_path", "card": smi, "size": size, "dtype": "bf16", "latency_ms": latency, "wall_ms": wall,
         "err_fused_bf16_vs_unfused_f32": err_fused_vs_f32, "err_unfused_bf16_vs_f32": err_unfused_vs_f32,
         "budget": budget, "err_fused_vs_unfused_bf16": max_abs(logits, unfused),
         "err_fused_f32_vs_unfused_f32": err_f32, "tol_f32": FUSED_PATH_F32_TOL, "launches": launched,
-        "expected_launches": expected, "profiles": profiles, "checks": checks,
+        "expected_launches": expected, "backward_launches": bwd_launched, "profiles": profiles, "checks": checks,
     })
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"fused_path checks failed: {failed}")
     return launched["pfn_fused_layer_fwd"], latency
+
+
+def phase_fused_train(device, smi: str, size: dict = FLAGSHIP, updates: int = 2, timed_updates: int = 4):
+    """train(...) with attention_impl="fused" at the bench.py config
+    (bench.py:27-31, 73-87): epoch 1 into a checkpoint, a second call that
+    resumes it and runs epoch 2; then one update fused against unfused, and
+    the update times of both."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pfn_tpu_torch.distributions import get_bucket_limits
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.priors import GPPrior
+    from pfn_tpu_torch.train import (
+        TrainConfig,
+        TrainState,
+        bar_criterion,
+        build_model,
+        seeded_flax_params,
+        state_dict_from_flax_params,
+        train,
+    )
+    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step, make_train_step_from_batch
+
+    B, T = size["B"], size["T"]
+    prior = GPPrior(num_features=1, noise=1e-4, outputscale=1.0, lengthscale=0.6, grid=size["grid"])
+    criterion = bar_criterion(get_bucket_limits(size["buckets"], full_range=(-4.0, 4.0))).to(device)
+    cfg = TrainConfig(
+        emsize=size["emsize"], nhid=size["nhid"], nlayers=size["nlayers"], nhead=size["nhead"], batch_size=B,
+        bptt=T, lr=1e-4, warmup_epochs=1, epochs=2, steps_per_epoch=updates, dtype=torch.bfloat16,
+        attention_impl="fused", checkpoint_dir=tempfile.mkdtemp(prefix="pfn_fused_train_"), checkpoint_every=1,
+        device=device, seed=0,
+    )
+    # Seeded random weights through the weight bridge, as phase_train starts
+    # (the fresh init's zero rows: ROADMAP.md queue 3).
+    init = state_dict_from_flax_params(
+        seeded_flax_params(1, cfg.emsize, cfg.nhid, cfg.nlayers, size["buckets"], seed=0), cfg.nlayers)
+    initial = _param_vector(init).to(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = train(prior, criterion, dataclasses.replace(cfg, epochs=1), init_params=init)
+    after_epoch1 = _param_vector(first.model.state_dict())
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        result = train(prior, criterion, cfg, init_params=init)
+    train_s = time.perf_counter() - t0
+    print(log.getvalue(), end="", flush=True)
+    launches = dict(_ext.launch_counts)
+    expected = cfg.nlayers * 2 * updates
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    stats = first.epoch_stats + result.epoch_stats
+    after_epoch2 = _param_vector(result.model.state_dict())
+
+    # One update fused and unfused (bf16), and both in f32, from the same
+    # params, batch and sep.
+    g = torch.Generator(device=device).manual_seed(15)
+    xs, ys, tys = (t[None] for t in prior.sample(B, T, generator=g, device=device))
+    one = {}
+    for name, over in {"fused_bf16": {}, "unfused_bf16": {"attention_impl": "auto"},
+                       "fused_f32": {"dtype": torch.float32},
+                       "unfused_f32": {"attention_impl": "auto", "dtype": torch.float32}}.items():
+        pcfg = dataclasses.replace(cfg, eval_pos_sampler="fixed", fixed_eval_pos=size["sep"], checkpoint_dir=None,
+                                   **over)
+        model = build_model(prior, criterion, pcfg)
+        model.load_state_dict(result.model.state_dict())
+        optimizer, _, schedule = _make_optimizer(pcfg, model)
+        state = TrainState(model, optimizer, torch.Generator(device=device).manual_seed(0))
+        m = make_train_step_from_batch(criterion, pcfg, schedule)(state, xs, ys, tys)
+        one[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    budget = {key: 2 * abs(one["unfused_bf16"][key] - one["unfused_f32"][key])
+              + 1e-3 * abs(one["unfused_f32"][key]) for key in ("loss", "grad_norm")}
+    diff = {key: abs(one["fused_bf16"][key] - one["unfused_bf16"][key]) for key in budget}
+    rel_f32 = {key: abs(one["fused_f32"][key] - one["unfused_f32"][key]) / abs(one["unfused_f32"][key])
+               for key in budget}
+
+    # Update time from the trained weights, fused and unfused in turns: the
+    # first update of each, then the median of the rest.
+    steps = {}
+    for name, impl in (("fused", "fused"), ("unfused", "auto")):
+        pcfg = dataclasses.replace(cfg, attention_impl=impl, checkpoint_dir=None)
+        model = build_model(prior, criterion, pcfg)
+        model.load_state_dict(result.model.state_dict())
+        optimizer, _, schedule = _make_optimizer(pcfg, model)
+        state = TrainState(model, optimizer, torch.Generator(device=device).manual_seed(1))
+        steps[name] = (make_train_step(prior, criterion, pcfg, schedule), state)
+    update_ms = {name: [] for name in steps}
+    for _ in range(1 + timed_updates):
+        for name, (step, state) in steps.items():
+            torch.cuda.synchronize(device)
+            t1 = time.perf_counter()
+            float(step(state)["loss"])
+            torch.cuda.synchronize(device)
+            update_ms[name].append((time.perf_counter() - t1) * 1e3)
+    step, state = steps["fused"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    no_host_sync = bool(np.isfinite(float(metrics["loss"])))
+    profile = device_profile(lambda: float(step(state)["loss"]))
+
+    fused_names = ("pfn_fused_layer_fwd", "pfn_fused_layer_bwd_ffn", "pfn_fused_layer_bwd_attn")
+    checks = {
+        "resumed": "resumed from" in log.getvalue(),
+        "epochs": [s["epoch"] for s in stats] == [1, 2],
+        "lr": [s["lr"] for s in stats] == [0.0, cfg.lr],
+        "losses_finite": all(np.isfinite(s["mean_loss"]) and np.isfinite(s["grad_norm"]) for s in stats),
+        "lr0_epoch_keeps_params": bool(torch.equal(after_epoch1, initial)),
+        "params_changed_in_epoch2": bool((after_epoch2 != after_epoch1).any()),
+        "fused_launches": all(launches[k] == expected for k in fused_names),
+        "no_flash_launch": all(launches[k] == 0 for k in launches if k not in fused_names),
+        "fused_vs_unfused_update": all(diff[key] <= budget[key] for key in budget),
+        "fused_vs_unfused_f32": all(rel_f32[key] <= FUSED_TRAIN_F32_TOL for key in rel_f32),
+        "update_without_host_sync": no_host_sync,
+    }
+    emit({
+        "phase": "fused_train", "card": smi, "size": size, "dtype": "bf16", "updates_per_epoch": updates,
+        "epoch_stats": stats, "train_calls_s": train_s, "launches": launches, "expected_launches": expected,
+        "update_ms": {name: {"first": ms[0], f"median_of_{timed_updates}": float(np.median(ms[1:]))}
+                      for name, ms in update_ms.items()},
+        "datasets_per_s": {name: B / (float(np.median(ms[1:])) / 1e3) for name, ms in update_ms.items()},
+        "peak_memory_gb": peak_gb, "one_update": one, "one_update_diff": diff, "one_update_budget": budget,
+        "f32_rel_diff": rel_f32, "tol_f32": FUSED_TRAIN_F32_TOL, "fused_update_profile": profile, "checks": checks,
+    })
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"fused_train checks failed: {failed}")
+    return launches
 
 
 def phase_library_timing(device, smi: str):
@@ -977,12 +1271,17 @@ def main() -> int:
     launches = phase_train(device, smi)
     phase_fused_kernel(device)
     fused_timing = phase_fused_timing(device, smi)
+    phase_fused_bwd_kernel(device)
+    fused_bwd_timing = phase_fused_bwd_timing(device, smi)
     fused_launches, _ = phase_fused_path(device, smi)
+    fused_train_launches = phase_fused_train(device, smi)
     library = phase_library_timing(device, smi)
     fwd = next(r for r in timing if r["sep"] == 1000)
     bwd = next(r for r in bwd_timing if r["sep"] == 1000)
     fused = next(r for r in fused_timing if r["sep"] == FLAGSHIP["sep"])
+    fused_bwd = next(r for r in fused_bwd_timing if r["sep"] == FLAGSHIP["sep"])
     bwd_source = "pfn_tpu_torch/ops/csrc/pfn_flash_bwd.cu"
+    fused_bwd_source = "pfn_tpu_torch/ops/csrc/pfn_fused_layer_bwd.cu"
     emit({"kernels": [
         {"name": "pfn_flash_fwd", "route": "cuda", "source": "pfn_tpu_torch/ops/csrc/pfn_flash_fwd.cu",
          "replaces": "pfn_tpu/ops/flash_attention.py:255", "launches": launches["pfn_flash_fwd"],
@@ -1001,6 +1300,13 @@ def main() -> int:
          "replaces": "pfn_tpu/ops/fused_layer.py:324", "launches": fused_launches,
          "max_abs_err": fused["max_abs_err"], "ms": fused["kernel_ms"], "plain_ms": fused["plain_ms"],
          "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"], "library_ms": fused["unfused_layer_ms"]},
+        *({"name": f"pfn_fused_layer_bwd_{part}", "route": "cuda", "source": fused_bwd_source,
+           "replaces": f"pfn_tpu/ops/fused_layer.py:{line}",
+           "launches": fused_train_launches[f"pfn_fused_layer_bwd_{part}"],
+           "max_abs_err": fused_bwd[f"{part}_max_abs_err"], "ms": fused_bwd[f"{part}_kernel_ms"],
+           "plain_ms": fused_bwd[f"{part}_plain_ms"], "bound_ms": fused_bwd[f"{part}_bound"]["bound_ms"],
+           "bound_by": fused_bwd[f"{part}_bound"]["bound_by"], "library_ms": fused_bwd["unfused_layer_bwd_ms"]}
+          for part, line in (("ffn", 358), ("attn", 387))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
                                  "count": torch.cuda.device_count()}})

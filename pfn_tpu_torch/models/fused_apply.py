@@ -7,11 +7,16 @@ one :func:`pfn_tpu_torch.ops.fused_layer.fused_encoder_layer` call. The
 layers' numerics are the TPU kernel's (see that module), so in bf16 the
 result differs from the unfused forward by rounding; in f32 the two agree.
 
+The layers take the model's f32 parameters as they are (in the JAX layout,
+a transposed view) and cast the four matrices to the compute dtype inside,
+as the JAX package's ``_fwd_call`` and ``_bwd_call`` do, so the weight
+gradients reach the parameters as f32 sums, not rounded through a bf16 copy.
+
 Supported subset: the flagship configs (default Linear x/y encoders, no
 positional encoding, no SeqBN, dropout 0, dense FFN, tanh GELU) at widths
-the kernel is built for, T <= 512. Anything else raises.
-``PFNTransformer.forward`` does not dispatch here; training through this
-path waits for the backward kernels (ROADMAP.md queue 2 items 5-6).
+the kernels are built for, T <= 512. Anything else raises.
+``PFNTransformer.forward`` does not dispatch here; the train loop does, for
+``TrainConfig(attention_impl="fused")`` (``train/loop.py``).
 """
 
 from __future__ import annotations
@@ -45,21 +50,21 @@ def fused_supported(cfg: TransformerConfig) -> str | None:
     return _ext.fused_shape_error(cfg.emsize, cfg.nhead, cfg.nhid)
 
 
-def _layer_params(layer: PFNEncoderLayer, dtype: torch.dtype) -> dict:
-    """A port layer's weights in the JAX layout: (in, out) matrices,
-    pre-cast to the compute dtype; biases and LayerNorm parameters as they
-    are (f32)."""
+def _layer_params(layer: PFNEncoderLayer) -> dict:
+    """A port layer's parameters in the JAX layout, f32 as they are: the
+    matrices as (in, out) views, the biases and LayerNorm parameters as
+    vectors."""
     attn = layer.self_attn
     return {
-        "wqkv": attn.in_proj_weight.t().to(dtype).contiguous(),
+        "wqkv": attn.in_proj_weight.t(),
         "bqkv": attn.in_proj_bias,
-        "wout": attn.out_proj.weight.t().to(dtype).contiguous(),
+        "wout": attn.out_proj.weight.t(),
         "bout": attn.out_proj.bias,
         "ln1_g": layer.norm1.weight,
         "ln1_b": layer.norm1.bias,
-        "w1": layer.linear1.weight.t().to(dtype).contiguous(),
+        "w1": layer.linear1.weight.t(),
         "b1": layer.linear1.bias,
-        "w2": layer.linear2.weight.t().to(dtype).contiguous(),
+        "w2": layer.linear2.weight.t(),
         "b2": layer.linear2.bias,
         "ln2_g": layer.norm2.weight,
         "ln2_b": layer.norm2.bias,
@@ -87,5 +92,5 @@ def fused_forward(model: PFNTransformer, x: torch.Tensor, y: torch.Tensor, singl
     pos = torch.arange(T, device=x.device)[None, :, None]
     tokens = x_emb + torch.where(pos < single_eval_pos, y_emb, torch.zeros_like(y_emb))
     for layer in model.transformer_encoder.layers:
-        tokens = fused_encoder_layer(tokens, _layer_params(layer, dtype), single_eval_pos, cfg.nhead, dtype)
+        tokens = fused_encoder_layer(tokens, _layer_params(layer), single_eval_pos, cfg.nhead, dtype)
     return model.decoder(tokens.float())

@@ -37,7 +37,10 @@ SOURCES = {
     "pfn_flash_fwd": _CSRC / "pfn_flash_fwd.cu",
     "pfn_flash_bwd": _CSRC / "pfn_flash_bwd.cu",
     "pfn_fused_layer_fwd": _CSRC / "pfn_fused_layer_fwd.cu",
+    "pfn_fused_layer_bwd": _CSRC / "pfn_fused_layer_bwd.cu",
 }
+# Headers the sources include; each library's hash covers them too.
+HEADERS = (_CSRC / "pfn_fused_common.cuh",)
 # Head dims the forward and both backward kernels are instantiated for.
 FLASH_HEAD_DIMS = (32, 64, 128)
 # Head dims the fused layer's attention is instantiated for, and its longest
@@ -60,7 +63,8 @@ def fused_param_shapes(D: int, F: int) -> dict:
             "w1": (D, F), "b1": (F,), "w2": (F, D), "b2": (D,), "ln2_g": (D,), "ln2_b": (D,)}
 
 # Kernel launches since the last reset_launch_counts(), by kernel name.
-launch_counts = {"pfn_flash_fwd": 0, "pfn_flash_bwd_dq": 0, "pfn_flash_bwd_dkv": 0, "pfn_fused_layer_fwd": 0}
+launch_counts = {"pfn_flash_fwd": 0, "pfn_flash_bwd_dq": 0, "pfn_flash_bwd_dkv": 0, "pfn_fused_layer_fwd": 0,
+                 "pfn_fused_layer_bwd_ffn": 0, "pfn_fused_layer_bwd_attn": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of each entry point: pointers, then int sizes and flags, then the stream.
@@ -69,6 +73,8 @@ _SIGNATURES = {
     "pfn_flash_bwd_dq": ("pfn_flash_bwd", [_P] * 8 + [_I] * 6 + [_P]),
     "pfn_flash_bwd_dkv": ("pfn_flash_bwd", [_P] * 9 + [_I] * 6 + [_P]),
     "pfn_fused_layer_fwd": ("pfn_fused_layer_fwd", [_P] * 21 + [_I] * 6 + [_P]),
+    "pfn_fused_layer_bwd_ffn": ("pfn_fused_layer_bwd", [_P] * 27 + [_I] * 6 + [_P]),
+    "pfn_fused_layer_bwd_attn": ("pfn_fused_layer_bwd", [_P] * 32 + [_I] * 6 + [_P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -95,7 +101,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     source = SOURCES[name]
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = source.read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 
@@ -246,18 +253,80 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, sep, include_diag: bool) -> tuple[tor
     return dk, dv
 
 
-def fused_shape_error(D: int, H: int, F: int, T: int | None = None) -> str | None:
-    """Why the fused layer kernel does not take widths (D, H, F) and
-    sequence length T, or None if it does."""
-    if D % H:
+def fused_shape_error(D: int, H: int | None, F: int, T: int | None = None) -> str | None:
+    """Why the fused layer kernels do not take widths (D, H, F) and sequence
+    length T, or None if they do (H None: no head count, as the FFN
+    backward, which has no attention)."""
+    if H is not None and D % H:
         return f"emsize {D} % nhead {H} != 0"
-    if D // H not in FUSED_HEAD_DIMS:
+    if H is not None and D // H not in FUSED_HEAD_DIMS:
         return f"head dim {D // H} not in {FUSED_HEAD_DIMS}"
     if D % 16 or F % 16:
         return f"emsize {D} and nhid {F} must be multiples of 16"
     if T is not None and T > FUSED_MAX_SEQ:
         return f"sequence length {T} > {FUSED_MAX_SEQ}"
     return None
+
+
+# Rows per partial sum of the backward's column sums (bias and LayerNorm
+# gradients), as in csrc/pfn_fused_layer_bwd.cu.
+COLSUM_ROWS = 64
+
+
+def weight_grad_splits(M: int) -> int:
+    """Chunks the backward cuts the M = B*T rows of a weight gradient into
+    (split-K, summed in order): one per 512 rows, at most 8."""
+    return max(1, min(8, M // 512))
+
+
+def _check_fused_layer(name: str, x, params: dict, nhead: int | None, tensors=(), backward: bool = False) -> tuple:
+    """The checks every fused-layer entry point needs: x a float32 (B, T, D)
+    CUDA tensor; ``params`` in ``FUSED_PARAM_ORDER`` with the JAX layout, the
+    four matrices in the compute dtype (float32 or bfloat16) and the vectors
+    float32; every tensor in ``tensors`` (name, tensor, dtype, shape) as
+    given; all on x's device, contiguous and 16-byte aligned; B and T within
+    the forward's, or with ``backward`` the backward's, index and grid
+    limits. Returns (B, T, D, F, compute dtype)."""
+    ordered = [params[k] for k in FUSED_PARAM_ORDER]
+    if not (x.is_cuda and all(t.device == x.device for t in (*ordered, *(t for _, t, _, _ in tensors)))):
+        raise ValueError(f"{name}: every input must lie on one CUDA device")
+    if x.dtype != torch.float32 or x.dim() != 3:
+        raise ValueError(f"{name}: x must be a float32 (B, T, D) tensor, got {x.dtype} {tuple(x.shape)}")
+    B, T, D = x.shape
+    F = params["w1"].shape[-1]
+    reason = fused_shape_error(D, nhead, F, T)
+    if reason is not None:
+        raise ValueError(f"{name}: {reason}")
+    cdt = params["wqkv"].dtype
+    if cdt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: compute dtype {cdt}; need float32 or bfloat16")
+    for k, shape in fused_param_shapes(D, F).items():
+        want = cdt if k in FUSED_MATRICES else torch.float32
+        t = params[k]
+        if tuple(t.shape) != shape or t.dtype != want:
+            raise ValueError(f"{name}: {k} is {t.dtype} {tuple(t.shape)}, need {want} {shape}")
+    for tname, t, dtype, shape in tensors:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {tname} is {t.dtype} {tuple(t.shape)}, need {dtype} {shape}")
+    # int sizes in the kernels, and grid limits: B items on the attention's z
+    # axis, B*T rows in 128-row GEMM tiles on y; the backward's B*T rows in
+    # 64-row column-sum chunks on y, (B*H*T, T16) attention scratch and B*H
+    # attention batches on the z axis of its GEMMs.
+    too_large = B * T * 3 * D >= 2**31 or B > 65535 or B * T > 65535 * 128
+    if backward:
+        H = nhead or 1
+        too_large |= B * T > 65535 * COLSUM_ROWS or B * H * T * (T + 16) >= 2**31 or B * H > 65535
+    if too_large:
+        raise ValueError(f"{name}: B {B} x T {T} is too large for the kernel's indexing and grid")
+    for tname, t in (("x", x), *zip(FUSED_PARAM_ORDER, ordered), *((n, t) for n, t, _, _ in tensors)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {tname} must be contiguous and 16-byte aligned")
+    return B, T, D, F, cdt
+
+
+def _check_sep(name: str, sep, device) -> None:
+    if sep.device != device or sep.dtype != torch.int32 or sep.numel() != 1:
+        raise ValueError(f"{name}: sep must be a one-element int32 tensor on the inputs' device")
 
 
 def fused_layer_fwd(x: torch.Tensor, params: dict, sep: torch.Tensor,
@@ -274,33 +343,8 @@ def fused_layer_fwd(x: torch.Tensor, params: dict, sep: torch.Tensor,
     Returns (y, r (B, T, D), lse (B, T, H)), all float32.
     """
     name = "pfn_fused_layer_fwd"
-    ordered = [params[k] for k in FUSED_PARAM_ORDER]
-    if not (x.is_cuda and all(t.device == x.device for t in (sep, *ordered))):
-        raise ValueError(f"{name}: every input must lie on one CUDA device")
-    if x.dtype != torch.float32 or x.dim() != 3:
-        raise ValueError(f"{name}: x must be a float32 (B, T, D) tensor, got {x.dtype} {tuple(x.shape)}")
-    B, T, D = x.shape
-    F = params["w1"].shape[-1]
-    reason = fused_shape_error(D, nhead, F, T)
-    if reason is not None:
-        raise ValueError(f"{name}: {reason}")
-    cdt = params["wqkv"].dtype
-    for k, shape in fused_param_shapes(D, F).items():
-        want = cdt if k in FUSED_MATRICES else torch.float32
-        t = params[k]
-        if tuple(t.shape) != shape or t.dtype != want:
-            raise ValueError(f"{name}: {k} is {t.dtype} {tuple(t.shape)}, need {want} {shape}")
-    if cdt not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{name}: compute dtype {cdt}; need float32 or bfloat16")
-    # int sizes in the kernels, and grid limits: B items on the attention's z
-    # axis, B*T rows in 128-row GEMM tiles on y.
-    if B * T * 3 * D >= 2**31 or B > 65535 or B * T > 65535 * 128:
-        raise ValueError(f"{name}: B {B} x T {T} is too large for the kernel's indexing and grid")
-    if sep.dtype != torch.int32 or sep.numel() != 1:
-        raise ValueError(f"{name}: sep must be a one-element int32 tensor")
-    for tname, t in (("x", x), *zip(FUSED_PARAM_ORDER, ordered)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: {tname} must be contiguous and 16-byte aligned")
+    B, T, D, F, cdt = _check_fused_layer(name, x, params, nhead)
+    _check_sep(name, sep, x.device)
     y = torch.empty_like(x)
     r = torch.empty_like(x)
     lse = torch.empty((B, T, nhead), dtype=torch.float32, device=x.device)
@@ -313,7 +357,98 @@ def fused_layer_fwd(x: torch.Tensor, params: dict, sep: torch.Tensor,
     attn = torch.empty((B * T, D), dtype=cdt, device=x.device)
     rc = torch.empty((B * T, D), dtype=cdt, device=x.device)
     g = torch.empty((B * T, F), dtype=cdt, device=x.device)
-    _launch(name, x, x.data_ptr(), *(t.data_ptr() for t in ordered), y.data_ptr(), r.data_ptr(), lse.data_ptr(),
-            qkv.data_ptr(), attn.data_ptr(), rc.data_ptr(), g.data_ptr(), sep.data_ptr(),
+    _launch(name, x, x.data_ptr(), *(params[k].data_ptr() for k in FUSED_PARAM_ORDER), y.data_ptr(), r.data_ptr(),
+            lse.data_ptr(), qkv.data_ptr(), attn.data_ptr(), rc.data_ptr(), g.data_ptr(), sep.data_ptr(),
             B, T, D, nhead, F, int(cdt == torch.bfloat16))
     return y, r, lse
+
+
+def _scratch(cdt, device, *shapes, bf16_only=()):
+    """torch.empty scratch: f32 for ``shapes``, and the compute dtype for
+    ``bf16_only``, which exist only in bf16 (in f32 the kernels use the f32
+    tensor in their place and get a null pointer)."""
+    out = [torch.empty(s, dtype=torch.float32, device=device) for s in shapes]
+    out += [torch.empty(s, dtype=cdt, device=device) if cdt == torch.bfloat16 else None for s in bf16_only]
+    return out
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def fused_layer_bwd_ffn(r: torch.Tensor, params: dict, dy: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """Launch the fused layer's FFN backward (the TPU kernel
+    ``_bwd_ffn_kernel``): one call, which enqueues its device kernels (twelve
+    in bf16, eleven in f32, two more with split-K weight gradients, from
+    B*T = 1024 on) on the current stream and counts one launch.
+
+    r: (B, T, D) float32, the forward's post-LN1 activations; dy: (B, T, D)
+    float32, the gradient of y; ``params`` as :func:`fused_layer_fwd` takes
+    them. Returns (dr (B, T, D) float32, {"w1", "b1", "w2", "b2", "ln2_g",
+    "ln2_b": float32 gradients summed over the batch, in the JAX layout}).
+    """
+    name = "pfn_fused_layer_bwd_ffn"
+    B, T, D, F, cdt = _check_fused_layer(name, r, params, None, [("dy", dy, torch.float32, tuple(r.shape))],
+                                         backward=True)
+    dev, M = r.device, B * T
+    dr = torch.empty_like(r)
+    grads = {k: torch.zeros(s, dtype=torch.float32, device=dev)
+             for k, s in fused_param_shapes(D, F).items() if k in ("w1", "b1", "w2", "b2", "ln2_g", "ln2_b")}
+    if r.numel() == 0:
+        return dr, grads
+    w1t, w2t = params["w1"].t().contiguous(), params["w2"].t().contiguous()
+    splits = weight_grad_splits(M)
+    h1, r2, dgp, dr2, dh1, partial, wpartial = _scratch(cdt, dev, (M, F), (M, D), (M, D), (M, D), (M, F),
+                                                        (-(-M // COLSUM_ROWS) * max(3 * D, F),), (splits, D, F))
+    g = torch.empty((M, F), dtype=cdt, device=dev)
+    rc, dr2c, dh1c = _scratch(cdt, dev, bf16_only=((M, D), (M, D), (M, F)))
+    _launch(name, r, r.data_ptr(), *(params[k].data_ptr() for k in ("w1", "b1", "w2", "b2", "ln2_g")),
+            dy.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), dr.data_ptr(),
+            *(grads[k].data_ptr() for k in ("w1", "b1", "w2", "b2", "ln2_g", "ln2_b")),
+            _ptr(rc), h1.data_ptr(), g.data_ptr(), r2.data_ptr(), dgp.data_ptr(), dr2.data_ptr(), _ptr(dr2c),
+            dh1.data_ptr(), _ptr(dh1c), partial.data_ptr(), wpartial.data_ptr(), B, T, D, F, splits,
+            int(cdt == torch.bfloat16))
+    return dr, grads
+
+
+def fused_layer_bwd_attn(x: torch.Tensor, params: dict, lse: torch.Tensor, dr: torch.Tensor, sep: torch.Tensor,
+                         nhead: int) -> tuple[torch.Tensor, dict]:
+    """Launch the fused layer's attention backward (the TPU kernel
+    ``_bwd_attn_kernel``): one call, which enqueues its device kernels
+    (seventeen in bf16, sixteen in f32, two more with split-K weight
+    gradients, from B*T = 1024 on) on the current stream and counts one
+    launch.
+
+    x: (B, T, D) float32, the layer's input; lse: (B, T, H) float32 from the
+    forward; dr: (B, T, D) float32 from :func:`fused_layer_bwd_ffn`;
+    ``params`` and ``sep`` as :func:`fused_layer_fwd` takes them. Returns (dx
+    (B, T, D) float32, {"wqkv", "bqkv", "wout", "bout", "ln1_g", "ln1_b":
+    float32 gradients summed over the batch, in the JAX layout}).
+    """
+    name = "pfn_fused_layer_bwd_attn"
+    B, T, D, F, cdt = _check_fused_layer(
+        name, x, params, nhead,
+        [("lse", lse, torch.float32, (x.shape[0], x.shape[1], nhead)), ("dr", dr, torch.float32, tuple(x.shape))],
+        backward=True)
+    _check_sep(name, sep, x.device)
+    dev, M, H = x.device, B * T, nhead
+    dx = torch.empty_like(x)
+    grads = {k: torch.zeros(s, dtype=torch.float32, device=dev)
+             for k, s in fused_param_shapes(D, F).items() if k in ("wqkv", "bqkv", "wout", "bout", "ln1_g", "ln1_b")}
+    if x.numel() == 0:
+        return dx, grads
+    wqkvt, woutt = params["wqkv"].t().contiguous(), params["wout"].t().contiguous()
+    splits = weight_grad_splits(M)
+    r1, dgp, dr1, dqkv, partial, wpartial = _scratch(cdt, dev, (M, D), (M, D), (M, D), (M, 3 * D),
+                                                     (-(-M // COLSUM_ROWS) * 3 * D,), (splits, D, 3 * D))
+    ldp = -(-T // 16) * 16  # row stride of the (B*H*T, T) p and ds scratch, as in the kernel
+    qkv, attn, dout, pc, ds = (torch.empty(s, dtype=cdt, device=dev)
+                               for s in ((M, 3 * D), (M, D), (M, D), (B * H * T, ldp), (B * H * T, ldp)))
+    xc, dr1c, dqkvc = _scratch(cdt, dev, bf16_only=((M, D), (M, D), (M, 3 * D)))
+    _launch(name, x, x.data_ptr(), *(params[k].data_ptr() for k in ("wqkv", "bqkv", "wout", "bout", "ln1_g")),
+            lse.data_ptr(), dr.data_ptr(), wqkvt.data_ptr(), woutt.data_ptr(), sep.data_ptr(), dx.data_ptr(),
+            *(grads[k].data_ptr() for k in ("wqkv", "bqkv", "wout", "bout", "ln1_g", "ln1_b")),
+            _ptr(xc), qkv.data_ptr(), attn.data_ptr(), r1.data_ptr(), dgp.data_ptr(), dr1.data_ptr(), _ptr(dr1c),
+            dout.data_ptr(), pc.data_ptr(), ds.data_ptr(), dqkv.data_ptr(), _ptr(dqkvc), partial.data_ptr(),
+            wpartial.data_ptr(), B, T, D, H, splits, int(cdt == torch.bfloat16))
+    return dx, grads

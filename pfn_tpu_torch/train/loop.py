@@ -21,6 +21,15 @@ How it maps to PyTorch:
     microbatches. ``updates_per_call`` updates run between host syncs
     (``make_train_chunk``); capturing the step in a CUDA graph is left to a
     later change (ROADMAP.md, open cell i).
+  * ``attention_impl="fused"`` runs each microbatch's forward through
+    ``models.fused_apply.fused_forward`` (the JAX package's
+    ``_apply_with_aux``): every encoder layer is one fused-layer kernel call
+    forward and two backward. A config that path does not support raises
+    ``ValueError`` with ``fused_supported``'s reason before anything runs, as
+    does bptt > 512. The JAX package refuses a non-TPU backend there; the
+    port's counterpart is its device rule: on the card the fused kernels run,
+    and their plain PyTorch versions run only where the caller set
+    ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -32,7 +41,9 @@ from typing import Any, Callable
 import torch
 
 from pfn_tpu_torch.device import require_cuda
+from pfn_tpu_torch.models.fused_apply import fused_forward, fused_supported
 from pfn_tpu_torch.models.transformer import PFNTransformer, TransformerConfig, num_params
+from pfn_tpu_torch.ops import _ext
 from pfn_tpu_torch.train.checkpoints import (
     latest_state_checkpoint,
     prune_state_checkpoints,
@@ -52,9 +63,10 @@ class TrainConfig:
     """The JAX package's TrainConfig (the reference train() signature), plus
     the training ``device`` (None: the current CUDA device, and an error
     when there is no card; pass "cpu" to train on the CPU). The fields for
-    options the port does not have yet (a mesh, fsdp, experts, the fused
-    path, dropout, custom modules) are kept and raise, naming their
-    ROADMAP.md item."""
+    options the port does not have yet (a mesh, fsdp, experts, dropout,
+    custom modules) are kept and raise, naming their ROADMAP.md item.
+    ``attention_impl="fused"`` trains through the fused-layer kernels (module
+    docstring)."""
 
     emsize: int = 200
     nhid: int = 200
@@ -124,7 +136,6 @@ def _check_ported(cfg: TrainConfig, mesh=None) -> None:
         "a device mesh": (mesh is not None, "queue 1 item 14 (parallelism)"),
         "fsdp": (cfg.fsdp, "queue 1 item 14 (parallelism)"),
         "num_experts > 0": (cfg.num_experts > 0, "queue 1 item 14 (MoE)"),
-        "attention_impl='fused'": (cfg.attention_impl == "fused", "queue 2 items 5-6 (fused backward kernels)"),
         "dropout > 0": (cfg.dropout > 0, "queue 1 item 9 (dropout)"),
         "custom encoder, y_encoder, pos_encoder or decoder": (
             any(m is not None for m in (cfg.encoder, cfg.y_encoder, cfg.pos_encoder, cfg.decoder)),
@@ -208,9 +219,22 @@ def _sample_eval_pos(generator: torch.Generator, cfg: TrainConfig, weights: torc
     return draw_eval_pos(weights, generator)
 
 
+def _check_fused(model: PFNTransformer, cfg: TrainConfig) -> None:
+    """Raise ValueError where ``attention_impl="fused"`` cannot run this
+    model at this bptt (``fused_forward`` raises the same at its first
+    call)."""
+    reason = fused_supported(model.config)
+    if reason is None and cfg.bptt > _ext.FUSED_MAX_SEQ:
+        reason = f"bptt {cfg.bptt} > {_ext.FUSED_MAX_SEQ}"
+    if reason is not None:
+        raise ValueError(f"fused path does not support this config: {reason}")
+
+
 def _masked_loss(model, criterion: Criterion, cfg: TrainConfig, x, y, target_y, sep) -> torch.Tensor:
-    """Mean loss over the eval positions (>= sep) of one microbatch."""
-    out = model(x, y, sep)
+    """Mean loss over the eval positions (>= sep) of one microbatch, the
+    forward through the fused layers where ``cfg.attention_impl`` is
+    "fused"."""
+    out = fused_forward(model, x, y, sep) if cfg.attention_impl == "fused" else model(x, y, sep)
     losses = criterion.per_position(out, target_y)  # (B, T)
     eval_rows = (torch.arange(cfg.bptt, device=losses.device) >= sep).to(losses.dtype)
     mask = eval_rows.expand_as(losses) * criterion.valid_weight(target_y)
@@ -222,6 +246,8 @@ def _update(state: TrainState, criterion: Criterion, cfg: TrainConfig, schedule,
     gradients summed over them, the global norm clipped to 1.0 by optax's
     rule g / max(1, |g|), then Adam at ``schedule(state.step)``."""
     model, optimizer = state.model, state.optimizer
+    if cfg.attention_impl == "fused":
+        _check_fused(model, cfg)  # before a microbatch is drawn
     device = next(model.parameters()).device
     positions = torch.arange(cfg.bptt, device=device)
     loss_sum = torch.zeros((), device=device)
@@ -333,6 +359,8 @@ def train(prior, criterion: Criterion, cfg: TrainConfig, mesh=None, init_params:
     if cfg.steps_per_epoch % cfg.aggregate_k_gradients:
         raise ValueError("steps_per_epoch must be divisible by aggregate_k_gradients")
     model = build_model(prior, criterion, cfg)
+    if cfg.attention_impl == "fused":
+        _check_fused(model, cfg)
     if init_params is not None:
         model.load_state_dict(init_params, strict=True)
     criterion = criterion.to(device)

@@ -9,8 +9,8 @@ compute in f32 and differ only in summation order. bf16 1e-2: both sides
 round to bf16 at the same places (qkv, p, the head outputs, ao, rc, g), so
 they differ where an f32 summation-order difference flips one bf16 rounding
 (one ulp is 2^-8 relative, ~4e-3 at the O(1) activations after a
-LayerNorm). Gradients 3e-4, tests/test_fused_layer.py's: the JAX backward
-recomputes p from the saved lse, the port differentiates the plain forward.
+LayerNorm). Gradients 3e-4, tests/test_fused_layer.py's: both backwards
+recompute p from the saved lse and differ in summation order.
 """
 
 import jax

@@ -75,8 +75,12 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     params = {k: torch.zeros(s) for k, s in _ext.fused_param_shapes(32, 48).items()}
     with pytest.raises(ValueError, match="CUDA"):
         _ext.fused_layer_fwd(torch.zeros(2, 8, 32), params, sep, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        _ext.fused_layer_bwd_ffn(torch.zeros(2, 8, 32), params, torch.zeros(2, 8, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        _ext.fused_layer_bwd_attn(torch.zeros(2, 8, 32), params, torch.zeros(2, 8, 2), torch.zeros(2, 8, 32), sep, 2)
     assert set(_ext.launch_counts) == {"pfn_flash_fwd", "pfn_flash_bwd_dq", "pfn_flash_bwd_dkv",
-                                       "pfn_fused_layer_fwd"}
+                                       "pfn_fused_layer_fwd", "pfn_fused_layer_bwd_ffn", "pfn_fused_layer_bwd_attn"}
     assert sum(_ext.launch_counts.values()) == 0
     assert not _ext._libs
 

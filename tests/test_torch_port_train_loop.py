@@ -146,13 +146,12 @@ def test_regressor_from_train_result_and_checkpoint(criterion, tmp_path):
 @pytest.mark.parametrize("over,kwargs", [
     ({"fsdp": True}, {}),
     ({"num_experts": 2}, {}),
-    ({"attention_impl": "fused"}, {}),
     ({"dropout": 0.1}, {}),
     ({"encoder": lambda emsize: None}, {}),
     ({"decoder": lambda nhid, n_out: None}, {}),
     ({"eval_pos_sampler": "custom"}, {}),
     ({}, {"mesh": object()}),
-], ids=["fsdp", "experts", "fused", "dropout", "encoder", "decoder", "sampler", "mesh"])
+], ids=["fsdp", "experts", "dropout", "encoder", "decoder", "sampler", "mesh"])
 def test_unported_options_raise_naming_their_roadmap_item(criterion, over, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train(PRIOR, criterion, _cfg(**over), **kwargs)
