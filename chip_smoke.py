@@ -7,32 +7,42 @@ Phases, each printing one JSON line:
   1. card: the device, and its name and power limit from nvidia-smi (also
      printed raw on a line of its own). TF32 must be off for matmuls.
   2. build: compiles the CUDA sources of the checkout, one nvcc each, all at
-     once, and reports ptxas's registers and spills of every kernel.
+     once, and reports ptxas's registers and spills of every kernel, by name,
+     and nvcc's warnings.
   3. kernel: the PFN flash-attention forward kernel, both variants, against
-     its plain dense f32 version over T in {127, 128, 129, 2010}, sep in
-     {0, 1, T//2, T-1}, head dim in {32, 64, 128}, f32 and bf16, plus
-     Tq != Tk for the prefix variant; then its time beside the plain
-     version's at the main-path shape (B*H = 32, T = 2010, D = 128, bf16).
+     its plain dense f32 version over FLASH_CASES: T in {127, 128, 129, 2010}
+     with sep in {0, 1, T//2, T-1}, and T in {255, 256, 257} with sep in {0,
+     1, 127, 128, 129, T-1} (the sm_90a body's 128-row tile edges); head dim
+     in {32, 64, 128}, f32 and bf16, plus Tq != Tk for the prefix variant.
+     Then kernel_timing: its time beside the plain version's at the
+     main-path shape (B*H = 32, T = 2010, D = 128, bf16), held to the bf16
+     budget at every sep of TIMING_SEPS, with TFLOP/s and the share of the
+     bound; and the prefix variant at sep 1000.
   4. kernel_bwd: the dq and dk/dv kernels of the backward, both variants,
      against their plain dense f32 version over the same grid (the prefix
      variant with a nonzero dlse); f32 at atol = rtol = 1e-4, bf16 by
      experiments/flash_equivalence.py's rule against the dense bf16 path's
-     own error; then autograd through pfn_attention(impl="flash") and
-     impl="prefix" on the card against the dense path, under the same rule.
+     own error; a repeat backward bitwise equal; then autograd through
+     pfn_attention(impl="flash") and impl="prefix" on the card against the
+     dense path, under the same rule.
   5. kernel_bwd_timing: both backward kernels beside the plain backward and
      the dense bf16 backward at the training microbatch (B*H = 16, T = 2010,
-     D = 128, bf16).
+     D = 128, bf16), each sep held to the bf16 rule with a repeat dq call
+     bitwise equal, with TFLOP/s and the share of the bound; and the prefix
+     variant at sep 1000.
   6. slice: GP-regression inference at the Fig-3a width (emsize 512, 4 heads,
      nhid 1024, 6 layers, bf16, seeded random weights through the weight
      bridge) at T = 2010: positional logits for 8 datasets, a PFNRegressor
      predict and predict_quantiles, the f64 exact-GP oracle and the analytic
-     KL; kernel path against the dense path and an f32 model.
+     KL; kernel path against the dense path and an f32 model; a device
+     profile of one positional-logits request.
   7. train: the round-5 Fig-3a recipe at full width through train(...): 2
      epochs of 2 updates (100 datasets each) with a checkpoint after epoch 1
      and a second train(...) call that resumes it; every kernel launched
      exactly 6 layers x 25 microbatches x 4 updates times; one update on the
-     kernel path against the dense path; update time, datasets/s and peak
-     memory; a PFNRegressor from the result predicts a held-out dataset.
+     kernel path against the dense path; update time, datasets/s, peak
+     memory and a device profile of one update; a PFNRegressor from the
+     result predicts a held-out dataset.
   8. fused_kernel: the fused encoder-layer forward kernel against its plain
      version (y, r and lse) over T in {1, 16, 100, 127, 128, 129, 512}, sep
      in {0, 1, T//2, T-1, T}, B in {1, 3} (and 64 at T = 100), (D, H, F) in
@@ -65,9 +75,11 @@ Phases, each printing one JSON line:
      profile of one fused update.
  14. library_timing: F.scaled_dot_product_attention with the boolean PFN
      mask, forward and backward, at the flash kernels' timing shapes (the
-     library yardstick of the kernels line; the port never calls it).
+     library yardstick of the kernels line; the port never calls it), and
+     with the prefix rule's mask (the prefix variants' yardstick).
 Then the kernels line (each kernel's launches on its path, error, time,
-plain time, bound and library time), and last {"ok": true, "device": {...}}.
+plain time, bound and library time; its route, and the design of its bf16
+body), and last {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits nonzero and prints no result line.
 It also fails when there is no CUDA device, and when the package beside it
@@ -99,6 +111,11 @@ FIG3A = dict(T=2010, datasets=8, n_ctx=1000, positions=[1, 10, 100, 1000, 2000],
 FIG3A_TRAIN = dict(T=2010, emsize=512, nhead=4, nhid=1024, nlayers=6, batch_size=4, agg=25, updates=2,
                    buckets=10_000, bucket_seq_cap=128, grid=8192, lr=1e-4, timed_updates=4)
 TIMING_SEPS = [400, 1000, 2000]
+# The flash kernels' agreement grid: (T, sep) over the edges of the first
+# port's 64-row tiles at T in {127, 128, 129, 2010}, and of the 128-row query
+# and 128-key tiles of the sm_90a bodies at T in {255, 256, 257}.
+FLASH_CASES = ([(T, sep) for T in (127, 128, 129, 2010) for sep in sorted({0, 1, T // 2, T - 1})]
+               + [(T, sep) for T in (255, 256, 257) for sep in sorted({0, 1, 127, 128, 129, T - 1})])
 REPEATS = 5  # slice requests after the first call; their median is reported
 # The bench.py flagship (bench.py:22-30): emsize 512, 4 heads, nhid 1024, 6
 # layers, 100 buckets, B 64 datasets of T 100 from the grid-2048 GP prior.
@@ -116,6 +133,9 @@ FUSED_TRAIN_F32_TOL = 1e-4
 # limit): bf16 tensor cores and HBM.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+# The design of each kernel's bf16 body, beside its route in the kernels line.
+SM90_DESIGN = "sm90-wgmma-tma"  # wgmma fed by TMA through an mbarrier ring (pfn_flash_sm90.cuh)
+WMMA_DESIGN = "wmma"  # mma.sync 16x16x16 through WMMA fragments from shared memory
 
 
 def emit(obj) -> None:
@@ -156,16 +176,30 @@ def pfn_pairs(T: int, sep: int) -> int:
     return T * s + (T - s)
 
 
-def flash_bound(kind: str, BH: int, T: int, D: int, sep: int) -> dict:
-    """Bound of a flash kernel (diagonal variant, bf16) on this run's sep:
-    2 FLOPs per allowed pair and head-dim entry for each product (fwd: QK^T,
-    PV; dq: QK^T, dO V^T, dS K; dk/dv: those two and dS^T Q, P^T dO); bytes
-    of each input read once and each output written once."""
+def flash_flops(kind: str, BH: int, T: int, D: int, sep: int, include_diag: bool = True) -> float:
+    """Operations of a flash kernel on this run's sep: 2 FLOPs per allowed
+    (query, key) pair and head-dim entry for each product (fwd: QK^T, PV; dq:
+    QK^T, dO V^T, dS K; dk/dv: those two and dS^T Q, P^T dO). The pairs are
+    the PFN rule's, or without the diagonal the prefix rule's (Tq = Tk)."""
     products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
+    pairs = pfn_pairs(T, sep) if include_diag else T * min(max(sep, 0), T)
+    return 2 * products * D * BH * pairs
+
+
+def flash_bound(kind: str, BH: int, T: int, D: int, sep: int, include_diag: bool = True) -> dict:
+    """Bound of a flash kernel in bf16: :func:`flash_flops`, and the bytes of
+    each input read once and each output written once."""
     tensor = BH * T * D * 2
     rows = BH * T * 4
     nbytes = {"fwd": 4 * tensor + rows, "dq": 5 * tensor + 2 * rows, "dkv": 6 * tensor + 2 * rows}[kind]
-    return bound(2 * products * D * BH * pfn_pairs(T, sep), nbytes)
+    return bound(flash_flops(kind, BH, T, D, sep, include_diag), nbytes)
+
+
+def rate(kind: str, BH: int, T: int, D: int, sep: int, ms: float, include_diag: bool = True) -> dict:
+    """Achieved TFLOP/s of a kernel time and its share of the bound, in %."""
+    flops = flash_flops(kind, BH, T, D, sep, include_diag)
+    return {"tflops": flops / (ms * 1e-3) / 1e12,
+            "pct_of_bound": 100.0 * flash_bound(kind, BH, T, D, sep, include_diag)["bound_ms"] / ms}
 
 
 def fused_layer_bound(B: int, T: int, D: int, H: int, F: int, sep: int) -> dict:
@@ -262,6 +296,30 @@ def phase_card():
     return device, smi
 
 
+def ptxas_report(log: str) -> list:
+    """ptxas's -v lines per kernel: [{"kernel", "registers", "spills"}],
+    names demangled by c++filt where the machine has it."""
+    import re
+    import shutil
+
+    kernels, current = [], None
+    for line in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            current = {"kernel": m.group(1)}
+            kernels.append(current)
+        elif current is not None and "spill" in line:
+            current["spills"] = line.strip()
+        elif current is not None and (m := re.search(r"Used (\d+) registers", line)):
+            current["registers"] = int(m.group(1))
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt and kernels:
+        names = subprocess.run([cxxfilt], input="\n".join(k["kernel"] for k in kernels), capture_output=True,
+                               text=True, check=True, timeout=60).stdout.splitlines()
+        for k, name in zip(kernels, names):
+            k["kernel"] = name.replace("(anonymous namespace)::", "")
+    return kernels
+
+
 def phase_build():
     from pfn_tpu_torch.ops import _ext
 
@@ -270,9 +328,8 @@ def phase_build():
     seconds = time.perf_counter() - t0
     emit({"phase": "build", "seconds": seconds, "libraries": {
         name: {"seconds": info["seconds"], "built": info["built"],
-               "library": str(Path(info["path"]).relative_to(ROOT)),
-               "ptxas": [line.strip() for line in info["log"].splitlines()
-                         if "registers" in line or "spill" in line]}
+               "library": str(Path(info["path"]).relative_to(ROOT)), "ptxas": ptxas_report(info["log"]),
+               "warnings": [line.strip() for line in info["log"].splitlines() if "warning" in line.lower()]}
         for name, info in libraries.items()}})
 
 
@@ -293,51 +350,50 @@ def phase_kernel_cases(device):
     n = 0
     for include_diag in (True, False):
         variant = "diag" if include_diag else "prefix"
-        for T in (127, 128, 129, 2010):
+        for T, sep in FLASH_CASES:
             for Tq in ([T] if include_diag else [T, T // 2 + 1]):
-                for sep in sorted({0, 1, T // 2, T - 1}):
-                    for D in (32, 64, 128):
-                        for dtype in (torch.float32, torch.bfloat16):
-                            q = torch.randn(B, H, Tq, D, generator=g, device=device).to(dtype)
-                            k = torch.randn(B, H, T, D, generator=g, device=device).to(dtype)
-                            v = torch.randn(B, H, T, D, generator=g, device=device).to(dtype)
-                            qs = (q * D**-0.5).reshape(B * H, Tq, D)
-                            kf, vf = k.reshape(B * H, T, D), v.reshape(B * H, T, D)
-                            o, lse = _flash_fwd(qs, kf, vf, sep, include_diag)
-                            torch.cuda.synchronize()
-                            o_plain, lse_plain = _flash_fwd_plain(qs.float(), kf.float(), vf.float(), sep, T,
-                                                                  include_diag)
-                            case = dict(variant=variant, T=T, Tq=Tq, sep=sep, D=D, dtype=str(dtype))
-                            tol = F32_TOL if dtype == torch.float32 else BF16_LSE_TOL
-                            if not torch.allclose(lse, lse_plain, atol=tol, rtol=tol):
-                                raise AssertionError(f"lse mismatch {case}: {max_abs(lse, lse_plain)}")
-                            if sep == 0 and not include_diag:
-                                if not (bool((lse <= -1e29).all()) and bool((o == 0).all())):
-                                    raise AssertionError(f"empty prefix must give o=0, lse<=-1e29: {case}")
-                            if dtype == torch.float32:
-                                if not torch.allclose(o, o_plain, atol=F32_TOL, rtol=F32_TOL):
-                                    raise AssertionError(f"o mismatch {case}: {max_abs(o, o_plain)}")
-                                err, budget = max_abs(o, o_plain), None
+                for D in (32, 64, 128):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        q = torch.randn(B, H, Tq, D, generator=g, device=device).to(dtype)
+                        k = torch.randn(B, H, T, D, generator=g, device=device).to(dtype)
+                        v = torch.randn(B, H, T, D, generator=g, device=device).to(dtype)
+                        qs = (q * D**-0.5).reshape(B * H, Tq, D)
+                        kf, vf = k.reshape(B * H, T, D), v.reshape(B * H, T, D)
+                        o, lse = _flash_fwd(qs, kf, vf, sep, include_diag)
+                        torch.cuda.synchronize()
+                        o_plain, lse_plain = _flash_fwd_plain(qs.float(), kf.float(), vf.float(), sep, T,
+                                                              include_diag)
+                        case = dict(variant=variant, T=T, Tq=Tq, sep=sep, D=D, dtype=str(dtype))
+                        tol = F32_TOL if dtype == torch.float32 else BF16_LSE_TOL
+                        if not torch.allclose(lse, lse_plain, atol=tol, rtol=tol):
+                            raise AssertionError(f"lse mismatch {case}: {max_abs(lse, lse_plain)}")
+                        if sep == 0 and not include_diag:
+                            if not (bool((lse <= -1e29).all()) and bool((o == 0).all())):
+                                raise AssertionError(f"empty prefix must give o=0, lse<=-1e29: {case}")
+                        if dtype == torch.float32:
+                            if not torch.allclose(o, o_plain, atol=F32_TOL, rtol=F32_TOL):
+                                raise AssertionError(f"o mismatch {case}: {max_abs(o, o_plain)}")
+                            err, budget = max_abs(o, o_plain), None
+                        else:
+                            # bf16: the kernel's error and the dense bf16 path's, each
+                            # against the f32 result for the same bf16 inputs.
+                            if include_diag:
+                                gold = pfn_attention_reference(q.float(), k.float(), v.float(), sep)
+                                dense = pfn_attention_reference(q, k, v, sep)
                             else:
-                                # bf16: the kernel's error and the dense bf16 path's, each
-                                # against the f32 result for the same bf16 inputs.
-                                if include_diag:
-                                    gold = pfn_attention_reference(q.float(), k.float(), v.float(), sep)
-                                    dense = pfn_attention_reference(q, k, v, sep)
-                                else:
-                                    gold = pfn_prefix_attention_reference(q.float(), k.float(), v.float(), sep)[0]
-                                    dense = pfn_prefix_attention_reference(q, k, v, sep)[0]
-                                err = max_abs(o.reshape(B, H, Tq, D), gold)
-                                budget = 2 * max_abs(dense, gold) + 1e-3
-                                if err > budget:
-                                    raise AssertionError(f"bf16 error {err} over budget {budget}: {case}")
-                            torch.cuda.synchronize()
-                            key = f"{variant}/{case['dtype']}"
-                            w = worst.setdefault(key, {"cases": 0, "max_err": 0.0, "max_lse_err": 0.0})
-                            w["cases"] += 1
-                            w["max_err"] = max(w["max_err"], err)
-                            w["max_lse_err"] = max(w["max_lse_err"], max_abs(lse, lse_plain))
-                            n += 1
+                                gold = pfn_prefix_attention_reference(q.float(), k.float(), v.float(), sep)[0]
+                                dense = pfn_prefix_attention_reference(q, k, v, sep)[0]
+                            err = max_abs(o.reshape(B, H, Tq, D), gold)
+                            budget = 2 * max_abs(dense, gold) + 1e-3
+                            if err > budget:
+                                raise AssertionError(f"bf16 error {err} over budget {budget}: {case}")
+                        torch.cuda.synchronize()
+                        key = f"{variant}/{case['dtype']}"
+                        w = worst.setdefault(key, {"cases": 0, "max_err": 0.0, "max_lse_err": 0.0})
+                        w["cases"] += 1
+                        w["max_err"] = max(w["max_err"], err)
+                        w["max_lse_err"] = max(w["max_lse_err"], max_abs(lse, lse_plain))
+                        n += 1
     # The prefix + exact-merge dispatch on the card, against the dense path.
     q, k, v = (torch.randn(2, 4, 2010, 128, generator=g, device=device).to(torch.bfloat16) for _ in range(3))
     gold = pfn_attention_reference(q.float(), k.float(), v.float(), 1000)
@@ -352,7 +408,9 @@ def phase_kernel_cases(device):
 
 
 def phase_kernel_timing(device, smi: str):
-    """Kernel and plain-version times at the main-path shape."""
+    """Kernel and plain-version times at the main-path shape (B*H = 32, T =
+    2010, D = 128, bf16), the kernel held to the bf16 budget at every sep of
+    TIMING_SEPS; then the prefix variant (include_diag=False) at sep 1000."""
     import torch
 
     from pfn_tpu_torch.ops.attention import pfn_attention_reference
@@ -368,19 +426,35 @@ def phase_kernel_timing(device, smi: str):
         sep_t = torch.full((1,), sep, dtype=torch.int32, device=device)
         o, _ = _flash_fwd(qs, kf, vf, sep_t, True)
         o_plain, _ = _flash_fwd_plain(qs.float(), kf.float(), vf.float(), sep, T, True)
-        err = max_abs(o, o_plain)
+        gold = pfn_attention_reference(q.float(), k.float(), v.float(), sep)
+        budget = 2 * max_abs(pfn_attention_reference(q, k, v, sep), gold) + 1e-3
+        bf16_err = max_abs(o.reshape(B, H, T, D), gold)
+        if bf16_err > budget:
+            raise AssertionError(f"kernel_timing: bf16 error {bf16_err} over budget {budget} at sep {sep}")
+        ms = cuda_ms(lambda: _flash_fwd(qs, kf, vf, sep_t, True))
         rows.append({
             "sep": sep,
-            "kernel_ms": cuda_ms(lambda: _flash_fwd(qs, kf, vf, sep_t, True)),
+            "kernel_ms": ms,
             "plain_ms": cuda_ms(lambda: _flash_fwd_plain(qs, kf, vf, sep_t, T, True)),
             "dense_bf16_ms": cuda_ms(lambda: pfn_attention_reference(q, k, v, sep_t)),
             "kernel_ms_again": cuda_ms(lambda: _flash_fwd(qs, kf, vf, sep_t, True)),
-            "max_abs_err": err,
-            "gflop_4_T_sep_D": 4.0 * B * H * T * sep * D / 1e9,
+            "max_abs_err": max_abs(o, o_plain), "bf16_err": bf16_err, "bf16_budget": budget,
+            "gflop": flash_flops("fwd", B * H, T, D, sep) / 1e9, **flash_bound("fwd", B * H, T, D, sep),
+            **rate("fwd", B * H, T, D, sep, ms),
         })
+    # The prefix variant (include_diag=False, Tq = Tk): keys below sep only.
+    sep = 1000
+    sep_t = torch.full((1,), sep, dtype=torch.int32, device=device)
+    o, _ = _flash_fwd(qs, kf, vf, sep_t, False)
+    o_plain, _ = _flash_fwd_plain(qs.float(), kf.float(), vf.float(), sep, T, False)
+    ms = cuda_ms(lambda: _flash_fwd(qs, kf, vf, sep_t, False))
+    prefix = {"sep": sep, "kernel_ms": ms, "plain_ms": cuda_ms(lambda: _flash_fwd_plain(qs, kf, vf, sep_t, T, False)),
+              "max_abs_err": max_abs(o, o_plain), **flash_bound("fwd", B * H, T, D, sep, False),
+              **rate("fwd", B * H, T, D, sep, ms, False)}
     emit({"phase": "kernel_timing", "shape": {"BH": B * H, "T": T, "D": D, "dtype": "bf16"},
-          "card": smi, "rows": rows})
-    return rows
+          "card": smi, "rows": rows, "prefix": prefix,
+          "bf16_rule": "err <= 2 * dense_bf16_err + 1e-3 against the f32 dense path on the bf16 inputs"})
+    return rows, prefix
 
 
 def _rel_errors(got: dict, gold: dict, dense: dict | None = None) -> dict:
@@ -422,56 +496,58 @@ def phase_kernel_bwd_cases(device):
     worst, n = {}, 0
     for include_diag in (True, False):
         variant = "diag" if include_diag else "prefix"
-        for T in (127, 128, 129, 2010):
+        for T, sep in FLASH_CASES:
             for Tq in ([T] if include_diag else [T, T // 2 + 1]):
-                for sep in sorted({0, 1, T // 2, T - 1}):
-                    for D in (32, 64, 128):
-                        for dtype in (torch.float32, torch.bfloat16):
-                            def rand(*shape):
-                                return torch.randn(*shape, generator=g, device=device)
+                for D in (32, 64, 128):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        def rand(*shape):
+                            return torch.randn(*shape, generator=g, device=device)
 
-                            qs = (rand(B * H, Tq, D) * D**-0.5).to(dtype)
-                            k, v = rand(B * H, T, D).to(dtype), rand(B * H, T, D).to(dtype)
-                            do = rand(B * H, Tq, D).to(dtype)
-                            dlse = None if include_diag else rand(B * H, Tq)
-                            o, lse = _flash_fwd(qs, k, v, sep, include_diag)
-                            got = _flash_bwd(qs, k, v, o, lse, do, dlse, sep, include_diag)
-                            torch.cuda.synchronize()
-                            f32 = [t.float() for t in (qs, k, v)]
-                            o32, lse32 = _flash_fwd_plain(*f32, sep, T, include_diag)
-                            gold = _flash_bwd_plain(*f32, o32, lse32, do.float(), dlse, sep, T, include_diag)
-                            case = dict(variant=variant, T=T, Tq=Tq, sep=sep, D=D, dtype=str(dtype))
-                            if not all(bool(torch.isfinite(t).all()) for t in got):
-                                raise AssertionError(f"non-finite gradient {case}")
-                            if all(float(t.abs().max()) == 0.0 for t in gold):
-                                if any(float(t.abs().max()) != 0.0 for t in got):
-                                    raise AssertionError(f"gradients must be exactly zero: {case}")
-                            if dtype == torch.float32:
-                                for name, a, b in zip("qkv", got, gold):
-                                    if not torch.allclose(a, b, atol=F32_GRAD_TOL, rtol=F32_GRAD_TOL):
-                                        raise AssertionError(f"d{name} mismatch {case}: {max_abs(a, b)}")
-                                errs = {f"d{name}": max_abs(a, b) for name, a, b in zip("qkv", got, gold)}
+                        qs = (rand(B * H, Tq, D) * D**-0.5).to(dtype)
+                        k, v = rand(B * H, T, D).to(dtype), rand(B * H, T, D).to(dtype)
+                        do = rand(B * H, Tq, D).to(dtype)
+                        dlse = None if include_diag else rand(B * H, Tq)
+                        o, lse = _flash_fwd(qs, k, v, sep, include_diag)
+                        got = _flash_bwd(qs, k, v, o, lse, do, dlse, sep, include_diag)
+                        again = _flash_bwd(qs, k, v, o, lse, do, dlse, sep, include_diag)
+                        torch.cuda.synchronize()
+                        f32 = [t.float() for t in (qs, k, v)]
+                        o32, lse32 = _flash_fwd_plain(*f32, sep, T, include_diag)
+                        gold = _flash_bwd_plain(*f32, o32, lse32, do.float(), dlse, sep, T, include_diag)
+                        case = dict(variant=variant, T=T, Tq=Tq, sep=sep, D=D, dtype=str(dtype))
+                        if not all(bool(torch.isfinite(t).all()) for t in got):
+                            raise AssertionError(f"non-finite gradient {case}")
+                        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                            raise AssertionError(f"a repeat backward differs {case}")
+                        if all(float(t.abs().max()) == 0.0 for t in gold):
+                            if any(float(t.abs().max()) != 0.0 for t in got):
+                                raise AssertionError(f"gradients must be exactly zero: {case}")
+                        if dtype == torch.float32:
+                            for name, a, b in zip("qkv", got, gold):
+                                if not torch.allclose(a, b, atol=F32_GRAD_TOL, rtol=F32_GRAD_TOL):
+                                    raise AssertionError(f"d{name} mismatch {case}: {max_abs(a, b)}")
+                            errs = {f"d{name}": max_abs(a, b) for name, a, b in zip("qkv", got, gold)}
+                        else:
+                            # The dense bf16 path's gradient on the same inputs (scale
+                            # already in qs), by autograd.
+                            leaves = [t.reshape(B, H, -1, D).detach().requires_grad_() for t in (qs, k, v)]
+                            if include_diag:
+                                out = pfn_attention_reference(*leaves, sep, scale=1.0)
+                                loss = (out.float() * do.reshape(B, H, Tq, D).float()).sum()
                             else:
-                                # The dense bf16 path's gradient on the same inputs (scale
-                                # already in qs), by autograd.
-                                leaves = [t.reshape(B, H, -1, D).detach().requires_grad_() for t in (qs, k, v)]
-                                if include_diag:
-                                    out = pfn_attention_reference(*leaves, sep, scale=1.0)
-                                    loss = (out.float() * do.reshape(B, H, Tq, D).float()).sum()
-                                else:
-                                    out, lse_d = pfn_prefix_attention_reference(*leaves, sep, scale=1.0)
-                                    loss = ((out.float() * do.reshape(B, H, Tq, D).float()).sum()
-                                            + (lse_d * dlse.reshape(B, H, Tq)).sum())
-                                dense = [t.reshape(B * H, -1, D) for t in torch.autograd.grad(loss, leaves)]
-                                errs = _grad_errors(got, gold, dense)
-                                if not _bf16_ok(errs):
-                                    raise AssertionError(f"bf16 gradient error over budget {case}: {errs}")
-                            key = f"{variant}/{case['dtype']}"
-                            w = worst.setdefault(key, {"cases": 0})
-                            w["cases"] += 1
-                            for name, e in errs.items():
-                                w[name] = max(w.get(name, 0.0), e)
-                            n += 1
+                                out, lse_d = pfn_prefix_attention_reference(*leaves, sep, scale=1.0)
+                                loss = ((out.float() * do.reshape(B, H, Tq, D).float()).sum()
+                                        + (lse_d * dlse.reshape(B, H, Tq)).sum())
+                            dense = [t.reshape(B * H, -1, D) for t in torch.autograd.grad(loss, leaves)]
+                            errs = _grad_errors(got, gold, dense)
+                            if not _bf16_ok(errs):
+                                raise AssertionError(f"bf16 gradient error over budget {case}: {errs}")
+                        key = f"{variant}/{case['dtype']}"
+                        w = worst.setdefault(key, {"cases": 0})
+                        w["cases"] += 1
+                        for name, e in errs.items():
+                            w[name] = max(w.get(name, 0.0), e)
+                        n += 1
     # Autograd through the dispatch on the card, against the dense path.
     B, H, T, D, sep = 2, 4, 2010, 128, 1000
     q, k, v = (torch.randn(B, H, T, D, generator=g, device=device).to(torch.bfloat16) for _ in range(3))
@@ -497,49 +573,83 @@ def phase_kernel_bwd_cases(device):
     torch.cuda.synchronize()
     emit({"phase": "kernel_bwd", "cases": n, "worst": worst, "tol_f32": F32_GRAD_TOL,
           "bf16_rule": f"err/max|gold| <= max({BF16_GRAD_FLOOR}, 3 * dense_bf16_err/max|gold|) per gradient",
-          "dispatch_autograd": dispatch})
+          "repeat_bitwise_equal": True, "dispatch_autograd": dispatch})
     return worst
 
 
 def phase_kernel_bwd_timing(device, smi: str):
     """Backward kernels, plain backward and dense bf16 backward at the
-    training microbatch (B 4 x H 4, T = 2010, D = 128, bf16)."""
+    training microbatch (B 4 x H 4, T = 2010, D = 128, bf16); at every sep the
+    three gradients held to the bf16 rule and a repeat dq call bitwise equal;
+    then the prefix variant (include_diag=False, a nonzero dlse) at sep 1000."""
     import torch
 
     from pfn_tpu_torch.ops import _ext
     from pfn_tpu_torch.ops.attention import pfn_attention_reference
-    from pfn_tpu_torch.ops.flash_attention import _flash_bwd_plain, _flash_fwd
+    from pfn_tpu_torch.ops.flash_attention import _flash_bwd_plain, _flash_fwd, _flash_fwd_plain
 
     g = torch.Generator(device=device).manual_seed(3)
     B, H, T, D = 4, 4, 2010, 128
     q, k, v, do4 = (torch.randn(B, H, T, D, generator=g, device=device).to(torch.bfloat16) for _ in range(4))
     qs = (q * D**-0.5).reshape(B * H, T, D)
     kf, vf, do = k.reshape(B * H, T, D), v.reshape(B * H, T, D), do4.reshape(B * H, T, D)
+    f32 = [t.float() for t in (qs, kf, vf)]
     rows = []
     for sep in TIMING_SEPS:
         sep_t = torch.full((1,), sep, dtype=torch.int32, device=device)
         o, lse = _flash_fwd(qs, kf, vf, sep_t, True)
         delta = (do.float() * o.float()).sum(-1)
         dq = _ext.flash_bwd_dq(qs, kf, vf, do, lse, delta, sep_t, True)
+        if not torch.equal(dq, _ext.flash_bwd_dq(qs, kf, vf, do, lse, delta, sep_t, True)):
+            raise AssertionError(f"kernel_bwd_timing: a repeat dq call differs at sep {sep}")
         dk, dv = _ext.flash_bwd_dkv(qs, kf, vf, do, lse, delta, sep_t, True)
         plain = _flash_bwd_plain(qs, kf, vf, o, lse, do, None, sep_t, T, True)
+        o32, lse32 = _flash_fwd_plain(*f32, sep, T, True)
+        gold = _flash_bwd_plain(*f32, o32, lse32, do.float(), None, sep, T, True)
+        scaled = [t.reshape(B, H, T, D).detach().requires_grad_() for t in (qs, kf, vf)]
+        loss = (pfn_attention_reference(*scaled, sep, scale=1.0).float() * do4.float()).sum()
+        errs = _grad_errors((dq, dk, dv), gold, [t.reshape(B * H, T, D) for t in torch.autograd.grad(loss, scaled)])
+        if not _bf16_ok(errs):
+            raise AssertionError(f"kernel_bwd_timing: bf16 gradient error over budget at sep {sep}: {errs}")
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         dense_out = pfn_attention_reference(*leaves, sep_t)
+        dq_ms = cuda_ms(lambda: _ext.flash_bwd_dq(qs, kf, vf, do, lse, delta, sep_t, True))
+        dkv_ms = cuda_ms(lambda: _ext.flash_bwd_dkv(qs, kf, vf, do, lse, delta, sep_t, True))
         rows.append({
             "sep": sep,
-            "dq_ms": cuda_ms(lambda: _ext.flash_bwd_dq(qs, kf, vf, do, lse, delta, sep_t, True)),
-            "dkv_ms": cuda_ms(lambda: _ext.flash_bwd_dkv(qs, kf, vf, do, lse, delta, sep_t, True)),
+            "dq_ms": dq_ms,
+            "dkv_ms": dkv_ms,
             "plain_ms": cuda_ms(lambda: _flash_bwd_plain(qs, kf, vf, o, lse, do, None, sep_t, T, True)),
             "dense_bf16_bwd_ms": cuda_ms(
                 lambda: torch.autograd.grad(dense_out, leaves, do4, retain_graph=True)),
             "dq_ms_again": cuda_ms(lambda: _ext.flash_bwd_dq(qs, kf, vf, do, lse, delta, sep_t, True)),
             "dkv_ms_again": cuda_ms(lambda: _ext.flash_bwd_dkv(qs, kf, vf, do, lse, delta, sep_t, True)),
             "max_abs_err": {f"d{n}": max_abs(a, b) for n, a, b in zip("qkv", (dq, dk, dv), plain)},
-            "gflop_14_T_sep_D": 14.0 * B * H * T * sep * D / 1e9,
+            "bf16_rel_err": errs, "dq_repeat_bitwise_equal": True,
+            "dq": {**flash_bound("dq", B * H, T, D, sep), **rate("dq", B * H, T, D, sep, dq_ms)},
+            "dkv": {**flash_bound("dkv", B * H, T, D, sep), **rate("dkv", B * H, T, D, sep, dkv_ms)},
         })
+    # The prefix variant (include_diag=False, Tq = Tk) with a nonzero dlse.
+    sep = 1000
+    sep_t = torch.full((1,), sep, dtype=torch.int32, device=device)
+    dlse = torch.randn(B * H, T, generator=g, device=device)
+    o, lse = _flash_fwd(qs, kf, vf, sep_t, False)
+    delta = (do.float() * o.float()).sum(-1) - dlse
+    dq = _ext.flash_bwd_dq(qs, kf, vf, do, lse, delta, sep_t, False)
+    dk, dv = _ext.flash_bwd_dkv(qs, kf, vf, do, lse, delta, sep_t, False)
+    plain = _flash_bwd_plain(qs, kf, vf, o, lse, do, dlse, sep_t, T, False)
+    dq_ms = cuda_ms(lambda: _ext.flash_bwd_dq(qs, kf, vf, do, lse, delta, sep_t, False))
+    dkv_ms = cuda_ms(lambda: _ext.flash_bwd_dkv(qs, kf, vf, do, lse, delta, sep_t, False))
+    prefix = {
+        "sep": sep, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+        "plain_ms": cuda_ms(lambda: _flash_bwd_plain(qs, kf, vf, o, lse, do, dlse, sep_t, T, False)),
+        "max_abs_err": {f"d{n}": max_abs(a, b) for n, a, b in zip("qkv", (dq, dk, dv), plain)},
+        "dq": {**flash_bound("dq", B * H, T, D, sep, False), **rate("dq", B * H, T, D, sep, dq_ms, False)},
+        "dkv": {**flash_bound("dkv", B * H, T, D, sep, False), **rate("dkv", B * H, T, D, sep, dkv_ms, False)},
+    }
     emit({"phase": "kernel_bwd_timing", "shape": {"BH": B * H, "T": T, "D": D, "dtype": "bf16"},
-          "card": smi, "rows": rows})
-    return rows
+          "card": smi, "rows": rows, "prefix": prefix})
+    return rows, prefix
 
 
 def phase_slice(device, smi: str, size: dict = FIG3A):
@@ -603,6 +713,7 @@ def phase_slice(device, smi: str, size: dict = FIG3A):
     wall.update({f"{name}/median_of_{REPEATS}": float(np.median([w for _, w in r[1:]])) for name, r in runs.items()})
     if launches != cfg.nlayers * forwards:
         raise AssertionError(f"{launches} kernel launches, expected {cfg.nlayers} layers x {forwards} forwards")
+    profile = device_profile(requests["positional_logits"], top=10)
     logits, (mean, std), quants = out["positional_logits"], out["predict_return_std"], out["predict_quantiles"]
     (mu, var), kl = out["oracle_f64"], out["gaussian_kl_f64"]
 
@@ -630,7 +741,8 @@ def phase_slice(device, smi: str, size: dict = FIG3A):
         "latency_ms": latency, "wall_ms": wall,
         "kl_mean_per_position": kl.mean(dim=1).tolist(),
         "err_kernel_vs_dense": err_kernel_dense, "err_dense_vs_f32": err_dense_f32,
-        "err_kernel_vs_f32": err_kernel_f32, "launches": launches, "checks": checks,
+        "err_kernel_vs_f32": err_kernel_f32, "launches": launches, "positional_logits_profile": profile,
+        "checks": checks,
     })
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -739,6 +851,7 @@ def phase_train(device, smi: str, size: dict = FIG3A_TRAIN):
         update_ms.append((time.perf_counter() - t1) * 1e3)
     median_ms = float(np.median(update_ms[1:]))
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    profile = device_profile(lambda: float(step(state)["loss"]), top=10)
     # sep, the prior's draws and the clip stay on the device: an update
     # enqueues its work without waiting for the card.
     torch.cuda.set_sync_debug_mode("error")
@@ -771,7 +884,8 @@ def phase_train(device, smi: str, size: dict = FIG3A_TRAIN):
         "train_calls_s": train_s, "launches": launches, "expected_launches": expected,
         "update_ms": {"first": update_ms[0], f"median_of_{size['timed_updates']}": median_ms},
         "datasets_per_s": size["batch_size"] * k / (median_ms / 1e3), "peak_memory_gb": peak_gb,
-        "one_update": one, "one_update_diff": diff, "one_update_budget": budget, "checks": checks,
+        "one_update": one, "one_update_diff": diff, "one_update_budget": budget, "update_profile": profile,
+        "checks": checks,
     })
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
@@ -1228,7 +1342,8 @@ def phase_library_timing(device, smi: str):
     """F.scaled_dot_product_attention with the boolean PFN mask at the flash
     kernels' timing shapes: the forward at B*H = 32, the backward (dq, dk, dv
     together) and forward + backward at B*H = 16; T = 2010, D = 128, bf16,
-    sep = 1000. A yardstick only: the port never calls it."""
+    sep = 1000; and the forward and backward with the prefix rule's mask. A
+    yardstick only: the port never calls it."""
     import torch
     import torch.nn.functional as F
 
@@ -1247,7 +1362,15 @@ def phase_library_timing(device, smi: str):
     bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
     fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(*leaves, attn_mask=mask),
                                                      leaves, do))
+    # The prefix rule's mask (keys below sep for every query): the yardstick
+    # of the prefix variants.
+    prefix_mask = (torch.arange(T, device=device) < sep)[None, :].expand(T, T)
+    with torch.no_grad():
+        prefix_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=prefix_mask))
+    out_prefix = F.scaled_dot_product_attention(*leaves, attn_mask=prefix_mask)
+    prefix_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out_prefix, leaves, do, retain_graph=True))
     result = {"sdpa_fwd_ms": fwd_ms, "sdpa_bwd_ms": bwd_ms, "sdpa_fwd_bwd_ms": fwd_bwd_ms,
+              "sdpa_prefix_fwd_ms": prefix_fwd_ms, "sdpa_prefix_bwd_ms": prefix_bwd_ms,
               "sdpa_vs_dense_bf16_max_abs": err}
     emit({"phase": "library_timing", "card": smi, "shape": {"T": T, "D": D, "sep": sep, "dtype": "bf16",
           "fwd_BH": 32, "bwd_BH": 16}, **result})
@@ -1264,9 +1387,9 @@ def main() -> int:
     device, smi = phase_card()
     phase_build()
     phase_kernel_cases(device)
-    timing = phase_kernel_timing(device, smi)
+    timing, _ = phase_kernel_timing(device, smi)
     phase_kernel_bwd_cases(device)
-    bwd_timing = phase_kernel_bwd_timing(device, smi)
+    bwd_timing, _ = phase_kernel_bwd_timing(device, smi)
     phase_slice(device, smi)
     launches = phase_train(device, smi)
     phase_fused_kernel(device)
@@ -1283,24 +1406,26 @@ def main() -> int:
     bwd_source = "pfn_tpu_torch/ops/csrc/pfn_flash_bwd.cu"
     fused_bwd_source = "pfn_tpu_torch/ops/csrc/pfn_fused_layer_bwd.cu"
     emit({"kernels": [
-        {"name": "pfn_flash_fwd", "route": "cuda", "source": "pfn_tpu_torch/ops/csrc/pfn_flash_fwd.cu",
+        {"name": "pfn_flash_fwd", "route": "cuda", "design": SM90_DESIGN,
+         "source": "pfn_tpu_torch/ops/csrc/pfn_flash_fwd.cu",
          "replaces": "pfn_tpu/ops/flash_attention.py:255", "launches": launches["pfn_flash_fwd"],
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"],
          **flash_bound("fwd", 32, 2010, 128, 1000), "library_ms": library["sdpa_fwd_ms"]},
-        {"name": "pfn_flash_bwd_dq", "route": "cuda", "source": bwd_source,
+        {"name": "pfn_flash_bwd_dq", "route": "cuda", "design": SM90_DESIGN, "source": bwd_source,
          "replaces": "pfn_tpu/ops/flash_attention.py:315", "launches": launches["pfn_flash_bwd_dq"],
          "max_abs_err": bwd["max_abs_err"]["dq"], "ms": bwd["dq_ms"], "plain_ms": bwd["plain_ms"],
          **flash_bound("dq", 16, 2010, 128, 1000), "library_ms": library["sdpa_bwd_ms"]},
-        {"name": "pfn_flash_bwd_dkv", "route": "cuda", "source": bwd_source,
+        {"name": "pfn_flash_bwd_dkv", "route": "cuda", "design": WMMA_DESIGN, "source": bwd_source,
          "replaces": "pfn_tpu/ops/flash_attention.py:340", "launches": launches["pfn_flash_bwd_dkv"],
          "max_abs_err": max(bwd["max_abs_err"]["dk"], bwd["max_abs_err"]["dv"]), "ms": bwd["dkv_ms"],
          "plain_ms": bwd["plain_ms"], **flash_bound("dkv", 16, 2010, 128, 1000),
          "library_ms": library["sdpa_bwd_ms"]},
-        {"name": "pfn_fused_layer_fwd", "route": "cuda", "source": "pfn_tpu_torch/ops/csrc/pfn_fused_layer_fwd.cu",
+        {"name": "pfn_fused_layer_fwd", "route": "cuda", "design": WMMA_DESIGN,
+         "source": "pfn_tpu_torch/ops/csrc/pfn_fused_layer_fwd.cu",
          "replaces": "pfn_tpu/ops/fused_layer.py:324", "launches": fused_launches,
          "max_abs_err": fused["max_abs_err"], "ms": fused["kernel_ms"], "plain_ms": fused["plain_ms"],
          "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"], "library_ms": fused["unfused_layer_ms"]},
-        *({"name": f"pfn_fused_layer_bwd_{part}", "route": "cuda", "source": fused_bwd_source,
+        *({"name": f"pfn_fused_layer_bwd_{part}", "route": "cuda", "design": WMMA_DESIGN, "source": fused_bwd_source,
            "replaces": f"pfn_tpu/ops/fused_layer.py:{line}",
            "launches": fused_train_launches[f"pfn_fused_layer_bwd_{part}"],
            "max_abs_err": fused_bwd[f"{part}_max_abs_err"], "ms": fused_bwd[f"{part}_kernel_ms"],

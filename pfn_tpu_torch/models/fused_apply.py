@@ -13,8 +13,10 @@ as the JAX package's ``_fwd_call`` and ``_bwd_call`` do, so the weight
 gradients reach the parameters as f32 sums, not rounded through a bf16 copy.
 
 Supported subset: the flagship configs (default Linear x/y encoders, no
-positional encoding, no SeqBN, dropout 0, dense FFN, tanh GELU) at widths
-the kernels are built for, T <= 512. Anything else raises.
+positional encoding, no SeqBN, dropout 0, dense FFN, tanh GELU), T <= 512,
+as in the JAX package; on the card, also the widths the kernels are built
+for (``_ext.fused_shape_error``). The plain version on the CPU takes any
+width. Anything else raises.
 ``PFNTransformer.forward`` does not dispatch here; the train loop does, for
 ``TrainConfig(attention_impl="fused")`` (``train/loop.py``).
 """
@@ -31,8 +33,12 @@ from pfn_tpu_torch.ops import _ext
 from pfn_tpu_torch.ops.fused_layer import fused_encoder_layer
 
 
-def fused_supported(cfg: TransformerConfig) -> str | None:
-    """None if the fused path can run this config, else the reason not."""
+def fused_supported(cfg: TransformerConfig, device=None) -> str | None:
+    """None if the fused path can run this config, else the reason not.
+
+    The config checks are the JAX package's. On a CUDA ``device`` (a
+    ``torch.device`` or its type name) the kernels' width rule applies too;
+    elsewhere the plain version runs, which takes any width."""
     checks = [
         (cfg.encoder in (None, LinearEncoder), "custom x-encoder"),
         (cfg.y_encoder in (None, LinearEncoder), "custom y-encoder"),
@@ -47,7 +53,9 @@ def fused_supported(cfg: TransformerConfig) -> str | None:
     for ok, reason in checks:
         if not ok:
             return reason
-    return _ext.fused_shape_error(cfg.emsize, cfg.nhead, cfg.nhid)
+    if device is not None and torch.device(device).type == "cuda":
+        return _ext.fused_shape_error(cfg.emsize, cfg.nhead, cfg.nhid)
+    return None
 
 
 def _layer_params(layer: PFNEncoderLayer) -> dict:
@@ -75,7 +83,7 @@ def fused_forward(model: PFNTransformer, x: torch.Tensor, y: torch.Tensor, singl
     """``model(x, y, single_eval_pos)`` with the layer stack on the fused
     kernel: (B, T, F), (B, T) -> (B, T, n_out) f32."""
     cfg = model.config
-    reason = fused_supported(cfg)
+    reason = fused_supported(cfg, x.device)
     if reason is not None:
         raise ValueError(f"fused path does not support this config: {reason}")
     T = x.shape[1]

@@ -40,7 +40,7 @@ SOURCES = {
     "pfn_fused_layer_bwd": _CSRC / "pfn_fused_layer_bwd.cu",
 }
 # Headers the sources include; each library's hash covers them too.
-HEADERS = (_CSRC / "pfn_fused_common.cuh",)
+HEADERS = (_CSRC / "pfn_fused_common.cuh", _CSRC / "pfn_flash_sm90.cuh")
 # Head dims the forward and both backward kernels are instantiated for.
 FLASH_HEAD_DIMS = (32, 64, 128)
 # Head dims the fused layer's attention is instantiated for, and its longest

@@ -20,54 +20,61 @@
 // from an int32 in device memory, as in the forward.
 //
 // Design. The JAX package's split into two kernels is kept, so that neither
-// needs atomics and the backward is deterministic.
-//   * dq: one block per (64-row query tile, b*h), four warps. It loops over
-//     the KV tiles that the forward visits: tiles 0 .. ceil(sep/64)-1, then,
-//     in the diagonal variant, the tile(s) holding the block's own diagonal.
-//   * dk/dv: one block per (64-key tile, b*h). A tile that starts below sep
-//     loops over every query tile; a tile at or past sep loops only over the
-//     query tile(s) holding its diagonal (diagonal variant) or over none
-//     (prefix variant), and then writes zeros.
-// Masked entries get p = 0 explicitly, never exp(s - lse): a prefix row with
-// no allowed key has lse = -1e30, which would give exp(-1e30 + 1e30) = 1.
-// Rows past Tq and keys past Tk are masked by bounds, so the caller pads
-// nothing. Rounding follows the TPU kernels: s, dp and ds in f32; p rounded
-// to dO's dtype before P^T dO; ds rounded to the input dtype before dS K and
-// dS^T Q; every accumulator f32. bf16 products run on the tensor cores
-// through WMMA (mma.sync 16x16x16, f32 accumulate); f32 inputs take an FMA
-// path, so f32 stays f32 (no TF32).
+// needs atomics and the backward is deterministic. Masked entries get p = 0
+// explicitly, never exp(s - lse): a prefix row with no allowed key has lse =
+// -1e30, which would give exp(-1e30 + 1e30) = 1. Rows past Tq and keys past
+// Tk are masked by bounds, so the caller pads nothing. Rounding follows the
+// TPU kernels: s, dp and ds in f32; p rounded to dO's dtype before P^T dO; ds
+// rounded to the input dtype before dS K and dS^T Q; every accumulator f32.
 //
-// Shared memory: every tile, the f32 score tiles and the f32 accumulators
-// live in shared memory. At f32 and D = 128 a 64-row query tile would put
-// the dk/dv block at ~235 KB, over the 227 KB a block may use, so that one
-// instantiation walks 32-row query tiles (186 KB); f32 writes p and ds over
-// s and dp in place.
+// What bounds them on the H100 (B*H = 16, T = 2010, D = 128, sep = 1000):
+// dq does three products over the allowed (query, key) pairs (S, dP, dS K),
+// 25 GFLOP, 25 us at the bf16 tensor-core peak, and dk/dv four (S, dP,
+// dS^T Q, P^T dO), 33 GFLOP, 33 us; the unique bytes (q, k, v, dO, the
+// output, lse and delta: ~41 MB for dq) take ~12 us at the HBM rate. So both
+// are bound by operations.
 //
-// What bounds it at the main-path shape (B*H = 16, T = 2010, D = 128, bf16,
-// sep ~ 1000): the dq kernel does three T x sep x D products per head and
-// the dk/dv kernel four, ~7 * 2 * T * sep * D = 58 GFLOP in all, 58 us at
-// the bf16 tensor-core peak; the unique bytes (q, k, v, o, dO, dq, dk, dv:
-// ~66 MB) take ~20 us at HBM rate. So both kernels should be compute bound.
-// This first design is not: S, dP, P and dS make a round trip through
-// shared memory per tile, the accumulators are reloaded from shared memory
-// per tile, and nothing overlaps a tile's loads with the previous tile's
-// math.
+//   * dq, bf16 (the main path), `dq_sm90`: the forward's block and ring
+//     (pfn_flash_sm90.cuh): one block per (128-row query tile, b*h), Q and dO
+//     resident (TMA, once), K and V tiles of 64 keys streamed through a ring
+//     of 4 slots by the producer warpgroup, two consumer warpgroups of 64
+//     rows. Per tile a consumer runs S = Q K^T and dP = dO V^T as wgmma from
+//     shared memory, forms p = exp(s - lse) (0 off the allowed entries) and
+//     ds = p (dp - delta) on the fragments in registers with lse and delta
+//     of its rows in registers, rounds ds to bf16 and runs dQ += dS K as
+//     wgmma with dS as the register A operand. The dQ accumulator (64 f32
+//     registers a thread at D = 128) stays in registers; 64-key tiles keep S
+//     and dP at 32 registers each, so nothing spills. It visits the
+//     forward's tiles: below sep, then the diagonal tiles.
+//   * dq, f32: the FMA body of the first port (64-row query tiles, four
+//     warps, every tile and the accumulator in shared memory), so f32 stays
+//     f32 (no TF32).
+//   * dk/dv, both dtypes: one block per (64-key tile, b*h), four warps. A
+//     tile that starts below sep loops over every query tile; a tile at or
+//     past sep loops only over the query tile(s) holding its diagonal
+//     (diagonal variant) or over none (prefix variant), and then writes
+//     zeros. bf16 products on the tensor cores through WMMA (mma.sync
+//     16x16x16, f32 accumulate), f32 on FMA; S, dP, P, dS and both
+//     accumulators go through shared memory. At f32 and D = 128 a 64-row
+//     query tile would put the block at ~235 KB, over the 227 KB a block may
+//     use, so that instantiation walks 32-row query tiles (186 KB); f32
+//     writes p and ds over s and dp in place.
 //
-// Left on the table for later work, first of all the uneven work of the
-// dk/dv grid: tiles below sep loop over all ceil(T/64) query tiles while
-// tiles past sep take one, so a persistent schedule that balances them is
-// the first thing to do. Then wgmma with TMA-fed operands, accumulators in
-// registers, and the softmax recomputation on register fragments.
+// Left for later: dk/dv first. Its grid is uneven (tiles below sep walk all
+// ceil(T/64) query tiles, tiles past sep one), so it needs a persistent
+// schedule that balances them, then the ring and wgmma of dq with P^T and
+// dS^T as operands. For dq: overlapping one tile's softmax with the next
+// tile's products, and storing dQ through shared memory by TMA.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
 #include <mma.h>
-#include <stdint.h>
 
 #include <type_traits>
 
+#include "pfn_flash_sm90.cuh"
+
 namespace {
+
+namespace sm90 = pfn_flash_sm90;
 
 constexpr int BQ = 64;  // query rows per dq block
 constexpr int BK = 64;  // keys per KV tile, in both kernels
@@ -90,7 +97,6 @@ template <typename T, int D>
 constexpr int dkv_rows = (!is_bf16<T> && D == 128) ? 32 : 64;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -200,88 +206,187 @@ __device__ __forceinline__ void tile_ds(const float* ss, const float* dps, int l
   }
 }
 
-// Shared-memory layout of a dq block. Every region starts on a 128-byte
-// boundary; WMMA needs 32-byte aligned fragment pointers.
-template <typename T, int D>
+// Shared-memory layout of an f32 dq block. Every region starts on a 128-byte
+// boundary; ds is written over S.
+template <int D>
 struct DqSmem {
-  static constexpr int LDX = D + pad<T>;   // q, dO, k, v tiles (elements of T)
-  static constexpr int LDS = BK + 4;         // f32 S and dP
-  static constexpr int LDP = BK + pad<T>;  // dS in T; f32 writes it over S
-  static constexpr int LDA = D + 4;          // f32 dq accumulator
+  static constexpr int LDX = D + pad<float>;  // q, dO, k, v tiles
+  static constexpr int LDS = BK + 4;          // S, dP, and dS over S
+  static constexpr int LDA = D + 4;           // dq accumulator
   static constexpr int q_off = 0;
-  static constexpr int do_off = q_off + round128(BQ * LDX * (int)sizeof(T));
-  static constexpr int k_off = do_off + round128(BQ * LDX * (int)sizeof(T));
-  static constexpr int v_off = k_off + round128(BK * LDX * (int)sizeof(T));
-  static constexpr int s_off = v_off + round128(BK * LDX * (int)sizeof(T));
+  static constexpr int do_off = q_off + round128(BQ * LDX * 4);
+  static constexpr int k_off = do_off + round128(BQ * LDX * 4);
+  static constexpr int v_off = k_off + round128(BK * LDX * 4);
+  static constexpr int s_off = v_off + round128(BK * LDX * 4);
   static constexpr int dp_off = s_off + round128(BQ * LDS * 4);
-  static constexpr int ds_off = dp_off + round128(BQ * LDS * 4);
-  static constexpr int acc_off = ds_off + (is_bf16<T> ? round128(BQ * LDP * (int)sizeof(T)) : 0);
+  static constexpr int acc_off = dp_off + round128(BQ * LDS * 4);
   static constexpr int lse_off = acc_off + round128(BQ * LDA * 4);
   static constexpr int delta_off = lse_off + round128(BQ * 4);
   static constexpr int bytes = delta_off + round128(BQ * 4);
-  static_assert(is_bf16<T> || LDP == LDS, "f32 dS is written over S");
   static_assert(bytes <= SMEM_LIMIT, "dq block over the shared-memory limit");
 };
 
-template <typename T, int D, bool DIAG>
+template <int D, bool DIAG>
 __global__ void __launch_bounds__(NTHREADS)
-    pfn_flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                            const T* __restrict__ dO, const float* __restrict__ lse,
-                            const float* __restrict__ delta, T* __restrict__ dq, const int* __restrict__ sep_ptr,
-                            int Tq, int Tk) {
-  using L = DqSmem<T, D>;
+    dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+           const float* __restrict__ dO, const float* __restrict__ lse, const float* __restrict__ delta,
+           float* __restrict__ dq, const int* __restrict__ sep_ptr, int Tq, int Tk) {
+  using L = DqSmem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem + L::q_off);
-  T* dos = reinterpret_cast<T*>(smem + L::do_off);
-  T* ks = reinterpret_cast<T*>(smem + L::k_off);
-  T* vs = reinterpret_cast<T*>(smem + L::v_off);
+  float* qs = reinterpret_cast<float*>(smem + L::q_off);
+  float* dos = reinterpret_cast<float*>(smem + L::do_off);
+  float* ks = reinterpret_cast<float*>(smem + L::k_off);
+  float* vs = reinterpret_cast<float*>(smem + L::v_off);
   float* ss = reinterpret_cast<float*>(smem + L::s_off);
   float* dps = reinterpret_cast<float*>(smem + L::dp_off);
-  T* dss = is_bf16<T> ? reinterpret_cast<T*>(smem + L::ds_off) : reinterpret_cast<T*>(ss);
   float* acc = reinterpret_cast<float*>(smem + L::acc_off);
   float* lse_s = reinterpret_cast<float*>(smem + L::lse_off);
   float* delta_s = reinterpret_cast<float*>(smem + L::delta_off);
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const T* kb = k + (size_t)bh * Tk * D;
-  const T* vb = v + (size_t)bh * Tk * D;
+  const float* kb = k + (size_t)bh * Tk * D;
+  const float* vb = v + (size_t)bh * Tk * D;
   const int sep = min(max(*sep_ptr, 0), Tk);
 
-  load_tile<T, D, BQ, L::LDX>(qs, q + (size_t)bh * Tq * D, q0, Tq);
-  load_tile<T, D, BQ, L::LDX>(dos, dO + (size_t)bh * Tq * D, q0, Tq);
+  load_tile<float, D, BQ, L::LDX>(qs, q + (size_t)bh * Tq * D, q0, Tq);
+  load_tile<float, D, BQ, L::LDX>(dos, dO + (size_t)bh * Tq * D, q0, Tq);
   load_rows<BQ>(lse_s, lse + (size_t)bh * Tq, q0, Tq);
   load_rows<BQ>(delta_s, delta + (size_t)bh * Tq, q0, Tq);
   for (int i = threadIdx.x; i < BQ * L::LDA; i += NTHREADS) acc[i] = 0.0f;
   __syncthreads();
 
-  auto step = [&](int tile) {
-    const int key0 = tile * BK;
-    load_tile<T, D, BK, L::LDX>(ks, kb, key0, Tk);
-    load_tile<T, D, BK, L::LDX>(vs, vb, key0, Tk);
-    __syncthreads();
-    mm<T, BQ, BK, D, false, true, false>(ss, L::LDS, qs, L::LDX, ks, L::LDX);    // S = Q K^T
-    mm<T, BQ, BK, D, false, true, false>(dps, L::LDS, dos, L::LDX, vs, L::LDX);  // dP = dO V^T
-    __syncthreads();
-    tile_ds<T, DIAG, false, BQ>(ss, dps, L::LDS, nullptr, dss, L::LDP, lse_s, delta_s, q0, key0, sep, Tq, Tk);
-    __syncthreads();
-    mm<T, BQ, D, BK, false, false, true>(acc, L::LDA, dss, L::LDP, ks, L::LDX);  // dQ += dS K
-    __syncthreads();  // the next tile overwrites ks, vs, ss, dps and dss
-  };
-
-  // The forward's loop bound: the train prefix [0, sep), then the diagonal
+  // The forward's tile list: the train prefix [0, sep), then the diagonal
   // keys [q0, q0 + BQ) not yet covered (Tq == Tk in that variant).
-  const int n_prefix = (sep + BK - 1) / BK;
-  for (int tile = 0; tile < n_prefix; ++tile) step(tile);
-  if (DIAG) {
-    const int last = (min(q0 + BQ, Tk) - 1) / BK;
-    for (int tile = max(n_prefix, q0 / BK); tile <= last; ++tile) step(tile);
+  const sm90::Tiles<BQ, BK, DIAG> tiles(sep, q0, Tk);
+  for (int i = 0; i < tiles.n; ++i) {
+    const int key0 = tiles.key0(i);
+    load_tile<float, D, BK, L::LDX>(ks, kb, key0, Tk);
+    load_tile<float, D, BK, L::LDX>(vs, vb, key0, Tk);
+    __syncthreads();
+    mm<float, BQ, BK, D, false, true, false>(ss, L::LDS, qs, L::LDX, ks, L::LDX);    // S = Q K^T
+    mm<float, BQ, BK, D, false, true, false>(dps, L::LDS, dos, L::LDX, vs, L::LDX);  // dP = dO V^T
+    __syncthreads();
+    tile_ds<float, DIAG, false, BQ>(ss, dps, L::LDS, nullptr, ss, L::LDS, lse_s, delta_s, q0, key0, sep, Tq, Tk);
+    __syncthreads();
+    mm<float, BQ, D, BK, false, false, true>(acc, L::LDA, ss, L::LDS, ks, L::LDX);  // dQ += dS K
+    __syncthreads();  // the next tile overwrites ks, vs, ss and dps
   }
 
   // A row that saw no allowed key keeps dq = 0.
   for (int i = threadIdx.x; i < BQ * D; i += NTHREADS) {
     const int r = i / D, c = i % D;
-    if (q0 + r < Tq) dq[((size_t)bh * Tq + q0 + r) * D + c] = from_float<T>(acc[r * L::LDA + c]);
+    if (q0 + r < Tq) dq[((size_t)bh * Tq + q0 + r) * D + c] = acc[r * L::LDA + c];
+  }
+}
+
+constexpr int kBQ = 128;  // query rows per bf16 dq block, 64 per consumer warpgroup
+constexpr int kBK = 64;   // keys per KV tile of the bf16 dq kernel
+
+template <int D, bool DIAG>
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+    dq_sm90(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+            const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
+            const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+            const int* __restrict__ sep_ptr, int Tq, int Tk) {
+  using L = sm90::Smem<D, kBQ, kBK, 2>;  // resident: q (0) and dO (1)
+  constexpr int ON = D < 64 ? D : 64;     // N of one dS K product: one panel of D
+  constexpr int NPAN = D / ON;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = sm90::smem_base(smem_raw);
+  const int wg = threadIdx.x / 128;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kBQ;
+  const int sep = min(max(*sep_ptr, 0), Tk);
+  const sm90::Tiles<kBQ, kBK, DIAG> tiles(sep, q0, Tk);
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(L::res_bar(base), 1);
+    for (int s = 0; s < L::STAGES; ++s) {
+      sm90::mbar_init(L::full(base, s), 1);
+      sm90::mbar_init(L::empty(base, s), sm90::kConsumerThreads);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    sm90::producer_regs();
+    if (threadIdx.x == 256) {
+      const CUtensorMap* res[2] = {&mq, &mdo};
+      sm90::produce<L, D, kBQ, kBK, 2>(res, &mk, &mv, base, tiles, q0, bh);
+    }
+  } else {
+    sm90::consumer_regs();
+    const int row0 = wg * 64;  // this warpgroup's rows in the query tile
+    float lse2[2], dl[2];      // lse * log2(e) and delta of this thread's two rows
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + row0 + sm90::frag_row(2 * h);
+      lse2[h] = row < Tq ? lse[(size_t)bh * Tq + row] * sm90::kLog2e : 0.0f;
+      dl[h] = row < Tq ? delta[(size_t)bh * Tq + row] : 0.0f;
+    }
+    float acc[NPAN][ON / 2];
+#pragma unroll
+    for (int p = 0; p < NPAN; ++p)
+#pragma unroll
+      for (int e = 0; e < ON / 2; ++e) acc[p][e] = 0.0f;
+    sm90::mbar_wait(L::res_bar(base), 0);
+
+    for (int i = 0; i < tiles.n; ++i) {
+      const int stage = i % L::STAGES;
+      const int key0 = tiles.key0(i);
+      sm90::mbar_wait(L::full(base, stage), (i / L::STAGES) & 1);
+      const uint32_t ks = L::k_tile(base, stage), vs = L::v_tile(base, stage);
+
+      float s[kBK / 2], dp[kBK / 2];  // S = Q K^T, dP = dO V^T
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd)
+        sm90::wgmma_ss<kBK>(s, sm90::desc_k_major<D, kBQ>(L::res_tile(base, 0), row0, kd),
+                            sm90::desc_k_major<D, kBK>(ks, 0, kd), kd > 0);
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd)
+        sm90::wgmma_ss<kBK>(dp, sm90::desc_k_major<D, kBQ>(L::res_tile(base, 1), row0, kd),
+                            sm90::desc_k_major<D, kBK>(vs, 0, kd), kd > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+
+      const bool masked = key0 + kBK > sep;  // the tile holding sep, or a diagonal tile
+#pragma unroll
+      for (int e = 0; e < kBK / 2; ++e) {
+        const int h = (e >> 1) & 1;
+        float p = exp2f(fmaf(s[e], sm90::kLog2e, -lse2[h]));
+        if (masked && !sm90::allowed<DIAG>(q0 + row0 + sm90::frag_row(e), key0 + sm90::frag_col(e), sep, Tk)) p = 0.0f;
+        s[e] = p * (dp[e] - dl[h]);  // ds
+      }
+
+      uint32_t dsa[kBK / 16][4];  // dS in bf16, the A operand of dQ += dS K
+      sm90::to_a_frags<kBK>(s, dsa);
+#pragma unroll
+      for (int p = 0; p < NPAN; ++p) sm90::fence_regs(acc[p]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < NPAN; ++p) sm90::wgmma_rs_tb<ON>(acc[p], dsa[kk], sm90::desc_mn_major<D, kBK>(ks, kk, p));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+#pragma unroll
+      for (int p = 0; p < NPAN; ++p) sm90::fence_regs(acc[p]);
+      sm90::fence_regs(dsa);
+      sm90::mbar_arrive(L::empty(base, stage));
+    }
+
+    // A row that saw no allowed key keeps dq = 0.
+    const float one[2] = {1.0f, 1.0f};
+#pragma unroll
+    for (int p = 0; p < NPAN; ++p)
+      sm90::store_panel<ON, D>(dq + (size_t)bh * Tq * D, acc[p], one, q0 + row0, Tq, p * ON);
   }
 }
 
@@ -397,15 +502,33 @@ struct Args {
 
 template <typename T, int D, bool DIAG>
 cudaError_t launch_dq(const Args& a) {
-  using L = DqSmem<T, D>;
-  auto kernel = pfn_flash_bwd_dq_kernel<T, D, DIAG>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Tq + BQ - 1) / BQ, a.BH);
-  kernel<<<grid, NTHREADS, L::bytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dO), static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.out0), static_cast<const int*>(a.sep), a.Tq, a.Tk);
+  if constexpr (is_bf16<T>) {
+    using L = sm90::Smem<D, kBQ, kBK, 2>;
+    CUtensorMap mq, mk, mv, mdo;
+    cudaError_t err;
+    if ((err = sm90::make_map(&mq, a.q, a.BH, a.Tq, D, kBQ)) != cudaSuccess) return err;
+    if ((err = sm90::make_map(&mdo, a.dO, a.BH, a.Tq, D, kBQ)) != cudaSuccess) return err;
+    if ((err = sm90::make_map(&mk, a.k, a.BH, a.Tk, D, kBK)) != cudaSuccess) return err;
+    if ((err = sm90::make_map(&mv, a.v, a.BH, a.Tk, D, kBK)) != cudaSuccess) return err;
+    auto kernel = dq_sm90<D, DIAG>;
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes)) != cudaSuccess)
+      return err;
+    const dim3 grid((a.Tq + kBQ - 1) / kBQ, a.BH);
+    kernel<<<grid, sm90::kThreads, L::bytes, a.stream>>>(mq, mk, mv, mdo, static_cast<const float*>(a.lse),
+                                                          static_cast<const float*>(a.delta),
+                                                          static_cast<__nv_bfloat16*>(a.out0),
+                                                          static_cast<const int*>(a.sep), a.Tq, a.Tk);
+  } else {
+    using L = DqSmem<D>;
+    auto kernel = dq_f32<D, DIAG>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.Tq + BQ - 1) / BQ, a.BH);
+    kernel<<<grid, NTHREADS, L::bytes, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+        static_cast<const float*>(a.dO), static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<float*>(a.out0), static_cast<const int*>(a.sep), a.Tq, a.Tk);
+  }
   return cudaGetLastError();
 }
 

@@ -221,9 +221,9 @@ def _sample_eval_pos(generator: torch.Generator, cfg: TrainConfig, weights: torc
 
 def _check_fused(model: PFNTransformer, cfg: TrainConfig) -> None:
     """Raise ValueError where ``attention_impl="fused"`` cannot run this
-    model at this bptt (``fused_forward`` raises the same at its first
-    call)."""
-    reason = fused_supported(model.config)
+    model, on its device, at this bptt (``fused_forward`` raises the same at
+    its first call)."""
+    reason = fused_supported(model.config, next(model.parameters()).device)
     if reason is None and cfg.bptt > _ext.FUSED_MAX_SEQ:
         reason = f"bptt {cfg.bptt} > {_ext.FUSED_MAX_SEQ}"
     if reason is not None:

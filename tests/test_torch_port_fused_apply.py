@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from pfn_tpu.models.fused_apply import fused_forward as jax_fused_forward
+from pfn_tpu.models.fused_apply import fused_supported as jax_fused_supported
 from pfn_tpu.models.transformer import PFNTransformer as JaxPFN
 from pfn_tpu.models.transformer import TransformerConfig as JaxConfig
 from pfn_tpu_torch.models import PFNTransformer, TransformerConfig
@@ -105,18 +106,44 @@ def test_model_configured_fused_runs_the_ordinary_path():
 
 
 def test_fused_supported_gates():
-    """tests/test_fused_apply.py:79-90, plus the kernel's own shape rule."""
+    """tests/test_fused_apply.py:79-90, plus the kernels' own width rule,
+    which holds only for a CUDA device: the JAX package's gate has none, and
+    the plain version on the CPU takes any width."""
     assert fused_supported(_cfg()) is None
     assert "dropout" in fused_supported(_cfg(dropout=0.1))
     assert "MoE" in fused_supported(_cfg(num_experts=2))
     assert "SeqBN" in fused_supported(_cfg(input_normalization=True))
     assert "exact" in fused_supported(_cfg(exact_gelu=True))
-    assert "head dim" in fused_supported(_cfg(emsize=200, nhead=2, nhid=208))
-    assert "multiples of 16" in fused_supported(_cfg(nhid=40))
+    assert "head dim" in fused_supported(_cfg(emsize=200, nhead=2, nhid=208), "cuda")
+    assert "multiples of 16" in fused_supported(_cfg(nhid=40), torch.device("cuda"))
+    for kw in (dict(emsize=200, nhead=2, nhid=208), dict(nhid=40)):
+        assert fused_supported(_cfg(**kw)) is None and fused_supported(_cfg(**kw), "cpu") is None
+        assert jax_fused_supported(_jax_cfg(**kw)) is None
     assert "emsize % nhead" in fused_supported(_cfg(emsize=30, nhead=4))
     model = PFNTransformer(_cfg(dropout=0.1))
     with pytest.raises(ValueError, match="dropout"):
         fused_forward(model, torch.zeros(1, 4, 2), torch.zeros(1, 4), 2)
+
+
+# Widths outside the kernels' rule (head dim 20, nhid 40), which the JAX
+# package's fused path runs; on the CPU the port's plain version does too.
+ODD = dict(num_features=2, n_out=10, emsize=40, nhead=2, nhid=40, nlayers=2)
+
+
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+def test_fused_forward_at_widths_outside_the_kernel_rule_matches_jax(dtype_name):
+    jdt, tdt, tol = {"f32": (jnp.float32, torch.float32, F32_TOL),
+                     "bf16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}[dtype_name]
+    params = seeded_flax_params(ODD["num_features"], ODD["emsize"], ODD["nhid"], ODD["nlayers"], ODD["n_out"], seed=5)
+    x, y = _data(seed=6)
+    want = jax_fused_forward(JaxConfig(**ODD, attention_impl="fused", dtype=jdt), jax.tree.map(jnp.asarray, params),
+                             jnp.asarray(x), jnp.asarray(y), jnp.asarray(9), interpret=True)
+    model = PFNTransformer(TransformerConfig(**ODD, attention_impl="fused", dtype=tdt)).eval()
+    model.load_state_dict(state_dict_from_flax_params(params, ODD["nlayers"]), strict=True)
+    with torch.no_grad():
+        got = fused_forward(model, torch.from_numpy(x), torch.from_numpy(y), 9)
+    assert got.shape == (B, T, ODD["n_out"])
+    _close(got, want, tol)
 
 
 def test_long_sequence_raises():

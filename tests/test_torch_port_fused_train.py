@@ -8,7 +8,8 @@ and backward of pfn_tpu_torch.ops.fused_layer on CPU tensors).
   * One update of TrainConfig(attention_impl="fused") against the port's
     unfused update from the same params, batch and sep, in f32.
   * train() with attention_impl="fused", and the configs the fused path does
-    not take raising ValueError before anything runs.
+    not take raising ValueError before anything runs; the kernels' width
+    rule only for a CUDA device, as the CPU's plain version takes any width.
 
 Tolerances: f32 gradients 5e-4 (atol and rtol), tests/test_fused_apply.py's;
 bf16 gradients 1e-2 of each leaf's largest entry (one flipped bf16 rounding,
@@ -31,7 +32,7 @@ from pfn_tpu.models.fused_apply import fused_forward as jax_fused_forward
 from pfn_tpu.models.transformer import TransformerConfig as JaxConfig
 from pfn_tpu_torch.distributions import get_bucket_limits
 from pfn_tpu_torch.models import PFNTransformer, TransformerConfig
-from pfn_tpu_torch.models.fused_apply import fused_forward
+from pfn_tpu_torch.models.fused_apply import fused_forward, fused_supported
 from pfn_tpu_torch.priors import GPPrior
 from pfn_tpu_torch.train import (
     TrainConfig,
@@ -165,13 +166,26 @@ def test_train_fused_on_cpu_learns_and_resumes(tmp_path):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("over,match", [
-    ({"emsize": 200, "nhid": 208}, "head dim"),
-    ({"nhid": 40}, "multiples of 16"),
-    ({"bptt": 513, "fixed_eval_pos": 100}, "bptt 513 > 512"),
+@pytest.mark.parametrize("over,match,card_only", [
+    ({"emsize": 200, "nhid": 208}, "head dim", True),
+    ({"nhid": 40}, "multiples of 16", True),
+    ({"bptt": 513, "fixed_eval_pos": 100}, "bptt 513 > 512", False),
 ], ids=["head_dim", "nhid", "bptt"])
-def test_unsupported_fused_config_raises_before_anything_runs(over, match):
+def test_unsupported_fused_config_raises_before_anything_runs(over, match, card_only):
+    """A config the fused path does not take raises before anything runs.
+    The kernels' width rule (head dim 16/32/64/128, D and F multiples of 16)
+    holds only where a model meets the kernels: the gate names it for a CUDA
+    device, and on the CPU, where the plain version runs and the JAX package's
+    fused path takes these widths too, the config trains."""
     cfg = _cfg(**over)
+    if card_only:
+        model = build_model(PRIOR, bar_criterion(BORDERS), cfg)
+        assert match in fused_supported(model.config, "cuda")
+        assert fused_supported(model.config, "cpu") is None and fused_supported(model.config) is None
+        prior = GPPrior(num_features=2, noise=1e-4, outputscale=1.0, lengthscale=0.6)
+        result = train(prior, bar_criterion(BORDERS), dataclasses.replace(cfg, epochs=1, warmup_epochs=1))
+        assert all(np.isfinite(s["mean_loss"]) and np.isfinite(s["grad_norm"]) for s in result.epoch_stats)
+        return
     with pytest.raises(ValueError, match=match):
         train(PRIOR, bar_criterion(BORDERS), cfg)
     # The device-fed step raises before it draws a microbatch.

@@ -4,6 +4,8 @@
     builds, loads or launches nothing.
   * No source of the port, and not chip_smoke.py, imports jax or pfn_tpu.
   * The kernel wrappers refuse CPU tensors (they never fall back).
+  * A library's build hash covers every header under csrc/, so an edited
+    header rebuilds the libraries that include it.
   * chip_smoke.py fails, printing no result line, without a CUDA device and
     when it stands alone in a directory.
 """
@@ -103,3 +105,23 @@ def test_chip_smoke_fails_alone(tmp_path):
     proc = _run_smoke(tmp_path, tmp_path)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
+    """Every header under csrc/ is in _ext.HEADERS, and editing a copy of
+    pfn_flash_sm90.cuh changes the flash libraries' paths (no nvcc needed)."""
+    from pfn_tpu_torch.ops import _ext
+
+    csrc = PACKAGE / "ops" / "csrc"
+    assert {h.name for h in _ext.HEADERS} == {h.name for h in csrc.glob("*.cuh")}
+    copy = tmp_path / "csrc"
+    shutil.copytree(csrc, copy)
+    monkeypatch.setattr(_ext, "SOURCES", {name: copy / src.name for name, src in _ext.SOURCES.items()})
+    monkeypatch.setattr(_ext, "HEADERS", tuple(copy / h.name for h in _ext.HEADERS))
+    before = {name: _ext.library_path(name) for name in ("pfn_flash_fwd", "pfn_flash_bwd")}
+    assert before == {name: _ext.library_path(name) for name in before}
+    header = copy / "pfn_flash_sm90.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    after = {name: _ext.library_path(name) for name in before}
+    assert all(after[name] != before[name] for name in before)
+    assert all(path.parent == _ext.BUILD_DIR for path in after.values())

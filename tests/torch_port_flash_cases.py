@@ -1,6 +1,7 @@
-"""Shared inputs and the JAX side of the flash-attention backward parity
-tests (tests/test_torch_port_flash_bwd*.py). Tolerance: atol = rtol = 1e-4,
-the gradient tolerance of tests/test_flash_attention.py."""
+"""Shared inputs and the JAX side of the flash-attention parity tests
+(tests/test_torch_port_flash_bwd*.py, tests/test_torch_port_flash_edges.py).
+Tolerance: atol = rtol = 1e-4, the gradient tolerance of
+tests/test_flash_attention.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +15,9 @@ from pfn_tpu_torch.ops import flash_attention as tflash
 TOL = 1e-4
 D = 32
 CASES = [(T, sep) for T in (100, 129, 256) for sep in sorted({0, 1, T // 2, T - 1})]
+# The edges of the sm_90a kernels' 128-row query tiles and 128-key (forward)
+# or 64-key (dq) KV tiles: one row or key past a tile, one short of it.
+EDGE_CASES = [(T, sep) for T in (255, 257) for sep in (127, 128, 129)]
 
 
 def close(got, want, name=""):
