@@ -8,7 +8,8 @@ Phases, each printing one JSON line:
      printed raw on a line of its own). TF32 must be off for matmuls.
   2. build: compiles the CUDA sources of the checkout, one nvcc each, all at
      once, and reports ptxas's registers and spills of every kernel, by name,
-     and nvcc's warnings.
+     and nvcc's warnings; fails if a bf16 flash kernel (the *_sm90 bodies)
+     spills.
   3. kernel: the PFN flash-attention forward kernel, both variants, against
      its plain dense f32 version over FLASH_CASES: T in {127, 128, 129, 2010}
      with sep in {0, 1, T//2, T-1}, and T in {255, 256, 257} with sep in {0,
@@ -19,17 +20,19 @@ Phases, each printing one JSON line:
      budget at every sep of TIMING_SEPS, with TFLOP/s and the share of the
      bound; and the prefix variant at sep 1000.
   4. kernel_bwd: the dq and dk/dv kernels of the backward, both variants,
-     against their plain dense f32 version over the same grid (the prefix
-     variant with a nonzero dlse); f32 at atol = rtol = 1e-4, bf16 by
+     against their plain dense f32 version over the same grid and the dk/dv
+     kernel's own edges, DKV_EDGES (the prefix variant with a nonzero dlse,
+     and Tq 63/64/65 against Tk 257); f32 at atol = rtol = 1e-4, bf16 by
      experiments/flash_equivalence.py's rule against the dense bf16 path's
      own error; a repeat backward bitwise equal; then autograd through
      pfn_attention(impl="flash") and impl="prefix" on the card against the
      dense path, under the same rule.
   5. kernel_bwd_timing: both backward kernels beside the plain backward and
      the dense bf16 backward at the training microbatch (B*H = 16, T = 2010,
-     D = 128, bf16), each sep held to the bf16 rule with a repeat dq call
-     bitwise equal, with TFLOP/s and the share of the bound; and the prefix
-     variant at sep 1000.
+     D = 128, bf16) at each sep of BWD_TIMING_SEPS, held to the bf16 rule
+     with repeat dq and dk/dv calls bitwise equal, with TFLOP/s and the share
+     of the bound; and the prefix variant at sep 1000, its repeat calls
+     bitwise equal too.
   6. slice: GP-regression inference at the Fig-3a width (emsize 512, 4 heads,
      nhid 1024, 6 layers, bf16, seeded random weights through the weight
      bridge) at T = 2010: positional logits for 8 datasets, a PFNRegressor
@@ -77,6 +80,8 @@ Phases, each printing one JSON line:
      mask, forward and backward, at the flash kernels' timing shapes (the
      library yardstick of the kernels line; the port never calls it), and
      with the prefix rule's mask (the prefix variants' yardstick).
+ 15. dkv_against_library: the dk/dv kernel at sep 1000, both variants,
+     beside SDPA's backward less the dq kernel, from this run.
 Then the kernels line (each kernel's launches on its path, error, time,
 plain time, bound and library time; its route, and the design of its bf16
 body), and last {"ok": true, "device": {...}}.
@@ -116,6 +121,16 @@ TIMING_SEPS = [400, 1000, 2000]
 # and 128-key tiles of the sm_90a bodies at T in {255, 256, 257}.
 FLASH_CASES = ([(T, sep) for T in (127, 128, 129, 2010) for sep in sorted({0, 1, T // 2, T - 1})]
                + [(T, sep) for T in (255, 256, 257) for sep in sorted({0, 1, 127, 128, 129, T - 1})])
+# Edges of the bf16 dk/dv kernel that FLASH_CASES does not straddle, added to
+# the backward's grid: sep one past the first 64-key half of its 128-key
+# tile, and at the second tile's halves; in the prefix variant also Tq one
+# short of, at and one past a 64-row query tile against Tk = 257.
+DKV_EDGES = [(257, 65), (257, 192)]
+DKV_PREFIX_TQ = [63, 64, 65]
+# The backward's timing seps: the forward's, and the mean sep of the train
+# phase's mixture sampler, where 208 heavy units of the dk/dv kernel (B*H 16)
+# take two rounds of 132 SMs.
+BWD_TIMING_SEPS = [400, 1000, 1595, 2000]
 REPEATS = 5  # slice requests after the first call; their median is reported
 # The bench.py flagship (bench.py:22-30): emsize 512, 4 heads, nhid 1024, 6
 # layers, 100 buckets, B 64 datasets of T 100 from the grid-2048 GP prior.
@@ -321,16 +336,24 @@ def ptxas_report(log: str) -> list:
 
 
 def phase_build():
+    import re
+
     from pfn_tpu_torch.ops import _ext
 
     t0 = time.perf_counter()
     libraries = _ext.build()
     seconds = time.perf_counter() - t0
-    emit({"phase": "build", "seconds": seconds, "libraries": {
-        name: {"seconds": info["seconds"], "built": info["built"],
-               "library": str(Path(info["path"]).relative_to(ROOT)), "ptxas": ptxas_report(info["log"]),
-               "warnings": [line.strip() for line in info["log"].splitlines() if "warning" in line.lower()]}
-        for name, info in libraries.items()}})
+    report = {name: {"seconds": info["seconds"], "built": info["built"],
+                     "library": str(Path(info["path"]).relative_to(ROOT)), "ptxas": ptxas_report(info["log"]),
+                     "warnings": [line.strip() for line in info["log"].splitlines() if "warning" in line.lower()]}
+              for name, info in libraries.items()}
+    emit({"phase": "build", "seconds": seconds, "libraries": report})
+    # The bf16 flash bodies keep their accumulators in registers: a spill
+    # there is a regression. (Only a fresh build carries ptxas's report.)
+    for k in (k for lib in report.values() for k in lib["ptxas"] if "_sm90<" in k["kernel"]):
+        spilled = [int(n) for n in re.findall(r"(\d+) bytes spill", k.get("spills", ""))]
+        if any(spilled):
+            raise AssertionError(f"{k['kernel']} spills: {k['spills']}")
 
 
 def phase_kernel_cases(device):
@@ -484,7 +507,7 @@ def _bf16_ok(errs: dict, names=("dq", "dk", "dv")) -> bool:
 
 def phase_kernel_bwd_cases(device):
     """The dq and dk/dv kernels against their plain version over the forward's
-    grid; bf16 also against the dense bf16 path's own error."""
+    grid and DKV_EDGES; bf16 also against the dense bf16 path's own error."""
     import torch
 
     from pfn_tpu_torch.ops import _ext
@@ -496,8 +519,9 @@ def phase_kernel_bwd_cases(device):
     worst, n = {}, 0
     for include_diag in (True, False):
         variant = "diag" if include_diag else "prefix"
-        for T, sep in FLASH_CASES:
-            for Tq in ([T] if include_diag else [T, T // 2 + 1]):
+        for T, sep in FLASH_CASES + DKV_EDGES:
+            tqs = [T] if include_diag else [T, T // 2 + 1] + (DKV_PREFIX_TQ if (T, sep) in DKV_EDGES else [])
+            for Tq in tqs:
                 for D in (32, 64, 128):
                     for dtype in (torch.float32, torch.bfloat16):
                         def rand(*shape):
@@ -577,11 +601,29 @@ def phase_kernel_bwd_cases(device):
     return worst
 
 
+def _repeat_bitwise(qs, k, v, do, lse, delta, sep_t, include_diag: bool, where: str):
+    """(dq, dk, dv) from the two backward kernels, each called twice: a repeat
+    call must give the same bits (no atomics; resume stays bitwise)."""
+    import torch
+
+    from pfn_tpu_torch.ops import _ext
+
+    dq = _ext.flash_bwd_dq(qs, k, v, do, lse, delta, sep_t, include_diag)
+    if not torch.equal(dq, _ext.flash_bwd_dq(qs, k, v, do, lse, delta, sep_t, include_diag)):
+        raise AssertionError(f"kernel_bwd_timing: a repeat dq call differs at {where}")
+    dk, dv = _ext.flash_bwd_dkv(qs, k, v, do, lse, delta, sep_t, include_diag)
+    dk2, dv2 = _ext.flash_bwd_dkv(qs, k, v, do, lse, delta, sep_t, include_diag)
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError(f"kernel_bwd_timing: a repeat dk/dv call differs at {where}")
+    return dq, dk, dv
+
+
 def phase_kernel_bwd_timing(device, smi: str):
     """Backward kernels, plain backward and dense bf16 backward at the
-    training microbatch (B 4 x H 4, T = 2010, D = 128, bf16); at every sep the
-    three gradients held to the bf16 rule and a repeat dq call bitwise equal;
-    then the prefix variant (include_diag=False, a nonzero dlse) at sep 1000."""
+    training microbatch (B 4 x H 4, T = 2010, D = 128, bf16); at every sep of
+    BWD_TIMING_SEPS the three gradients held to the bf16 rule and repeat dq
+    and dk/dv calls bitwise equal; then the prefix variant (include_diag=False,
+    a nonzero dlse) at sep 1000, its repeat calls bitwise equal too."""
     import torch
 
     from pfn_tpu_torch.ops import _ext
@@ -595,14 +637,11 @@ def phase_kernel_bwd_timing(device, smi: str):
     kf, vf, do = k.reshape(B * H, T, D), v.reshape(B * H, T, D), do4.reshape(B * H, T, D)
     f32 = [t.float() for t in (qs, kf, vf)]
     rows = []
-    for sep in TIMING_SEPS:
+    for sep in BWD_TIMING_SEPS:
         sep_t = torch.full((1,), sep, dtype=torch.int32, device=device)
         o, lse = _flash_fwd(qs, kf, vf, sep_t, True)
         delta = (do.float() * o.float()).sum(-1)
-        dq = _ext.flash_bwd_dq(qs, kf, vf, do, lse, delta, sep_t, True)
-        if not torch.equal(dq, _ext.flash_bwd_dq(qs, kf, vf, do, lse, delta, sep_t, True)):
-            raise AssertionError(f"kernel_bwd_timing: a repeat dq call differs at sep {sep}")
-        dk, dv = _ext.flash_bwd_dkv(qs, kf, vf, do, lse, delta, sep_t, True)
+        dq, dk, dv = _repeat_bitwise(qs, kf, vf, do, lse, delta, sep_t, True, f"sep {sep}")
         plain = _flash_bwd_plain(qs, kf, vf, o, lse, do, None, sep_t, T, True)
         o32, lse32 = _flash_fwd_plain(*f32, sep, T, True)
         gold = _flash_bwd_plain(*f32, o32, lse32, do.float(), None, sep, T, True)
@@ -625,7 +664,7 @@ def phase_kernel_bwd_timing(device, smi: str):
             "dq_ms_again": cuda_ms(lambda: _ext.flash_bwd_dq(qs, kf, vf, do, lse, delta, sep_t, True)),
             "dkv_ms_again": cuda_ms(lambda: _ext.flash_bwd_dkv(qs, kf, vf, do, lse, delta, sep_t, True)),
             "max_abs_err": {f"d{n}": max_abs(a, b) for n, a, b in zip("qkv", (dq, dk, dv), plain)},
-            "bf16_rel_err": errs, "dq_repeat_bitwise_equal": True,
+            "bf16_rel_err": errs, "repeat_bitwise_equal": True,
             "dq": {**flash_bound("dq", B * H, T, D, sep), **rate("dq", B * H, T, D, sep, dq_ms)},
             "dkv": {**flash_bound("dkv", B * H, T, D, sep), **rate("dkv", B * H, T, D, sep, dkv_ms)},
         })
@@ -635,13 +674,12 @@ def phase_kernel_bwd_timing(device, smi: str):
     dlse = torch.randn(B * H, T, generator=g, device=device)
     o, lse = _flash_fwd(qs, kf, vf, sep_t, False)
     delta = (do.float() * o.float()).sum(-1) - dlse
-    dq = _ext.flash_bwd_dq(qs, kf, vf, do, lse, delta, sep_t, False)
-    dk, dv = _ext.flash_bwd_dkv(qs, kf, vf, do, lse, delta, sep_t, False)
+    dq, dk, dv = _repeat_bitwise(qs, kf, vf, do, lse, delta, sep_t, False, "the prefix variant")
     plain = _flash_bwd_plain(qs, kf, vf, o, lse, do, dlse, sep_t, T, False)
     dq_ms = cuda_ms(lambda: _ext.flash_bwd_dq(qs, kf, vf, do, lse, delta, sep_t, False))
     dkv_ms = cuda_ms(lambda: _ext.flash_bwd_dkv(qs, kf, vf, do, lse, delta, sep_t, False))
     prefix = {
-        "sep": sep, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+        "sep": sep, "dq_ms": dq_ms, "dkv_ms": dkv_ms, "repeat_bitwise_equal": True,
         "plain_ms": cuda_ms(lambda: _flash_bwd_plain(qs, kf, vf, o, lse, do, dlse, sep_t, T, False)),
         "max_abs_err": {f"d{n}": max_abs(a, b) for n, a, b in zip("qkv", (dq, dk, dv), plain)},
         "dq": {**flash_bound("dq", B * H, T, D, sep, False), **rate("dq", B * H, T, D, sep, dq_ms, False)},
@@ -1389,7 +1427,7 @@ def main() -> int:
     phase_kernel_cases(device)
     timing, _ = phase_kernel_timing(device, smi)
     phase_kernel_bwd_cases(device)
-    bwd_timing, _ = phase_kernel_bwd_timing(device, smi)
+    bwd_timing, bwd_prefix = phase_kernel_bwd_timing(device, smi)
     phase_slice(device, smi)
     launches = phase_train(device, smi)
     phase_fused_kernel(device)
@@ -1405,6 +1443,12 @@ def main() -> int:
     fused_bwd = next(r for r in fused_bwd_timing if r["sep"] == FLAGSHIP["sep"])
     bwd_source = "pfn_tpu_torch/ops/csrc/pfn_flash_bwd.cu"
     fused_bwd_source = "pfn_tpu_torch/ops/csrc/pfn_fused_layer_bwd.cu"
+    # The dk/dv kernel against SDPA's backward with the same mask (dq, dk and
+    # dv in one call) less the dq kernel, all from this run.
+    emit({"phase": "dkv_against_library", "card": smi, "sep": 1000, **{
+        variant: {"dkv_ms": row["dkv_ms"], "sdpa_bwd_minus_dq_ms": library[key] - row["dq_ms"],
+                  "held": row["dkv_ms"] <= library[key] - row["dq_ms"]}
+        for variant, row, key in (("diag", bwd, "sdpa_bwd_ms"), ("prefix", bwd_prefix, "sdpa_prefix_bwd_ms"))}})
     emit({"kernels": [
         {"name": "pfn_flash_fwd", "route": "cuda", "design": SM90_DESIGN,
          "source": "pfn_tpu_torch/ops/csrc/pfn_flash_fwd.cu",
@@ -1415,7 +1459,7 @@ def main() -> int:
          "replaces": "pfn_tpu/ops/flash_attention.py:315", "launches": launches["pfn_flash_bwd_dq"],
          "max_abs_err": bwd["max_abs_err"]["dq"], "ms": bwd["dq_ms"], "plain_ms": bwd["plain_ms"],
          **flash_bound("dq", 16, 2010, 128, 1000), "library_ms": library["sdpa_bwd_ms"]},
-        {"name": "pfn_flash_bwd_dkv", "route": "cuda", "design": WMMA_DESIGN, "source": bwd_source,
+        {"name": "pfn_flash_bwd_dkv", "route": "cuda", "design": SM90_DESIGN, "source": bwd_source,
          "replaces": "pfn_tpu/ops/flash_attention.py:340", "launches": launches["pfn_flash_bwd_dkv"],
          "max_abs_err": max(bwd["max_abs_err"]["dk"], bwd["max_abs_err"]["dv"]), "ms": bwd["dkv_ms"],
          "plain_ms": bwd["plain_ms"], **flash_bound("dkv", 16, 2010, 128, 1000),

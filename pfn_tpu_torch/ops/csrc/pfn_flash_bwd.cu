@@ -49,24 +49,43 @@
 //   * dq, f32: the FMA body of the first port (64-row query tiles, four
 //     warps, every tile and the accumulator in shared memory), so f32 stays
 //     f32 (no TF32).
-//   * dk/dv, both dtypes: one block per (64-key tile, b*h), four warps. A
-//     tile that starts below sep loops over every query tile; a tile at or
-//     past sep loops only over the query tile(s) holding its diagonal
-//     (diagonal variant) or over none (prefix variant), and then writes
-//     zeros. bf16 products on the tensor cores through WMMA (mma.sync
-//     16x16x16, f32 accumulate), f32 on FMA; S, dP, P, dS and both
-//     accumulators go through shared memory. At f32 and D = 128 a 64-row
-//     query tile would put the block at ~235 KB, over the 227 KB a block may
-//     use, so that instantiation walks 32-row query tiles (186 KB); f32
-//     writes p and ds over s and dp in place.
+//   * dk/dv, bf16 (the main path), `dkv_sm90`: the same block with the
+//     roles swapped. A unit is (128-key tile, b*h): its K and V are resident
+//     (TMA, once a unit, 64 keys per consumer warpgroup), and the Q and dO
+//     tiles of 64 queries it visits stream through a ring of 4 slots (32 KB
+//     of tiles each at D = 128) with lse * log2(e) and delta of the slot's
+//     queries, which the producer warp's lanes load and store into the slot
+//     before arriving on its `full` barrier; the consumers hold no row terms
+//     in registers. Per query tile a consumer runs S^T = K Q^T and dP^T =
+//     V dO^T as wgmma (keys as rows, queries as columns, both operands
+//     K-major), forms p and ds on the fragments in registers, and runs
+//     dV += P^T dO and dK += dS^T Q as wgmma with P^T and dS^T as the register
+//     A operands and dO and Q MN-major, so nothing is transposed through
+//     shared memory. dK and dV stay in registers, f32 (64 + 64 a thread at
+//     D = 128). The mask is applied only in tiles not wholly inside the
+//     allowed region: the warpgroup's keys reach sep, or the tile reaches
+//     past Tq. Its query tiles: all of them for a key tile below sep; past
+//     sep, the ones holding its diagonal (diagonal variant) or none (prefix
+//     variant, which writes zeros). That work is uneven, so the grid is
+//     persistent: min(units, SMs) blocks, block b taking units b, b + grid,
+//     ... in key-tile-major order, which puts every heavy unit (below sep)
+//     first for any sep, with no host read of sep. The producer reloads K and
+//     V for a unit once the consumers have released the last unit's final
+//     ring slot. ptxas: 168 registers at launch (the bound of 384 threads;
+//     the consumers take 232 by setmaxnreg), 0 bytes of spill at every head
+//     dim and variant. On an H100 80GB HBM3 at 700 W: 0.102-0.104 ms at the
+//     shape above (32 % of the bound), 0.901 ms for the first port's body.
+//   * dk/dv, f32: the first port's FMA body (one block per (64-key tile,
+//     b*h), four warps, every tile and both accumulators in shared memory);
+//     at D = 128 it walks 32-row query tiles to fit (186 KB).
 //
-// Left for later: dk/dv first. Its grid is uneven (tiles below sep walk all
-// ceil(T/64) query tiles, tiles past sep one), so it needs a persistent
-// schedule that balances them, then the ring and wgmma of dq with P^T and
-// dS^T as operands. For dq: overlapping one tile's softmax with the next
-// tile's products, and storing dQ through shared memory by TMA.
-
-#include <mma.h>
+// Left for later: for both bf16 kernels, overlapping one tile's softmax with
+// the next tile's products (two S buffers, or the two consumer warpgroups
+// taking turns) and storing the outputs through shared memory by TMA; for
+// dk/dv, splitting a heavy unit's query walk between blocks when the units
+// below sep are not a multiple of the SMs (at B*H 16 and sep 1595, 208 heavy
+// units on 132 SMs take two rounds where 1.6 would do), with partial sums
+// added in a fixed order, never atomics.
 
 #include <type_traits>
 
@@ -76,8 +95,8 @@ namespace {
 
 namespace sm90 = pfn_flash_sm90;
 
-constexpr int BQ = 64;  // query rows per dq block
-constexpr int BK = 64;  // keys per KV tile, in both kernels
+constexpr int BQ = 64;  // query rows per f32 dq block
+constexpr int BK = 64;  // keys per KV tile of the f32 kernels
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory one block may use
@@ -85,39 +104,16 @@ constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory one block may use
 template <typename T>
 constexpr bool is_bf16 = std::is_same<T, __nv_bfloat16>::value;
 
-// Row padding (in elements) that keeps every row 16-byte aligned and spreads
-// rows over the shared-memory banks.
-template <typename T>
-constexpr int pad = is_bf16<T> ? 8 : 4;
-
 constexpr int round128(int bytes) { return (bytes + 127) / 128 * 128; }
 
-// Query rows per step of the dk/dv kernel (see the shared-memory note).
-template <typename T, int D>
-constexpr int dkv_rows = (!is_bf16<T> && D == 128) ? 32 : 64;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
-// Copy rows [row0, row0 + ROWS) of a (nrows, D) matrix into shared memory
-// (row stride LD) with 16-byte loads; rows past nrows are zero-filled.
-template <typename T, int D, int ROWS, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int row0, int nrows) {
-  constexpr int VEC = 16 / (int)sizeof(T);
-  constexpr int CHUNKS = D / VEC;
+// Copy rows [row0, row0 + ROWS) of a (nrows, D) f32 matrix into shared
+// memory (row stride LD) with 16-byte loads; rows past nrows are zero-filled.
+template <int D, int ROWS, int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0, int nrows) {
+  constexpr int CHUNKS = D / 4;
   for (int i = threadIdx.x; i < ROWS * CHUNKS; i += NTHREADS) {
     const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * VEC;
+    const int c = (i % CHUNKS) * 4;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < nrows) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
     *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
@@ -130,69 +126,43 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
   for (int r = threadIdx.x; r < ROWS; r += NTHREADS) dst[r] = row0 + r < nrows ? src[row0 + r] : 0.0f;
 }
 
-// C (M x N, f32, row stride ldc) = [C +] op(A) op(B), every operand in
-// shared memory, computed by the whole block:
+// C (M x N, f32, row stride ldc) = [C +] op(A) op(B) on FMA, every operand
+// in shared memory, computed by the whole block:
 //   op(A)(i, k) = TA ? A[k * lda + i] : A[i * lda + k]    (M x K)
 //   op(B)(k, j) = TB ? B[j * ldb + k] : B[k * ldb + j]    (K x N)
-template <typename T, int M, int N, int K, bool TA, bool TB, bool ACC>
-__device__ __forceinline__ void mm(float* C, int ldc, const T* A, int lda, const T* B, int ldb) {
-  if constexpr (is_bf16<T>) {
-    using namespace nvcuda;
-    using LA = typename std::conditional<TA, wmma::col_major, wmma::row_major>::type;
-    using LB = typename std::conditional<TB, wmma::col_major, wmma::row_major>::type;
-    // Warp w computes the 16x16 output tiles w, w + 4, w + 8, ...
-    for (int t = threadIdx.x / 32; t < (M / 16) * (N / 16); t += NWARPS) {
-      const int i0 = (t / (N / 16)) * 16, j0 = (t % (N / 16)) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      if (ACC) {
-        wmma::load_matrix_sync(acc, C + i0 * ldc + j0, ldc, wmma::mem_row_major);
-      } else {
-        wmma::fill_fragment(acc, 0.0f);
-      }
+// Thread (ty, tx) owns rows ty*RM .. ty*RM+RM-1 and columns tx + 16*j.
+template <int M, int N, int K, bool TA, bool TB, bool ACC>
+__device__ __forceinline__ void mm(float* C, int ldc, const float* A, int lda, const float* B, int ldb) {
+  constexpr int RM = M / 8, CN = N / 16;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[RM][CN];
 #pragma unroll
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> b;
-        wmma::load_matrix_sync(a, TA ? A + k0 * lda + i0 : A + i0 * lda + k0, lda);
-        wmma::load_matrix_sync(b, TB ? B + j0 * ldb + k0 : B + k0 * ldb + j0, ldb);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(C + i0 * ldc + j0, acc, ldc, wmma::mem_row_major);
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < CN; ++j) acc[i][j] = ACC ? C[(ty * RM + i) * ldc + tx + 16 * j] : 0.0f;
+  for (int k = 0; k < K; ++k) {
+    float b[CN];
+#pragma unroll
+    for (int j = 0; j < CN; ++j) b[j] = TB ? B[(tx + 16 * j) * ldb + k] : B[k * ldb + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const float a = TA ? A[k * lda + ty * RM + i] : A[(ty * RM + i) * lda + k];
+#pragma unroll
+      for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
     }
-  } else {
-    // Thread (ty, tx) owns rows ty*RM .. ty*RM+RM-1 and columns tx + 16*j.
-    constexpr int RM = M / 8, CN = N / 16;
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    float acc[RM][CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) acc[i][j] = ACC ? C[(ty * RM + i) * ldc + tx + 16 * j] : 0.0f;
-    for (int k = 0; k < K; ++k) {
-      float b[CN];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) b[j] = to_float(TB ? B[(tx + 16 * j) * ldb + k] : B[k * ldb + tx + 16 * j]);
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float a = to_float(TA ? A[k * lda + ty * RM + i] : A[(ty * RM + i) * lda + k]);
-#pragma unroll
-        for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) C[(ty * RM + i) * ldc + tx + 16 * j] = acc[i][j];
   }
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < CN; ++j) C[(ty * RM + i) * ldc + tx + 16 * j] = acc[i][j];
 }
 
 // From S and dP (ROWS x BK, f32, row stride lds) of query rows q0.. and keys
 // key0..: p = exp(s - lse) on allowed entries and 0 elsewhere, ds = p (dp -
-// delta). Writes ds, and with WRITE_P also p, in T (row stride ldp). For f32
-// the outputs may overwrite S and dP: each entry is read and written by one
-// thread.
-template <typename T, bool DIAG, bool WRITE_P, int ROWS>
-__device__ __forceinline__ void tile_ds(const float* ss, const float* dps, int lds, T* ps, T* dss, int ldp,
+// delta). Writes ds, and with WRITE_P also p (row stride ldp). The outputs
+// may overwrite S and dP: each entry is read and written by one thread.
+template <bool DIAG, bool WRITE_P, int ROWS>
+__device__ __forceinline__ void tile_ds(const float* ss, const float* dps, int lds, float* ps, float* dss, int ldp,
                                         const float* lse_s, const float* delta_s, int q0, int key0, int sep, int Tq,
                                         int Tk) {
   for (int i = threadIdx.x; i < ROWS * BK; i += NTHREADS) {
@@ -201,8 +171,8 @@ __device__ __forceinline__ void tile_ds(const float* ss, const float* dps, int l
     const bool allowed = query < Tq && key < Tk && (key < sep || (DIAG && key == query));
     const float p = allowed ? expf(ss[r * lds + c] - lse_s[r]) : 0.0f;
     const float ds = p * (dps[r * lds + c] - delta_s[r]);
-    if (WRITE_P) ps[r * ldp + c] = from_float<T>(p);
-    dss[r * ldp + c] = from_float<T>(ds);
+    if (WRITE_P) ps[r * ldp + c] = p;
+    dss[r * ldp + c] = ds;
   }
 }
 
@@ -210,7 +180,7 @@ __device__ __forceinline__ void tile_ds(const float* ss, const float* dps, int l
 // boundary; ds is written over S.
 template <int D>
 struct DqSmem {
-  static constexpr int LDX = D + pad<float>;  // q, dO, k, v tiles
+  static constexpr int LDX = D + 4;   // q, dO, k, v tiles
   static constexpr int LDS = BK + 4;          // S, dP, and dS over S
   static constexpr int LDA = D + 4;           // dq accumulator
   static constexpr int q_off = 0;
@@ -249,8 +219,8 @@ __global__ void __launch_bounds__(NTHREADS)
   const float* vb = v + (size_t)bh * Tk * D;
   const int sep = min(max(*sep_ptr, 0), Tk);
 
-  load_tile<float, D, BQ, L::LDX>(qs, q + (size_t)bh * Tq * D, q0, Tq);
-  load_tile<float, D, BQ, L::LDX>(dos, dO + (size_t)bh * Tq * D, q0, Tq);
+  load_tile<D, BQ, L::LDX>(qs, q + (size_t)bh * Tq * D, q0, Tq);
+  load_tile<D, BQ, L::LDX>(dos, dO + (size_t)bh * Tq * D, q0, Tq);
   load_rows<BQ>(lse_s, lse + (size_t)bh * Tq, q0, Tq);
   load_rows<BQ>(delta_s, delta + (size_t)bh * Tq, q0, Tq);
   for (int i = threadIdx.x; i < BQ * L::LDA; i += NTHREADS) acc[i] = 0.0f;
@@ -260,16 +230,16 @@ __global__ void __launch_bounds__(NTHREADS)
   // keys [q0, q0 + BQ) not yet covered (Tq == Tk in that variant).
   const sm90::Tiles<BQ, BK, DIAG> tiles(sep, q0, Tk);
   for (int i = 0; i < tiles.n; ++i) {
-    const int key0 = tiles.key0(i);
-    load_tile<float, D, BK, L::LDX>(ks, kb, key0, Tk);
-    load_tile<float, D, BK, L::LDX>(vs, vb, key0, Tk);
+    const int key0 = tiles.row0(i);
+    load_tile<D, BK, L::LDX>(ks, kb, key0, Tk);
+    load_tile<D, BK, L::LDX>(vs, vb, key0, Tk);
     __syncthreads();
-    mm<float, BQ, BK, D, false, true, false>(ss, L::LDS, qs, L::LDX, ks, L::LDX);    // S = Q K^T
-    mm<float, BQ, BK, D, false, true, false>(dps, L::LDS, dos, L::LDX, vs, L::LDX);  // dP = dO V^T
+    mm<BQ, BK, D, false, true, false>(ss, L::LDS, qs, L::LDX, ks, L::LDX);    // S = Q K^T
+    mm<BQ, BK, D, false, true, false>(dps, L::LDS, dos, L::LDX, vs, L::LDX);  // dP = dO V^T
     __syncthreads();
-    tile_ds<float, DIAG, false, BQ>(ss, dps, L::LDS, nullptr, ss, L::LDS, lse_s, delta_s, q0, key0, sep, Tq, Tk);
+    tile_ds<DIAG, false, BQ>(ss, dps, L::LDS, nullptr, ss, L::LDS, lse_s, delta_s, q0, key0, sep, Tq, Tk);
     __syncthreads();
-    mm<float, BQ, D, BK, false, false, true>(acc, L::LDA, ss, L::LDS, ks, L::LDX);  // dQ += dS K
+    mm<BQ, D, BK, false, false, true>(acc, L::LDA, ss, L::LDS, ks, L::LDX);  // dQ += dS K
     __syncthreads();  // the next tile overwrites ks, vs, ss and dps
   }
 
@@ -335,9 +305,9 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
 
     for (int i = 0; i < tiles.n; ++i) {
       const int stage = i % L::STAGES;
-      const int key0 = tiles.key0(i);
+      const int key0 = tiles.row0(i);
       sm90::mbar_wait(L::full(base, stage), (i / L::STAGES) & 1);
-      const uint32_t ks = L::k_tile(base, stage), vs = L::v_tile(base, stage);
+      const uint32_t ks = L::ring_tile(base, stage, 0), vs = L::ring_tile(base, stage, 1);
 
       float s[kBK / 2], dp[kBK / 2];  // S = Q K^T, dP = dO V^T
       sm90::fence_regs(s);
@@ -390,49 +360,43 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
   }
 }
 
-// Shared-memory layout of a dk/dv block.
-template <typename T, int D>
+// Shared-memory layout of an f32 dk/dv block. At D = 128 a 64-row query
+// tile would put the block at ~235 KB, over the limit, so that instantiation
+// walks 32-row query tiles; p and ds are written over S and dP.
+template <int D>
 struct DkvSmem {
-  static constexpr int BQ2 = dkv_rows<T, D>;
-  static constexpr int LDX = D + pad<T>;
-  static constexpr int LDS = BK + 4;
-  static constexpr int LDP = BK + pad<T>;  // P and dS in T; f32 writes them over S and dP
-  static constexpr int LDA = D + 4;          // f32 dk and dv accumulators
-  static constexpr int PB = is_bf16<T> ? round128(BQ2 * LDP * (int)sizeof(T)) : 0;
+  static constexpr int BQ2 = D == 128 ? 32 : 64;  // query rows per step
+  static constexpr int LDX = D + 4;
+  static constexpr int LDS = BK + 4;  // S, dP, and P and dS over them
+  static constexpr int LDA = D + 4;   // dk and dv accumulators
   static constexpr int k_off = 0;
-  static constexpr int v_off = k_off + round128(BK * LDX * (int)sizeof(T));
-  static constexpr int q_off = v_off + round128(BK * LDX * (int)sizeof(T));
-  static constexpr int do_off = q_off + round128(BQ2 * LDX * (int)sizeof(T));
-  static constexpr int s_off = do_off + round128(BQ2 * LDX * (int)sizeof(T));
+  static constexpr int v_off = k_off + round128(BK * LDX * 4);
+  static constexpr int q_off = v_off + round128(BK * LDX * 4);
+  static constexpr int do_off = q_off + round128(BQ2 * LDX * 4);
+  static constexpr int s_off = do_off + round128(BQ2 * LDX * 4);
   static constexpr int dp_off = s_off + round128(BQ2 * LDS * 4);
-  static constexpr int p_off = dp_off + round128(BQ2 * LDS * 4);
-  static constexpr int ds_off = p_off + PB;
-  static constexpr int dk_off = ds_off + PB;
+  static constexpr int dk_off = dp_off + round128(BQ2 * LDS * 4);
   static constexpr int dv_off = dk_off + round128(BK * LDA * 4);
   static constexpr int lse_off = dv_off + round128(BK * LDA * 4);
   static constexpr int delta_off = lse_off + round128(BQ2 * 4);
   static constexpr int bytes = delta_off + round128(BQ2 * 4);
-  static_assert(is_bf16<T> || LDP == LDS, "f32 P and dS are written over S and dP");
   static_assert(bytes <= SMEM_LIMIT, "dk/dv block over the shared-memory limit");
 };
 
-template <typename T, int D, bool DIAG>
+template <int D, bool DIAG>
 __global__ void __launch_bounds__(NTHREADS)
-    pfn_flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                             const T* __restrict__ dO, const float* __restrict__ lse,
-                             const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                             const int* __restrict__ sep_ptr, int Tq, int Tk) {
-  using L = DkvSmem<T, D>;
+    dkv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+            const float* __restrict__ dO, const float* __restrict__ lse, const float* __restrict__ delta,
+            float* __restrict__ dk, float* __restrict__ dv, const int* __restrict__ sep_ptr, int Tq, int Tk) {
+  using L = DkvSmem<D>;
   constexpr int BQ2 = L::BQ2;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem + L::k_off);
-  T* vs = reinterpret_cast<T*>(smem + L::v_off);
-  T* qs = reinterpret_cast<T*>(smem + L::q_off);
-  T* dos = reinterpret_cast<T*>(smem + L::do_off);
+  float* ks = reinterpret_cast<float*>(smem + L::k_off);
+  float* vs = reinterpret_cast<float*>(smem + L::v_off);
+  float* qs = reinterpret_cast<float*>(smem + L::q_off);
+  float* dos = reinterpret_cast<float*>(smem + L::do_off);
   float* ss = reinterpret_cast<float*>(smem + L::s_off);
   float* dps = reinterpret_cast<float*>(smem + L::dp_off);
-  T* ps = is_bf16<T> ? reinterpret_cast<T*>(smem + L::p_off) : reinterpret_cast<T*>(ss);
-  T* dss = is_bf16<T> ? reinterpret_cast<T*>(smem + L::ds_off) : reinterpret_cast<T*>(dps);
   float* dk_acc = reinterpret_cast<float*>(smem + L::dk_off);
   float* dv_acc = reinterpret_cast<float*>(smem + L::dv_off);
   float* lse_s = reinterpret_cast<float*>(smem + L::lse_off);
@@ -440,14 +404,14 @@ __global__ void __launch_bounds__(NTHREADS)
 
   const int bh = blockIdx.y;
   const int key0 = blockIdx.x * BK;
-  const T* qb = q + (size_t)bh * Tq * D;
-  const T* dob = dO + (size_t)bh * Tq * D;
+  const float* qb = q + (size_t)bh * Tq * D;
+  const float* dob = dO + (size_t)bh * Tq * D;
   const float* lseb = lse + (size_t)bh * Tq;
   const float* deltab = delta + (size_t)bh * Tq;
   const int sep = min(max(*sep_ptr, 0), Tk);
 
-  load_tile<T, D, BK, L::LDX>(ks, k + (size_t)bh * Tk * D, key0, Tk);
-  load_tile<T, D, BK, L::LDX>(vs, v + (size_t)bh * Tk * D, key0, Tk);
+  load_tile<D, BK, L::LDX>(ks, k + (size_t)bh * Tk * D, key0, Tk);
+  load_tile<D, BK, L::LDX>(vs, v + (size_t)bh * Tk * D, key0, Tk);
   for (int i = threadIdx.x; i < BK * L::LDA; i += NTHREADS) {
     dk_acc[i] = 0.0f;
     dv_acc[i] = 0.0f;
@@ -455,18 +419,18 @@ __global__ void __launch_bounds__(NTHREADS)
 
   auto step = [&](int qt) {
     const int q0 = qt * BQ2;
-    load_tile<T, D, BQ2, L::LDX>(qs, qb, q0, Tq);
-    load_tile<T, D, BQ2, L::LDX>(dos, dob, q0, Tq);
+    load_tile<D, BQ2, L::LDX>(qs, qb, q0, Tq);
+    load_tile<D, BQ2, L::LDX>(dos, dob, q0, Tq);
     load_rows<BQ2>(lse_s, lseb, q0, Tq);
     load_rows<BQ2>(delta_s, deltab, q0, Tq);
     __syncthreads();
-    mm<T, BQ2, BK, D, false, true, false>(ss, L::LDS, qs, L::LDX, ks, L::LDX);    // S = Q K^T
-    mm<T, BQ2, BK, D, false, true, false>(dps, L::LDS, dos, L::LDX, vs, L::LDX);  // dP = dO V^T
+    mm<BQ2, BK, D, false, true, false>(ss, L::LDS, qs, L::LDX, ks, L::LDX);    // S = Q K^T
+    mm<BQ2, BK, D, false, true, false>(dps, L::LDS, dos, L::LDX, vs, L::LDX);  // dP = dO V^T
     __syncthreads();
-    tile_ds<T, DIAG, true, BQ2>(ss, dps, L::LDS, ps, dss, L::LDP, lse_s, delta_s, q0, key0, sep, Tq, Tk);
+    tile_ds<DIAG, true, BQ2>(ss, dps, L::LDS, ss, dps, L::LDS, lse_s, delta_s, q0, key0, sep, Tq, Tk);
     __syncthreads();
-    mm<T, BK, D, BQ2, true, false, true>(dv_acc, L::LDA, ps, L::LDP, dos, L::LDX);  // dV += P^T dO
-    mm<T, BK, D, BQ2, true, false, true>(dk_acc, L::LDA, dss, L::LDP, qs, L::LDX);  // dK += dS^T Q
+    mm<BK, D, BQ2, true, false, true>(dv_acc, L::LDA, ss, L::LDS, dos, L::LDX);  // dV += P^T dO
+    mm<BK, D, BQ2, true, false, true>(dk_acc, L::LDA, dps, L::LDS, qs, L::LDX);  // dK += dS^T Q
     __syncthreads();  // the next query tile overwrites qs, dos and the score tiles
   };
 
@@ -486,8 +450,166 @@ __global__ void __launch_bounds__(NTHREADS)
     const int r = i / D, c = i % D;
     if (key0 + r < Tk) {
       const size_t at = ((size_t)bh * Tk + key0 + r) * D + c;
-      dk[at] = from_float<T>(dk_acc[r * L::LDA + c]);
-      dv[at] = from_float<T>(dv_acc[r * L::LDA + c]);
+      dk[at] = dk_acc[r * L::LDA + c];
+      dv[at] = dv_acc[r * L::LDA + c];
+    }
+  }
+}
+
+constexpr int kKT = 128;  // keys per bf16 dk/dv unit, 64 per consumer warpgroup
+constexpr int kQT = 64;   // query rows per ring tile of the bf16 dk/dv kernel
+
+// Resident: k (0) and v (1) of the unit's key tile; ring slots: q (tile 0)
+// and dO (tile 1) of a query tile with the vectors lse * log2(e) (0) and
+// delta (1) of its rows.
+template <int D>
+using DkvLayout = sm90::Smem<D, kKT, kQT, 2, 2>;
+
+// Units u = key tile * BH + b*h, key-tile major: every key tile below sep
+// (the ones that walk all query tiles) comes before every tile past it, for
+// any sep, so a block's first units are the heavy ones. Block b takes units
+// b, b + gridDim.x, ...
+template <int D, bool DIAG>
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+    dkv_sm90(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+             const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
+             const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+             __nv_bfloat16* __restrict__ dv, const int* __restrict__ sep_ptr, int BH, int Tq, int Tk) {
+  using L = DkvLayout<D>;
+  using List = sm90::QueryTiles<kQT, kKT, DIAG>;
+  constexpr int ON = D < 64 ? D : 64;  // N of one P^T dO or dS^T Q product: one panel of D
+  constexpr int NPAN = D / ON;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = sm90::smem_base(smem_raw);
+  const int wg = threadIdx.x / 128;
+  const int sep = min(max(*sep_ptr, 0), Tk);
+  const int units = (Tk + kKT - 1) / kKT * BH;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(L::res_bar(base), 1);
+    for (int s = 0; s < L::STAGES; ++s) {
+      sm90::mbar_init(L::full(base, s), 1 + 32);  // lane 0's expect_tx, then every lane after its vector stores
+      sm90::mbar_init(L::empty(base, s), sm90::kConsumerThreads);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    sm90::producer_regs();
+    if (threadIdx.x < 256 + 32) {  // the producer warp
+      const CUtensorMap* res[2] = {&mk, &mv};
+      const int lane = threadIdx.x & 31;
+      int it = 0;  // ring tiles so far
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int k0 = u / BH * kKT, bh = u % BH;
+        const List tiles(sep, k0, Tq);
+        if (tiles.n == 0) continue;
+        // The last unit's K and V stay in use until its last tile is released.
+        if (it > 0) sm90::mbar_wait(L::empty(base, (it - 1) % L::STAGES), ((it - 1) / L::STAGES) & 1);
+        const float* lse_b = lse + (size_t)bh * Tq;
+        const float* delta_b = delta + (size_t)bh * Tq;
+        auto vectors = [&](int q0, int s) {
+          float* vec = sm90::smem_ptr<float>(smem_raw, L::vec(base, s, 0));
+          for (int j = lane; j < kQT; j += 32) {
+            const bool in = q0 + j < Tq;
+            vec[j] = in ? lse_b[q0 + j] * sm90::kLog2e : 0.0f;
+            vec[kQT + j] = in ? delta_b[q0 + j] : 0.0f;
+          }
+          sm90::mbar_arrive(L::full(base, s));
+        };
+        sm90::produce<L, D, kKT, kQT, 2>(res, &mq, &mdo, base, tiles, k0, bh, it, vectors);
+        it += tiles.n;
+      }
+    }
+  } else {
+    sm90::consumer_regs();
+    const int kw = wg * 64;  // this warpgroup's keys in the key tile
+    int it = 0, loaded = 0;  // ring tiles and resident loads so far
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int k0 = u / BH * kKT, bh = u % BH;
+      const List tiles(sep, k0, Tq);
+      float dka[NPAN][ON / 2], dva[NPAN][ON / 2];
+#pragma unroll
+      for (int p = 0; p < NPAN; ++p)
+#pragma unroll
+        for (int e = 0; e < ON / 2; ++e) dka[p][e] = dva[p][e] = 0.0f;
+      if (tiles.n > 0) sm90::mbar_wait(L::res_bar(base), loaded++ & 1);
+      const bool key_edge = k0 + kw + 64 > sep;  // keys at or past sep among this warpgroup's
+
+      for (int i = 0; i < tiles.n; ++i, ++it) {
+        const int stage = it % L::STAGES;
+        const int q0 = tiles.row0(i);
+        sm90::mbar_wait(L::full(base, stage), (it / L::STAGES) & 1);
+        const uint32_t qs = L::ring_tile(base, stage, 0), dos = L::ring_tile(base, stage, 1);
+
+        // S^T = K Q^T and dP^T = dO V^T transposed (V dO^T): keys as rows,
+        // queries as columns, so P^T and dS^T come out in the A layout.
+        float st[kQT / 2], dpt[kQT / 2];
+        sm90::fence_regs(st);
+        sm90::fence_regs(dpt);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kd = 0; kd < D / 16; ++kd)
+          sm90::wgmma_ss<kQT>(st, sm90::desc_k_major<D, kKT>(L::res_tile(base, 0), kw, kd),
+                              sm90::desc_k_major<D, kQT>(qs, 0, kd), kd > 0);
+#pragma unroll
+        for (int kd = 0; kd < D / 16; ++kd)
+          sm90::wgmma_ss<kQT>(dpt, sm90::desc_k_major<D, kKT>(L::res_tile(base, 1), kw, kd),
+                              sm90::desc_k_major<D, kQT>(dos, 0, kd), kd > 0);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait_all();
+        sm90::fence_regs(st);
+        sm90::fence_regs(dpt);
+
+        // lse * log2(e) and delta of the queries (columns), from the slot.
+        const float* lse2 = sm90::smem_ptr<float>(smem_raw, L::vec(base, stage, 0));
+        const float* dl = lse2 + kQT;
+        const bool masked = key_edge || q0 + kQT > Tq;  // a tile not wholly inside the allowed region
+#pragma unroll
+        for (int e = 0; e < kQT / 2; ++e) {
+          const int c = sm90::frag_col(e);
+          float p = exp2f(fmaf(st[e], sm90::kLog2e, -lse2[c]));
+          if (masked && !(q0 + c < Tq && sm90::allowed<DIAG>(q0 + c, k0 + kw + sm90::frag_row(e), sep, Tk))) p = 0.0f;
+          dpt[e] = p * (dpt[e] - dl[c]);  // ds
+          st[e] = p;
+        }
+
+        uint32_t pa[kQT / 16][4], dsa[kQT / 16][4];  // P^T and dS^T in bf16, the A operands
+        sm90::to_a_frags<kQT>(st, pa);
+        sm90::to_a_frags<kQT>(dpt, dsa);
+#pragma unroll
+        for (int p = 0; p < NPAN; ++p) {
+          sm90::fence_regs(dva[p]);
+          sm90::fence_regs(dka[p]);
+        }
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kQT / 16; ++kk)
+#pragma unroll
+          for (int p = 0; p < NPAN; ++p) {
+            sm90::wgmma_rs_tb<ON>(dva[p], pa[kk], sm90::desc_mn_major<D, kQT>(dos, kk, p));  // dV += P^T dO
+            sm90::wgmma_rs_tb<ON>(dka[p], dsa[kk], sm90::desc_mn_major<D, kQT>(qs, kk, p));  // dK += dS^T Q
+          }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait_all();
+#pragma unroll
+        for (int p = 0; p < NPAN; ++p) {
+          sm90::fence_regs(dva[p]);
+          sm90::fence_regs(dka[p]);
+        }
+        sm90::fence_regs(pa);
+        sm90::fence_regs(dsa);
+        sm90::mbar_arrive(L::empty(base, stage));
+      }
+
+      // A key no query attends to keeps dk = dv = 0.
+      const float one[2] = {1.0f, 1.0f};
+#pragma unroll
+      for (int p = 0; p < NPAN; ++p) {
+        sm90::store_panel<ON, D>(dk + (size_t)bh * Tk * D, dka[p], one, k0 + kw, Tk, p * ON);
+        sm90::store_panel<ON, D>(dv + (size_t)bh * Tk * D, dva[p], one, k0 + kw, Tk, p * ON);
+      }
     }
   }
 }
@@ -534,15 +656,38 @@ cudaError_t launch_dq(const Args& a) {
 
 template <typename T, int D, bool DIAG>
 cudaError_t launch_dkv(const Args& a) {
-  using L = DkvSmem<T, D>;
-  auto kernel = pfn_flash_bwd_dkv_kernel<T, D, DIAG>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Tk + BK - 1) / BK, a.BH);
-  kernel<<<grid, NTHREADS, L::bytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dO), static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.out0), static_cast<T*>(a.out1), static_cast<const int*>(a.sep), a.Tq, a.Tk);
+  if constexpr (is_bf16<T>) {
+    using L = DkvLayout<D>;
+    CUtensorMap mq, mk, mv, mdo;
+    cudaError_t err;
+    if ((err = sm90::make_map(&mq, a.q, a.BH, a.Tq, D, kQT)) != cudaSuccess) return err;
+    if ((err = sm90::make_map(&mdo, a.dO, a.BH, a.Tq, D, kQT)) != cudaSuccess) return err;
+    if ((err = sm90::make_map(&mk, a.k, a.BH, a.Tk, D, kKT)) != cudaSuccess) return err;
+    if ((err = sm90::make_map(&mv, a.v, a.BH, a.Tk, D, kKT)) != cudaSuccess) return err;
+    auto kernel = dkv_sm90<D, DIAG>;
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes)) != cudaSuccess)
+      return err;
+    // Persistent: at most one block per SM (one fits by shared memory), set
+    // from the shapes and the card only.
+    int device = 0, sms = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
+    const int units = (a.Tk + kKT - 1) / kKT * a.BH;
+    kernel<<<units < sms ? units : sms, sm90::kThreads, L::bytes, a.stream>>>(
+        mq, mk, mv, mdo, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<__nv_bfloat16*>(a.out0), static_cast<__nv_bfloat16*>(a.out1), static_cast<const int*>(a.sep),
+        a.BH, a.Tq, a.Tk);
+  } else {
+    using L = DkvSmem<D>;
+    auto kernel = dkv_f32<D, DIAG>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.Tk + BK - 1) / BK, a.BH);
+    kernel<<<grid, NTHREADS, L::bytes, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+        static_cast<const float*>(a.dO), static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<float*>(a.out0), static_cast<float*>(a.out1), static_cast<const int*>(a.sep), a.Tq, a.Tk);
+  }
   return cudaGetLastError();
 }
 

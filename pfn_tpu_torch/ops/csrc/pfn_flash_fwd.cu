@@ -241,7 +241,7 @@ __global__ void __launch_bounds__(NTHREADS)
 
   const sm90::Tiles<BQ, BK, DIAG> tiles(sep, q0, Tk);
   for (int i = 0; i < tiles.n; ++i) {
-    const int key0 = tiles.key0(i);
+    const int key0 = tiles.row0(i);
     load_tile<D, BK>(ks, kb, key0, Tk);
     load_tile<D, BK>(vs, vb, key0, Tk);
     __syncthreads();
@@ -315,9 +315,9 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
 
     for (int i = 0; i < tiles.n; ++i) {
       const int stage = i % L::STAGES;
-      const int key0 = tiles.key0(i);
+      const int key0 = tiles.row0(i);
       sm90::mbar_wait(L::full(base, stage), (i / L::STAGES) & 1);
-      const uint32_t ks = L::k_tile(base, stage), vs = L::v_tile(base, stage);
+      const uint32_t ks = L::ring_tile(base, stage, 0), vs = L::ring_tile(base, stage, 1);
 
       float s[kBK / 2];  // S = Q K^T
       sm90::fence_regs(s);

@@ -1,18 +1,21 @@
 // Hopper building blocks of the bf16 flash kernels (pfn_flash_fwd.cu,
-// pfn_flash_bwd.cu's dq kernel): TMA tensor maps, an mbarrier ring of K/V
-// stages, the producer loop over the PFN tile list, wgmma wrappers with their
-// shared-memory descriptors, and accumulator-fragment helpers. sm_90a only.
+// pfn_flash_bwd.cu's dq and dk/dv kernels): TMA tensor maps, an mbarrier ring
+// of tile pairs, the producer loop over a tile list, wgmma wrappers with
+// their shared-memory descriptors, and accumulator-fragment helpers. sm_90a
+// only.
 //
-// Block shape shared by both kernels: three warpgroups. Warpgroups 0 and 1
-// are consumers, 64 query rows each, running wgmma with their accumulators in
+// Block shape shared by the kernels: three warpgroups. Warpgroups 0 and 1
+// are consumers, 64 rows each, running wgmma with their accumulators in
 // registers; warpgroup 2 is the producer, reduced to kProducerRegs registers
 // by setmaxnreg, one of whose threads starts every TMA load. The block's
-// resident tiles (q, or q and dO) arrive once on their own barrier; K and V
-// tiles stream through a ring of STAGES slots, each with a `full` barrier
-// (the producer's expect_tx, completed by the TMA bytes) and an `empty`
-// barrier (one arrival per consumer thread once its wgmma reading the slot
-// has retired). Both sides walk the same tile list, so the stage is i %
-// STAGES and the phase parity (i / STAGES) & 1 for the i-th tile.
+// resident tiles (q; q and dO; or k and v for dk/dv) arrive on their own
+// barrier; the streamed tiles come in pairs (K and V; Q and dO for dk/dv)
+// through a ring of STAGES slots, each with a `full` barrier (the producer's
+// expect_tx, completed by the TMA bytes, and any per-row vectors the
+// producer warp stores into the slot) and an `empty` barrier (one arrival per
+// consumer thread once its wgmma reading the slot has retired). Both sides
+// walk the same tile list, so the stage is i % STAGES and the phase parity
+// (i / STAGES) & 1 for the i-th tile through the ring.
 //
 // Shared-memory layout of a tile of ROWS rows of a (BH, T, D) bf16 tensor:
 // D / Panel<D>::cols panels, each ROWS rows of Panel<D>::row_bytes bytes (64
@@ -49,25 +52,31 @@ struct Panel {
   static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
 };
 
-// Shared-memory plan of a block: NRES resident tiles of BQ rows, then the
-// ring (each slot a K tile and a V tile of BK rows), then the barriers. The
+// Shared-memory plan of a block: NRES resident tiles of RES rows, then the
+// ring (each slot two tiles of RING rows, then NVEC f32 vectors of RING
+// values, one value per row of the slot's tiles), then the barriers. The
 // ring takes as many slots (2 to 4) as the block's shared memory holds.
-template <int D, int BQ, int BK, int NRES>
+template <int D, int RES, int RING, int NRES, int NVEC = 0>
 struct Smem {
-  static constexpr int res_bytes = BQ * D * 2;
-  static constexpr int kv_bytes = BK * D * 2;
+  static constexpr int res_bytes = RES * D * 2;
+  static constexpr int tile_bytes = RING * D * 2;
+  static constexpr int vec_bytes = (NVEC * RING * 4 + 1023) / 1024 * 1024;  // keeps the next slot aligned
+  static constexpr int slot_bytes = 2 * tile_bytes + vec_bytes;
   static constexpr int ring_off = NRES * res_bytes;
-  static constexpr int fit = (kSmemLimit - 2048 - ring_off) / (2 * kv_bytes);
+  static constexpr int fit = (kSmemLimit - 2048 - ring_off) / slot_bytes;
   static constexpr int STAGES = fit < 4 ? fit : 4;
-  static constexpr int bar_off = ring_off + STAGES * 2 * kv_bytes;
+  static constexpr int bar_off = ring_off + STAGES * slot_bytes;
   static constexpr int bytes = bar_off + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
   static_assert(STAGES >= 2, "the ring needs two slots");
   static_assert(bytes <= kSmemLimit, "block over the shared-memory limit");
-  static_assert(res_bytes % 1024 == 0 && kv_bytes % 1024 == 0, "tiles keep 1024-byte alignment");
+  static_assert(res_bytes % 1024 == 0 && slot_bytes % 1024 == 0, "tiles keep 1024-byte alignment");
 
   __device__ static uint32_t res_tile(uint32_t base, int r) { return base + r * res_bytes; }
-  __device__ static uint32_t k_tile(uint32_t base, int s) { return base + ring_off + s * 2 * kv_bytes; }
-  __device__ static uint32_t v_tile(uint32_t base, int s) { return k_tile(base, s) + kv_bytes; }
+  // Tile j (0 or 1) of ring slot s, and its vector v.
+  __device__ static uint32_t ring_tile(uint32_t base, int s, int j) {
+    return base + ring_off + s * slot_bytes + j * tile_bytes;
+  }
+  __device__ static uint32_t vec(uint32_t base, int s, int v) { return ring_tile(base, s, 2) + v * RING * 4; }
   __device__ static uint32_t res_bar(uint32_t base) { return base + bar_off; }
   __device__ static uint32_t full(uint32_t base, int s) { return base + bar_off + 8 * (1 + s); }
   __device__ static uint32_t empty(uint32_t base, int s) { return base + bar_off + 8 * (1 + STAGES + s); }
@@ -77,6 +86,7 @@ struct Smem {
 // 0 .. ceil(sep / BK) - 1, then, in the diagonal variant, the tiles past them
 // that hold the block's own diagonal keys [q0, q0 + BQ) (Tq == Tk there).
 // Every other tile is skipped and never loaded. sep is clamped to [0, Tk].
+// row0(i): the first key of the i-th tile.
 template <int BQ, int BK, bool DIAG>
 struct Tiles {
   int n_prefix, diag_first, n;
@@ -90,7 +100,27 @@ struct Tiles {
       n += max(0, last - diag_first + 1);
     }
   }
-  __device__ int key0(int i) const { return (i < n_prefix ? i : diag_first + (i - n_prefix)) * BK; }
+  __device__ int row0(int i) const { return (i < n_prefix ? i : diag_first + (i - n_prefix)) * BK; }
+};
+
+// The query tiles of BQ rows a key tile [k0, k0 + BK) visits (the dk/dv
+// kernel's list): every tile when k0 is below sep; past sep, in the diagonal
+// variant, the tiles that hold its own diagonal queries [k0, k0 + BK) (Tq ==
+// Tk there); else none. row0(i): the first query of the i-th tile.
+template <int BQ, int BK, bool DIAG>
+struct QueryTiles {
+  int first, n;
+  __device__ QueryTiles(int sep, int k0, int Tq) {
+    first = 0;
+    n = 0;
+    if (k0 < sep) {
+      n = (Tq + BQ - 1) / BQ;
+    } else if (DIAG && k0 < Tq) {
+      first = k0 / BQ;
+      n = (min(k0 + BK, Tq) - 1) / BQ - first + 1;
+    }
+  }
+  __device__ int row0(int i) const { return (first + i) * BQ; }
 };
 
 // Key `key` allowed for query `query` under the PFN rule (DIAG) or the prefix rule.
@@ -147,6 +177,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // The block's dynamic shared memory, rounded up to a 1024-byte boundary.
 __device__ __forceinline__ uint32_t smem_base(const void* raw) { return (smem_addr(raw) + 1023u) & ~1023u; }
 
+// A generic pointer to shared address `addr` of the block whose dynamic
+// shared memory starts at `raw`.
+template <class T>
+__device__ __forceinline__ T* smem_ptr(unsigned char* raw, uint32_t addr) {
+  return reinterpret_cast<T*>(raw + (addr - smem_addr(raw)));
+}
+
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
 }
@@ -189,20 +226,39 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, 
   for (int p = 0; p < P::count; ++p) tma_load_3d(dst + p * ROWS * P::row_bytes, map, bar, p * P::cols, row0, bh);
 }
 
-// The producer, one thread: the NRES resident tiles (BQ rows at q0) on their
-// barrier, then the K and V tiles of the tile list through the ring.
-template <class L, int D, int BQ, int BK, int NRES, class TileList>
-__device__ void produce(const CUtensorMap* const (&res)[NRES], const CUtensorMap* mk, const CUtensorMap* mv,
-                        uint32_t base, const TileList& tiles, int q0, int bh) {
-  mbar_expect_tx(L::res_bar(base), NRES * L::res_bytes);
+// The producer side that loads nothing besides the tiles.
+struct NoVectors {
+  __device__ void operator()(int, int) const {}
+};
+
+// The producer: lane 0 of the calling warp starts every TMA load, the NRES
+// resident tiles (RES rows at res_row0) on their barrier, then both tiles of
+// each ring slot (RING rows at the list's row0(i), from maps ma and mb) for
+// the tiles of the list, which are the ring's it0-th tile onwards. After each
+// slot's loads every calling thread runs vectors(row0, slot), which may
+// store the slot's vectors and arrive on its `full` barrier (whose arrival
+// count the kernel sets to match). Called by one thread (lane 0 of its warp)
+// when vectors does nothing, or by a whole warp.
+template <class L, int D, int RES, int RING, int NRES, class TileList, class Vectors = NoVectors>
+__device__ void produce(const CUtensorMap* const (&res)[NRES], const CUtensorMap* ma, const CUtensorMap* mb,
+                        uint32_t base, const TileList& tiles, int res_row0, int bh, int it0 = 0,
+                        const Vectors& vectors = Vectors()) {
+  const bool lane0 = (threadIdx.x & 31) == 0;
+  if (lane0) {
+    mbar_expect_tx(L::res_bar(base), NRES * L::res_bytes);
 #pragma unroll
-  for (int r = 0; r < NRES; ++r) load_tile<D, BQ>(L::res_tile(base, r), res[r], L::res_bar(base), q0, bh);
+    for (int r = 0; r < NRES; ++r) load_tile<D, RES>(L::res_tile(base, r), res[r], L::res_bar(base), res_row0, bh);
+  }
   for (int i = 0; i < tiles.n; ++i) {
-    const int s = i % L::STAGES;
-    mbar_wait(L::empty(base, s), ((i / L::STAGES) & 1) ^ 1);  // the first round passes at once
-    mbar_expect_tx(L::full(base, s), 2 * L::kv_bytes);
-    load_tile<D, BK>(L::k_tile(base, s), mk, L::full(base, s), tiles.key0(i), bh);
-    load_tile<D, BK>(L::v_tile(base, s), mv, L::full(base, s), tiles.key0(i), bh);
+    const int it = it0 + i;
+    const int s = it % L::STAGES;
+    mbar_wait(L::empty(base, s), ((it / L::STAGES) & 1) ^ 1);  // the first round passes at once
+    if (lane0) {
+      mbar_expect_tx(L::full(base, s), 2 * L::tile_bytes);
+      load_tile<D, RING>(L::ring_tile(base, s, 0), ma, L::full(base, s), tiles.row0(i), bh);
+      load_tile<D, RING>(L::ring_tile(base, s, 1), mb, L::full(base, s), tiles.row0(i), bh);
+    }
+    vectors(tiles.row0(i), s);
   }
 }
 

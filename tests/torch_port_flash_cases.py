@@ -1,5 +1,6 @@
 """Shared inputs and the JAX side of the flash-attention parity tests
-(tests/test_torch_port_flash_bwd*.py, tests/test_torch_port_flash_edges.py).
+(tests/test_torch_port_flash_bwd*.py, tests/test_torch_port_flash_edges.py,
+tests/test_torch_port_flash_dkv_edges.py).
 Tolerance: atol = rtol = 1e-4, the gradient tolerance of
 tests/test_flash_attention.py."""
 
@@ -54,12 +55,14 @@ def jax_fwd_bwd(q, k, v, do, dlse, sep, include_diag):
     return o[:, :Tq], lse[:, :Tq, 0], dq[:, :Tq], dk[:, :Tk], dv[:, :Tk]
 
 
-def check_plain_backward(T, sep, include_diag):
+def check_plain_backward(T, sep, include_diag, Tq=None):
     """The port's plain backward against the JAX ``_bwd_impl`` on the same
     inputs and the same forward o and lse; the prefix variant with Tq != Tk
-    and a nonzero dlse. A row or key with nothing allowed gets exactly 0."""
-    Tq = T if include_diag else T // 2 + 1
-    q, k, v, do, dlse = inputs(2, Tq, T, seed=10 * T + sep + include_diag)
+    (T // 2 + 1 unless given) and a nonzero dlse. A row or key with nothing
+    allowed gets exactly 0."""
+    seed = 10 * T + sep + include_diag + (0 if Tq is None else 1000 * Tq)
+    Tq = T if include_diag else Tq or T // 2 + 1
+    q, k, v, do, dlse = inputs(2, Tq, T, seed=seed)
     dlse = None if include_diag else dlse
     o, lse, *want = jax_fwd_bwd(q, k, v, do, dlse, sep, include_diag)
     t = [torch.from_numpy(np.array(a)) for a in (q, k, v, o, lse, do)]
