@@ -8,8 +8,8 @@ Phases, each printing one JSON line:
      printed raw on a line of its own). TF32 must be off for matmuls.
   2. build: compiles the CUDA sources of the checkout, one nvcc each, all at
      once, and reports ptxas's registers and spills of every kernel, by name,
-     and nvcc's warnings; fails if a bf16 flash kernel (the *_sm90 bodies)
-     spills.
+     and nvcc's warnings; fails if a bf16 flash kernel or the fused
+     backward's GEMM (the *_sm90 bodies) spills.
   3. kernel: the PFN flash-attention forward kernel, both variants, against
      its plain dense f32 version over FLASH_CASES: T in {127, 128, 129, 2010}
      with sep in {0, 1, T//2, T-1}, and T in {255, 256, 257} with sep in {0,
@@ -55,13 +55,15 @@ Phases, each printing one JSON line:
      D 512, H 4, F 1024, bf16): the kernel, its plain version and the port's
      unfused PFNEncoderLayer forward, beside the bound.
  10. fused_bwd_kernel: the fused layer's two backward kernels (FFN, then
-     attention) against fused_layer_bwd_plain on fused_kernel's grid, r and
-     lse from the forward kernel: dx and all 12 gradients, f32 at atol =
-     rtol = 3e-4, bf16 by the kernel_bwd rule against the plain bf16
-     backward's own error and an f32 gold; a repeat call bitwise equal.
+     attention) against fused_layer_bwd_plain on fused_kernel's grid and the
+     GEMM tile edges FUSED_BWD_EDGES, r and lse from the forward kernel: dx
+     and all 12 gradients, f32 at atol = rtol = 3e-4, bf16 by the
+     kernel_bwd rule against the plain bf16 backward's own error and an f32
+     gold; a repeat call bitwise equal.
  11. fused_bwd_timing: both backward kernels at the flagship shape beside
      their plain versions, the unfused PFNEncoderLayer's backward and the
-     bound.
+     bound; a device profile of one call of each (every device kernel), its
+     host time per call and its device kernels per layer.
  12. fused_path: fused_forward at the bench.py flagship model (6 layers, 100
      buckets, bf16, seeded weights, 64 GP datasets of T = 100): logits
      against the unfused forward in bf16 and f32, the kernel launched once
@@ -138,6 +140,13 @@ FLAGSHIP = dict(B=64, T=100, emsize=512, nhead=4, nhid=1024, nlayers=6, buckets=
 FUSED_TIMING_SEPS = [10, 50, 90]
 FUSED_F32_TOL = 3e-5  # atol and rtol, as tests/test_fused_layer.py uses
 FUSED_BWD_F32_TOL = 3e-4  # atol and rtol of f32 gradients, as tests/test_fused_layer.py uses
+# Edges of the fused backward's bf16 GEMM (pfn_gemm_sm90.cuh: 128-row output
+# tiles, 128 or 64 columns, 64-deep K tiles) that fused_bwd_kernel's grid
+# does not straddle, as (D, H, F, T, B): K = D or F at 80 and 128, N at 128
+# and 144 (head dims 16 and 64), M = B*T at 2 * 128 +- 1, and T = 63 / 65
+# against the attention products' 64-deep K tiles.
+FUSED_BWD_EDGES = [(D, H, F, T, B) for D, H, F in ((80, 5, 144), (128, 2, 128))
+                   for T, B in ((63, 1), (65, 2), (255, 1), (257, 1))]
 # f32 fused path against the f32 unfused forward: 6 layers of f32
 # summation-order differences (each within FUSED_F32_TOL), then the decoder.
 FUSED_PATH_F32_TOL = 1e-3
@@ -149,7 +158,7 @@ FUSED_TRAIN_F32_TOL = 1e-4
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 # The design of each kernel's bf16 body, beside its route in the kernels line.
-SM90_DESIGN = "sm90-wgmma-tma"  # wgmma fed by TMA through an mbarrier ring (pfn_flash_sm90.cuh)
+SM90_DESIGN = "sm90-wgmma-tma"  # wgmma fed by TMA through an mbarrier ring (pfn_flash_sm90.cuh, pfn_gemm_sm90.cuh)
 WMMA_DESIGN = "wmma"  # mma.sync 16x16x16 through WMMA fragments from shared memory
 
 
@@ -246,22 +255,28 @@ def fused_layer_bwd_bound(kind: str, B: int, T: int, D: int, H: int, F: int, sep
 
 
 def device_profile(fn, top: int = 8) -> dict:
-    """One call of fn() under torch.profiler, after a warm-up call: the wall
-    time from a synchronize to a synchronize, the device time of its kernels
-    (their sum, so overlapping kernels would count twice; this path runs one
-    stream; annotated ranges such as the optimizer step's are left out, their
-    kernels count), the idle share of the card in between, and the kernels
-    that took most of it: [name, ms, launches]."""
+    """One call of fn() under torch.profiler, after a warm-up call and a
+    profiler warm-up step (the tracer can miss the first kernels of a
+    session): the wall time from a synchronize to a synchronize, the device
+    time of its kernels (their sum, so overlapping kernels would count twice;
+    this path runs one stream; annotated ranges such as the optimizer step's
+    are left out, their kernels count), the idle share of the card in
+    between, and the kernels that took most of it: [name, ms, launches]."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
     kernels = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -1045,8 +1060,8 @@ def phase_fused_timing(device, smi: str, size: dict = FLAGSHIP):
 
 def phase_fused_bwd_kernel(device):
     """Both fused backward kernels against fused_layer_bwd_plain on the grid
-    of phase_fused_kernel: dx and all 12 gradients; r and lse from the
-    forward kernel; a repeat call bitwise equal."""
+    of phase_fused_kernel and on FUSED_BWD_EDGES: dx and all 12 gradients; r
+    and lse from the forward kernel; a repeat call bitwise equal."""
     import torch
 
     from pfn_tpu_torch.ops import _ext
@@ -1056,58 +1071,81 @@ def phase_fused_bwd_kernel(device):
     names = ("dx", *_ext.FUSED_PARAM_ORDER)
     g = torch.Generator(device=device).manual_seed(9)
     worst, n = {}, 0
+
+    def check(D, H, F, p, T, B, sep):
+        x = torch.randn(B, T, D, generator=g, device=device)
+        dy = torch.randn(B, T, D, generator=g, device=device)
+
+        def grads(bwd, dtype, r, lse):
+            dx, dp = bwd(x, p, sep, r, lse, dy, H, dtype)
+            return {"dx": dx, **dp}
+
+        gold = grads(fused_layer_bwd_plain, torch.float32, *fused_layer_fwd_plain(x, p, sep, H, torch.float32)[1:])
+        for dtype in (torch.float32, torch.bfloat16):
+            _, r, lse = fused_layer_fwd(x, p, sep, H, dtype)
+            got = grads(fused_layer_bwd, dtype, r, lse)
+            again = grads(fused_layer_bwd, dtype, r, lse)
+            torch.cuda.synchronize()
+            case = dict(D=D, H=H, F=F, T=T, B=B, sep=sep, dtype=str(dtype))
+            if not all(bool(torch.isfinite(t).all()) for t in got.values()):
+                raise AssertionError(f"fused backward: non-finite gradient {case}")
+            if not all(torch.equal(got[k], again[k]) for k in names):
+                raise AssertionError(f"fused backward: a repeat call differs {case}")
+            if dtype == torch.float32:
+                plain = grads(fused_layer_bwd_plain, dtype, r, lse)
+                errs = {k: max_abs(got[k], plain[k]) for k in names}
+                for k in names:
+                    if not torch.allclose(got[k], plain[k], atol=FUSED_BWD_F32_TOL, rtol=FUSED_BWD_F32_TOL):
+                        raise AssertionError(f"fused backward: {k} mismatch {case}: {errs[k]}")
+            else:
+                dense = grads(fused_layer_bwd_plain, dtype, *fused_layer_fwd_plain(x, p, sep, H, dtype)[1:])
+                errs = _rel_errors(got, gold, dense)
+                if not _bf16_ok(errs, names):
+                    raise AssertionError(f"fused backward: bf16 error over budget {case}: {errs}")
+            w = worst.setdefault(case["dtype"], {"cases": 0})
+            w["cases"] += 1
+            for k, e in errs.items():
+                w[k] = max(w.get(k, 0.0), e)
+
     for D, H, F in ((512, 4, 1024), (64, 2, 96), (32, 2, 48)):
         p = _fused_params(D, F, g, device)
         for T in (1, 16, 100, 127, 128, 129, 512):
             for B in ((1, 3, 64) if T == 100 else (1, 3)):
                 for sep in sorted({0, 1, T // 2, T - 1, T}):
-                    x = torch.randn(B, T, D, generator=g, device=device)
-                    dy = torch.randn(B, T, D, generator=g, device=device)
-
-                    def grads(bwd, dtype, r, lse):
-                        dx, dp = bwd(x, p, sep, r, lse, dy, H, dtype)
-                        return {"dx": dx, **dp}
-
-                    gold = grads(fused_layer_bwd_plain, torch.float32,
-                                 *fused_layer_fwd_plain(x, p, sep, H, torch.float32)[1:])
-                    for dtype in (torch.float32, torch.bfloat16):
-                        _, r, lse = fused_layer_fwd(x, p, sep, H, dtype)
-                        got = grads(fused_layer_bwd, dtype, r, lse)
-                        again = grads(fused_layer_bwd, dtype, r, lse)
-                        torch.cuda.synchronize()
-                        case = dict(D=D, H=H, F=F, T=T, B=B, sep=sep, dtype=str(dtype))
-                        if not all(bool(torch.isfinite(t).all()) for t in got.values()):
-                            raise AssertionError(f"fused backward: non-finite gradient {case}")
-                        if not all(torch.equal(got[k], again[k]) for k in names):
-                            raise AssertionError(f"fused backward: a repeat call differs {case}")
-                        if dtype == torch.float32:
-                            plain = grads(fused_layer_bwd_plain, dtype, r, lse)
-                            errs = {k: max_abs(got[k], plain[k]) for k in names}
-                            for k in names:
-                                if not torch.allclose(got[k], plain[k], atol=FUSED_BWD_F32_TOL,
-                                                      rtol=FUSED_BWD_F32_TOL):
-                                    raise AssertionError(f"fused backward: {k} mismatch {case}: {errs[k]}")
-                        else:
-                            dense = grads(fused_layer_bwd_plain, dtype,
-                                          *fused_layer_fwd_plain(x, p, sep, H, dtype)[1:])
-                            errs = _rel_errors(got, gold, dense)
-                            if not _bf16_ok(errs, names):
-                                raise AssertionError(f"fused backward: bf16 error over budget {case}: {errs}")
-                        w = worst.setdefault(case["dtype"], {"cases": 0})
-                        w["cases"] += 1
-                        for k, e in errs.items():
-                            w[k] = max(w.get(k, 0.0), e)
-                        n += 1
+                    check(D, H, F, p, T, B, sep)
+                    n += 2
+    for D, H, F, T, B in FUSED_BWD_EDGES:
+        p = _fused_params(D, F, g, device)
+        for sep in sorted({0, T // 2, T}):
+            check(D, H, F, p, T, B, sep)
+            n += 2
     emit({"phase": "fused_bwd_kernel", "cases": n, "worst": worst, "tol_f32": FUSED_BWD_F32_TOL,
           "bf16_rule": f"err/max|gold| <= max({BF16_GRAD_FLOOR}, 3 * plain_bf16_err/max|gold|) per gradient, "
                        "against the plain f32 backward of the plain f32 forward",
           "repeat_bitwise_equal": True})
 
 
+def host_us(fn, calls: int = 50) -> float:
+    """Mean host time of one fn() call over ``calls`` calls without a
+    synchronize in between (the enqueue), in us."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def phase_fused_bwd_timing(device, smi: str, size: dict = FLAGSHIP):
     """The fused layer's two backward kernels at the flagship shape, bf16,
     beside their plain versions, the unfused PFNEncoderLayer's backward
-    (autograd through cuBLAS and the flash backward kernels) and the bound."""
+    (autograd through cuBLAS and the flash backward kernels) and the bound;
+    at the flagship sep a device profile of one call of each entry point
+    (every device kernel with its time), its host time per call, and its
+    device kernels per layer counted from that profile."""
     import torch
 
     from pfn_tpu_torch.models import PFNEncoderLayer
@@ -1149,8 +1187,18 @@ def phase_fused_bwd_timing(device, smi: str, size: dict = FLAGSHIP):
             "ffn_bound": fused_layer_bwd_bound("ffn", B, T, D, H, F, sep),
             "attn_bound": fused_layer_bwd_bound("attn", B, T, D, H, F, sep),
         })
+    sep_t = torch.full((1,), size["sep"], dtype=torch.int32, device=device)
+    _, r, lse = _ext.fused_layer_fwd(x, kp, sep_t, H)
+    dr, _ = _ext.fused_layer_bwd_ffn(r, kp, dy)
+    calls = {"ffn": lambda: _ext.fused_layer_bwd_ffn(r, kp, dy),
+             "attn": lambda: _ext.fused_layer_bwd_attn(x, kp, lse, dr, sep_t, H)}
+    profiles = {part: device_profile(fn, top=64) for part, fn in calls.items()}
+    # The chain's own kernels; PyTorch's (the wrappers' allocations and
+    # fills) are listed in the profile beside them.
+    per_layer = {part: sum(k[2] for k in prof["kernels"] if "at::" not in k[0]) for part, prof in profiles.items()}
     emit({"phase": "fused_bwd_timing", "shape": {"B": B, "T": T, "D": D, "H": H, "F": F, "dtype": "bf16"},
-          "card": smi, "device_kernels_per_layer": {"ffn": 14, "attn": 19}, "rows": rows})
+          "card": smi, "device_kernels_per_layer": per_layer, "rows": rows, "sep_profiled": size["sep"],
+          "profiles": profiles, "host_us_per_call": {part: host_us(fn) for part, fn in calls.items()}})
     return rows
 
 
@@ -1469,7 +1517,7 @@ def main() -> int:
          "replaces": "pfn_tpu/ops/fused_layer.py:324", "launches": fused_launches,
          "max_abs_err": fused["max_abs_err"], "ms": fused["kernel_ms"], "plain_ms": fused["plain_ms"],
          "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"], "library_ms": fused["unfused_layer_ms"]},
-        *({"name": f"pfn_fused_layer_bwd_{part}", "route": "cuda", "design": WMMA_DESIGN, "source": fused_bwd_source,
+        *({"name": f"pfn_fused_layer_bwd_{part}", "route": "cuda", "design": SM90_DESIGN, "source": fused_bwd_source,
            "replaces": f"pfn_tpu/ops/fused_layer.py:{line}",
            "launches": fused_train_launches[f"pfn_fused_layer_bwd_{part}"],
            "max_abs_err": fused_bwd[f"{part}_max_abs_err"], "ms": fused_bwd[f"{part}_kernel_ms"],

@@ -40,7 +40,7 @@ SOURCES = {
     "pfn_fused_layer_bwd": _CSRC / "pfn_fused_layer_bwd.cu",
 }
 # Headers the sources include; each library's hash covers them too.
-HEADERS = (_CSRC / "pfn_fused_common.cuh", _CSRC / "pfn_flash_sm90.cuh")
+HEADERS = (_CSRC / "pfn_fused_common.cuh", _CSRC / "pfn_flash_sm90.cuh", _CSRC / "pfn_gemm_sm90.cuh")
 # Head dims the forward and both backward kernels are instantiated for.
 FLASH_HEAD_DIMS = (32, 64, 128)
 # Head dims the fused layer's attention is instantiated for, and its longest
@@ -73,8 +73,8 @@ _SIGNATURES = {
     "pfn_flash_bwd_dq": ("pfn_flash_bwd", [_P] * 8 + [_I] * 6 + [_P]),
     "pfn_flash_bwd_dkv": ("pfn_flash_bwd", [_P] * 9 + [_I] * 6 + [_P]),
     "pfn_fused_layer_fwd": ("pfn_fused_layer_fwd", [_P] * 21 + [_I] * 6 + [_P]),
-    "pfn_fused_layer_bwd_ffn": ("pfn_fused_layer_bwd", [_P] * 27 + [_I] * 6 + [_P]),
-    "pfn_fused_layer_bwd_attn": ("pfn_fused_layer_bwd", [_P] * 32 + [_I] * 6 + [_P]),
+    "pfn_fused_layer_bwd_ffn": ("pfn_fused_layer_bwd", [_P] * 24 + [_I] * 7 + [_P]),
+    "pfn_fused_layer_bwd_attn": ("pfn_fused_layer_bwd", [_P] * 29 + [_I] * 7 + [_P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -270,13 +270,20 @@ def fused_shape_error(D: int, H: int | None, F: int, T: int | None = None) -> st
 
 # Rows per partial sum of the backward's column sums (bias and LayerNorm
 # gradients), as in csrc/pfn_fused_layer_bwd.cu.
-COLSUM_ROWS = 64
+COLSUM_ROWS = 32
 
 
-def weight_grad_splits(M: int) -> int:
-    """Chunks the backward cuts the M = B*T rows of a weight gradient into
-    (split-K, summed in order): one per 512 rows, at most 8."""
-    return max(1, min(8, M // 512))
+# Output tile of the backward's bf16 GEMM (csrc/pfn_gemm_sm90.cuh).
+WGRAD_TILE = 128
+
+
+def weight_grad_splits(M: int, Kin: int, N: int, sms: int) -> int:
+    """Chunks the backward cuts the M = B*T rows of the weight gradient dW
+    (Kin, N) into (split-K, summed in order): as many as keep its 128 x 128
+    output tiles times the chunks within one wave of ``sms`` SMs, with at
+    least 256 rows a chunk, at most 16, and at least 1."""
+    tiles = -(-Kin // WGRAD_TILE) * -(-N // WGRAD_TILE)
+    return max(1, min(sms // tiles, M // 256, 16))
 
 
 def _check_fused_layer(name: str, x, params: dict, nhead: int | None, tensors=(), backward: bool = False) -> tuple:
@@ -363,24 +370,38 @@ def fused_layer_fwd(x: torch.Tensor, params: dict, sep: torch.Tensor,
     return y, r, lse
 
 
-def _scratch(cdt, device, *shapes, bf16_only=()):
-    """torch.empty scratch: f32 for ``shapes``, and the compute dtype for
-    ``bf16_only``, which exist only in bf16 (in f32 the kernels use the f32
-    tensor in their place and get a null pointer)."""
-    out = [torch.empty(s, dtype=torch.float32, device=device) for s in shapes]
-    out += [torch.empty(s, dtype=cdt, device=device) if cdt == torch.bfloat16 else None for s in bf16_only]
-    return out
+def _workspace(device, *parts) -> tuple:
+    """One allocation for a chain's scratch buffers: ``parts`` are element
+    counts of 4-byte (f32) buffers, of 2-byte ones as ``(count, 2)``, or
+    None for a buffer the chain does not get (a null pointer). Returns the
+    workspace tensor, which the caller keeps until the launch is enqueued,
+    and each part's address (None for None); every part starts on a 256-byte
+    boundary. Like any scratch here it is freed once the kernels are
+    enqueued: the caching allocator hands its blocks only to later work on
+    this stream."""
+    offsets, total = [], 0
+    for part in parts:
+        if part is None:
+            offsets.append(None)
+            continue
+        count, size = part if isinstance(part, tuple) else (part, 4)
+        offsets.append(total)
+        total += -(-count * size // 256) * 256
+    buf = torch.empty(max(total, 1), dtype=torch.uint8, device=device)
+    base = buf.data_ptr()
+    return buf, [None if o is None else base + o for o in offsets]
 
 
-def _ptr(t) -> int | None:
-    return None if t is None else t.data_ptr()
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def fused_layer_bwd_ffn(r: torch.Tensor, params: dict, dy: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """Launch the fused layer's FFN backward (the TPU kernel
-    ``_bwd_ffn_kernel``): one call, which enqueues its device kernels (twelve
-    in bf16, eleven in f32, two more with split-K weight gradients, from
-    B*T = 1024 on) on the current stream and counts one launch.
+    ``_bwd_ffn_kernel``): one call, which enqueues its device kernels (ten,
+    and an ordered sum for each weight gradient that
+    :func:`weight_grad_splits` splits) on the current stream and counts one
+    launch. The products by W1^T and W2^T read the weights in place.
 
     r: (B, T, D) float32, the forward's post-LN1 activations; dy: (B, T, D)
     float32, the gradient of y; ``params`` as :func:`fused_layer_fwd` takes
@@ -392,22 +413,23 @@ def fused_layer_bwd_ffn(r: torch.Tensor, params: dict, dy: torch.Tensor) -> tupl
                                          backward=True)
     dev, M = r.device, B * T
     dr = torch.empty_like(r)
-    grads = {k: torch.zeros(s, dtype=torch.float32, device=dev)
+    # The chain writes every entry; with no rows the sums are zeros.
+    new = torch.empty if r.numel() else torch.zeros
+    grads = {k: new(s, dtype=torch.float32, device=dev)
              for k, s in fused_param_shapes(D, F).items() if k in ("w1", "b1", "w2", "b2", "ln2_g", "ln2_b")}
     if r.numel() == 0:
         return dr, grads
-    w1t, w2t = params["w1"].t().contiguous(), params["w2"].t().contiguous()
-    splits = weight_grad_splits(M)
-    h1, r2, dgp, dr2, dh1, partial, wpartial = _scratch(cdt, dev, (M, F), (M, D), (M, D), (M, D), (M, F),
-                                                        (-(-M // COLSUM_ROWS) * max(3 * D, F),), (splits, D, F))
-    g = torch.empty((M, F), dtype=cdt, device=dev)
-    rc, dr2c, dh1c = _scratch(cdt, dev, bf16_only=((M, D), (M, D), (M, F)))
+    sms = _sms(dev)
+    splits = weight_grad_splits(M, F, D, sms), weight_grad_splits(M, D, F, sms)  # dW2, dW1
+    bf16 = cdt == torch.bfloat16
+    # rc, dr2c and dh1c exist in bf16 only; dh1 (f32) in f32 only; g in the compute dtype.
+    work, (rc, h1, g, r2, dr2, dr2c, dh1, dh1c, partial, wpartial) = _workspace(
+        dev, (M * D, 2) if bf16 else None, M * F, (M * F, 2) if bf16 else M * F, M * D, M * D,
+        (M * D, 2) if bf16 else None, None if bf16 else M * F, (M * F, 2) if bf16 else None,
+        -(-M // COLSUM_ROWS) * max(3 * D, F), max(splits) * D * F)
     _launch(name, r, r.data_ptr(), *(params[k].data_ptr() for k in ("w1", "b1", "w2", "b2", "ln2_g")),
-            dy.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), dr.data_ptr(),
-            *(grads[k].data_ptr() for k in ("w1", "b1", "w2", "b2", "ln2_g", "ln2_b")),
-            _ptr(rc), h1.data_ptr(), g.data_ptr(), r2.data_ptr(), dgp.data_ptr(), dr2.data_ptr(), _ptr(dr2c),
-            dh1.data_ptr(), _ptr(dh1c), partial.data_ptr(), wpartial.data_ptr(), B, T, D, F, splits,
-            int(cdt == torch.bfloat16))
+            dy.data_ptr(), dr.data_ptr(), *(grads[k].data_ptr() for k in ("w1", "b1", "w2", "b2", "ln2_g", "ln2_b")),
+            rc, h1, g, r2, dr2, dr2c, dh1, dh1c, partial, wpartial, B, T, D, F, *splits, int(bf16))
     return dr, grads
 
 
@@ -415,9 +437,10 @@ def fused_layer_bwd_attn(x: torch.Tensor, params: dict, lse: torch.Tensor, dr: t
                          nhead: int) -> tuple[torch.Tensor, dict]:
     """Launch the fused layer's attention backward (the TPU kernel
     ``_bwd_attn_kernel``): one call, which enqueues its device kernels
-    (seventeen in bf16, sixteen in f32, two more with split-K weight
-    gradients, from B*T = 1024 on) on the current stream and counts one
-    launch.
+    (fifteen, and an ordered sum for each weight gradient that
+    :func:`weight_grad_splits` splits) on the current stream
+    and counts one launch. The products by Wout^T and Wqkv^T read the
+    weights in place.
 
     x: (B, T, D) float32, the layer's input; lse: (B, T, H) float32 from the
     forward; dr: (B, T, D) float32 from :func:`fused_layer_bwd_ffn`;
@@ -433,22 +456,26 @@ def fused_layer_bwd_attn(x: torch.Tensor, params: dict, lse: torch.Tensor, dr: t
     _check_sep(name, sep, x.device)
     dev, M, H = x.device, B * T, nhead
     dx = torch.empty_like(x)
-    grads = {k: torch.zeros(s, dtype=torch.float32, device=dev)
+    new = torch.empty if x.numel() else torch.zeros  # as in fused_layer_bwd_ffn
+    grads = {k: new(s, dtype=torch.float32, device=dev)
              for k, s in fused_param_shapes(D, F).items() if k in ("wqkv", "bqkv", "wout", "bout", "ln1_g", "ln1_b")}
     if x.numel() == 0:
         return dx, grads
-    wqkvt, woutt = params["wqkv"].t().contiguous(), params["wout"].t().contiguous()
-    splits = weight_grad_splits(M)
-    r1, dgp, dr1, dqkv, partial, wpartial = _scratch(cdt, dev, (M, D), (M, D), (M, D), (M, 3 * D),
-                                                     (-(-M // COLSUM_ROWS) * 3 * D,), (splits, D, 3 * D))
+    sms = _sms(dev)
+    splits = weight_grad_splits(M, D, D, sms), weight_grad_splits(M, D, 3 * D, sms)  # dWout, dWqkv
+    bf16 = cdt == torch.bfloat16
     ldp = -(-T // 16) * 16  # row stride of the (B*H*T, T) p and ds scratch, as in the kernel
-    qkv, attn, dout, pc, ds = (torch.empty(s, dtype=cdt, device=dev)
-                               for s in ((M, 3 * D), (M, D), (M, D), (B * H * T, ldp), (B * H * T, ldp)))
-    xc, dr1c, dqkvc = _scratch(cdt, dev, bf16_only=((M, D), (M, D), (M, 3 * D)))
+    # partial: the LayerNorm's and dqkv's column sums, by COLSUM_ROWS rows
+    # (and in bf16 by item and 128-row tile).
+    chunks = max(-(-M // COLSUM_ROWS), B * -(-T // 128))
+    c = 2 if bf16 else 4  # bytes of the compute dtype
+    # xc, dr1c and dqkvc exist in bf16 only, dqkv (f32) in f32 only.
+    work, (xc, qkv, attn, r1, dr1, dr1c, dout, pc, ds, dqkv, dqkvc, partial, wpartial) = _workspace(
+        dev, (M * D, 2) if bf16 else None, (M * 3 * D, c), (M * D, c), M * D, M * D, (M * D, 2) if bf16 else None,
+        (M * D, c), (B * H * T * ldp, c), (B * H * T * ldp, c), None if bf16 else M * 3 * D,
+        (M * 3 * D, 2) if bf16 else None, chunks * 3 * D, max(splits[0], 3 * splits[1]) * D * D)
     _launch(name, x, x.data_ptr(), *(params[k].data_ptr() for k in ("wqkv", "bqkv", "wout", "bout", "ln1_g")),
-            lse.data_ptr(), dr.data_ptr(), wqkvt.data_ptr(), woutt.data_ptr(), sep.data_ptr(), dx.data_ptr(),
+            lse.data_ptr(), dr.data_ptr(), sep.data_ptr(), dx.data_ptr(),
             *(grads[k].data_ptr() for k in ("wqkv", "bqkv", "wout", "bout", "ln1_g", "ln1_b")),
-            _ptr(xc), qkv.data_ptr(), attn.data_ptr(), r1.data_ptr(), dgp.data_ptr(), dr1.data_ptr(), _ptr(dr1c),
-            dout.data_ptr(), pc.data_ptr(), ds.data_ptr(), dqkv.data_ptr(), _ptr(dqkvc), partial.data_ptr(),
-            wpartial.data_ptr(), B, T, D, H, splits, int(cdt == torch.bfloat16))
+            xc, qkv, attn, r1, dr1, dr1c, dout, pc, ds, dqkv, dqkvc, partial, wpartial, B, T, D, H, *splits, int(bf16))
     return dx, grads

@@ -2,16 +2,19 @@
 // (pfn_fused_layer_fwd.cu) and its backward (pfn_fused_layer_bwd.cu), each of
 // which is compiled into a library of its own:
 //   * a bf16 cast;
-//   * the GEMM: 128 x 64 output tiles over 32-deep K tiles, four warps, a
-//     three-deep cp.async ring, WMMA (mma.sync 16x16x16, f32 accumulate) in
-//     bf16 and an FMA path in f32 (no TF32); A may be read transposed, a
+//   * the GEMM of the forward and of the backward's f32 body: 128 x 64
+//     output tiles over 32-deep K tiles, four warps, a three-deep cp.async
+//     ring, WMMA (mma.sync 16x16x16, f32 accumulate) in bf16 and an FMA path
+//     in f32 (no TF32); A may be read transposed, and in f32 also W (TB), a
 //     batch of products may share one launch, and the epilogue fuses the
 //     bias, rounding, GELU, GELU's derivative, a residual or a scale; a
-//     weight gradient may split its K rows (split-K, summed in order);
+//     weight gradient may split its K rows (split-K, summed in order). The
+//     backward's bf16 products run on the wgmma GEMM of pfn_gemm_sm90.cuh,
+//     which takes the same epilogue modes;
 //   * the PFN attention per (32 query rows, head, item) with a (32, T) f32
 //     score row buffer, normalised from the row (the forward) or from a
 //     saved lse (the backward's recompute), and its score loop, which the
-//     backward's softmax kernel reuses;
+//     backward's f32 softmax kernel reuses;
 //   * the f32 LayerNorm and its row statistics.
 // Rounding follows pfn_tpu/ops/fused_layer.py (see each source's note).
 
@@ -179,7 +182,8 @@ enum Epilogue {
 // a_hi * (z / zdiv) + a_lo * (z % zdiv) elements, and likewise W and the
 // outputs (out, out2 and aux share one element index). A is (M, K) row-major
 // with row stride lda, or, read transposed (TA), stored (K, M) with row
-// stride lda; W is (K, N) with row stride ldw; the outputs (M, N) with row
+// stride lda; W is (K, N) with row stride ldw, or, read transposed (TB, f32
+// only), stored (N, K) with row stride ldw; the outputs (M, N) with row
 // stride ldo. bias (N,) f32 may be null (no bias). Rows of A and W past K
 // read as zero. A vector of 8 bf16 (4 f32) along A's or W's rows is loaded
 // whole once it starts inside the bounds, so ragged rows are padded with
@@ -199,22 +203,23 @@ struct GemmArgs {
   float scale;
 };
 
-template <typename T, bool TA>
+template <typename T, bool TA, bool TB>
 struct GemmSmem {
   static constexpr int LDA = (TA ? GBM : GBK) + Pad<T>::v;  // A tile: (GBM, GBK), or (GBK, GBM) transposed
-  static constexpr int LDW = GBN + Pad<T>::v;
+  static constexpr int LDW = (TB ? GBK : GBN) + Pad<T>::v;  // W tile: (GBK, GBN), or (GBN, GBK) transposed
   static constexpr int LDC = GBN + 4;  // f32 staging of the output tile
   static constexpr int w_off = round128((TA ? GBK : GBM) * LDA * (int)sizeof(T));
-  static constexpr int stage = w_off + round128(GBK * LDW * (int)sizeof(T));
+  static constexpr int stage = w_off + round128((TB ? GBN : GBK) * LDW * (int)sizeof(T));
   static constexpr int c_bytes = GBM * LDC * 4;
   // The output staging reuses the ring once the last K tile is consumed.
   static constexpr int bytes = GSTAGES * stage > c_bytes ? GSTAGES * stage : c_bytes;
 };
 
 // Grid (ceil(N/64), ceil(M/128), batches).
-template <typename T, int EPI, bool TA>
+template <typename T, int EPI, bool TA, bool TB = false>
 __global__ void __launch_bounds__(NTHREADS) gemm_kernel(const GemmArgs g) {
-  using L = GemmSmem<T, TA>;
+  static_assert(!(TB && is_bf16_v<T>), "W is read transposed by the f32 body only");
+  using L = GemmSmem<T, TA, TB>;
   extern __shared__ __align__(128) unsigned char smem[];
   auto a_tile = [&](int s) { return reinterpret_cast<T*>(smem + s * L::stage); };
   auto w_tile = [&](int s) { return reinterpret_cast<T*>(smem + s * L::stage + L::w_off); };
@@ -235,7 +240,11 @@ __global__ void __launch_bounds__(NTHREADS) gemm_kernel(const GemmArgs g) {
     } else {
       cp_async_tile<T, GBM, GBK, L::LDA>(a_tile(s), A, g.lda, m0, M, kt * GBK, K);
     }
-    cp_async_tile<T, GBK, GBN, L::LDW>(w_tile(s), W, g.ldw, kt * GBK, K, n0, N);
+    if constexpr (TB) {
+      cp_async_tile<T, GBN, GBK, L::LDW>(w_tile(s), W, g.ldw, n0, N, kt * GBK, K);
+    } else {
+      cp_async_tile<T, GBK, GBN, L::LDW>(w_tile(s), W, g.ldw, kt * GBK, K, n0, N);
+    }
   };
 #pragma unroll
   for (int kt = 0; kt < GSTAGES - 1; ++kt) {
@@ -305,7 +314,7 @@ __global__ void __launch_bounds__(NTHREADS) gemm_kernel(const GemmArgs g) {
       for (int k = 0; k < GBK; ++k) {
         float w[8];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) w[j] = to_float(ws[k * L::LDW + tx + 8 * j]);
+        for (int j = 0; j < 8; ++j) w[j] = to_float(TB ? ws[(tx + 8 * j) * L::LDW + k] : ws[k * L::LDW + tx + 8 * j]);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const int m = ty * 8 + i;
@@ -350,10 +359,10 @@ __global__ void __launch_bounds__(NTHREADS) gemm_kernel(const GemmArgs g) {
   }
 }
 
-template <typename T, int EPI, bool TA = false>
+template <typename T, int EPI, bool TA = false, bool TB = false>
 cudaError_t gemm(const GemmArgs& a, int batches, cudaStream_t stream) {
-  auto kernel = gemm_kernel<T, EPI, TA>;
-  const int bytes = GemmSmem<T, TA>::bytes;
+  auto kernel = gemm_kernel<T, EPI, TA, TB>;
+  const int bytes = GemmSmem<T, TA, TB>::bytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.N + GBN - 1) / GBN, (a.M + GBM - 1) / GBM, batches);
@@ -397,6 +406,14 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
+// out = the sum of `splits` (n,) f32 partials, in order.
+inline cudaError_t split_sum(const void* partial, void* out, size_t n, int splits, cudaStream_t stream) {
+  const size_t want = (n + NTHREADS - 1) / NTHREADS;
+  split_sum_kernel<<<(int)(want < 4096 ? want : 4096), NTHREADS, 0, stream>>>(static_cast<const float*>(partial),
+                                                                              static_cast<float*>(out), n, splits);
+  return cudaGetLastError();
+}
+
 // A weight gradient: dW (Kin, N) f32 = X^T dY summed over the M rows, X (M,
 // Kin) and dY (M, N) row-major in T. With splits > 1 the M rows are cut into
 // `splits` chunks (multiples of the K tile), each chunk's product goes to its
@@ -414,12 +431,7 @@ cudaError_t gemm_weight_grad(const void* X, const void* dY, void* dW, int M, int
     a.o_hi = (long long)Kin * N;
   }
   RETURN_IF_ERROR((gemm<T, EPI_SCALE, true>(a, splits, stream)));
-  if (splits == 1) return cudaSuccess;
-  const size_t n = (size_t)Kin * N;
-  const size_t want = (n + NTHREADS - 1) / NTHREADS;
-  split_sum_kernel<<<(int)(want < 4096 ? want : 4096), NTHREADS, 0, stream>>>(static_cast<const float*>(partial),
-                                                                              static_cast<float*>(dW), n, splits);
-  return cudaGetLastError();
+  return splits > 1 ? split_sum(partial, dW, (size_t)Kin * N, splits, stream) : cudaSuccess;
 }
 
 // ---- PFN attention over one item's qkv, all heads ----------------------------

@@ -6,11 +6,15 @@
   * The kernel wrappers refuse CPU tensors (they never fall back).
   * A library's build hash covers every header under csrc/, so an edited
     header rebuilds the libraries that include it.
+  * The ctypes argument types of every C entry point match its extern "C"
+    declaration in csrc/, pointer for pointer and int for int.
   * chip_smoke.py fails, printing no result line, without a CUDA device and
     when it stands alone in a directory.
 """
 
 import ast
+import ctypes
+import re
 import shutil
 import subprocess
 import sys
@@ -125,3 +129,29 @@ def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
     after = {name: _ext.library_path(name) for name in before}
     assert all(after[name] != before[name] for name in before)
     assert all(path.parent == _ext.BUILD_DIR for path in after.values())
+
+
+def _c_entry_points(path: Path) -> dict:
+    """{name: "PPI..P"} of the extern "C" functions in a .cu source: P for a
+    pointer parameter, I for an int."""
+    out = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', path.read_text()):
+        kinds = []
+        for param in (p.strip() for p in params.split(",")):
+            assert "*" in param or param.startswith("int "), (name, param)
+            kinds.append("P" if "*" in param else "I")
+        out[name] = "".join(kinds)
+    return out
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    from pfn_tpu_torch.ops import _ext
+
+    declared = {}
+    for source, path in _ext.SOURCES.items():
+        for name, kinds in _c_entry_points(path).items():
+            declared[name] = (source, kinds)
+    assert set(declared) == set(_ext._SIGNATURES)
+    for name, (source, argtypes) in _ext._SIGNATURES.items():
+        kinds = "".join("P" if t is ctypes.c_void_p else "I" if t is ctypes.c_int else "?" for t in argtypes)
+        assert declared[name] == (source, kinds), name
