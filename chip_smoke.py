@@ -8,8 +8,9 @@ Phases, each printing one JSON line:
      printed raw on a line of its own). TF32 must be off for matmuls.
   2. build: compiles the CUDA sources of the checkout, one nvcc each, all at
      once, and reports ptxas's registers and spills of every kernel, by name,
-     and nvcc's warnings; fails if a bf16 flash kernel or the fused
-     backward's GEMM (the *_sm90 bodies) spills.
+     and nvcc's warnings; fails if a bf16 flash kernel, the fused layer's
+     GEMM or its attention kernels (the *_sm90 bodies) spills, and names the
+     kernels it checked.
   3. kernel: the PFN flash-attention forward kernel, both variants, against
      its plain dense f32 version over FLASH_CASES: T in {127, 128, 129, 2010}
      with sep in {0, 1, T//2, T-1}, and T in {255, 256, 257} with sep in {0,
@@ -49,11 +50,17 @@ Phases, each printing one JSON line:
   8. fused_kernel: the fused encoder-layer forward kernel against its plain
      version (y, r and lse) over T in {1, 16, 100, 127, 128, 129, 512}, sep
      in {0, 1, T//2, T-1, T}, B in {1, 3} (and 64 at T = 100), (D, H, F) in
-     {(512, 4, 1024), (64, 2, 96), (32, 2, 48)}, f32 at atol = rtol = 3e-5,
-     bf16 by the rule err <= 2 * plain_bf16_err + 1e-3 against an f32 gold.
+     {(512, 4, 1024), (64, 2, 96), (32, 2, 48)}, and at the bf16 kernels'
+     tile edges FUSED_FWD_EDGES; f32 at atol = rtol = 3e-5, bf16 by the rule
+     err <= 2 * plain_bf16_err + 1e-3 against an f32 gold; a repeat call
+     bitwise equal.
   9. fused_timing: one layer at the bench.py flagship shape (B 64, T 100,
      D 512, H 4, F 1024, bf16): the kernel, its plain version and the port's
-     unfused PFNEncoderLayer forward, beside the bound.
+     unfused PFNEncoderLayer forward by CUDA events, the kernel's and the
+     unfused layer's device time, beside the bound; at the flagship sep a
+     device profile of one kernel call (every device kernel: only the wgmma
+     GEMM, the wgmma attention, the LayerNorm and the cast may appear), its
+     device kernels per layer counted from it, and its host time per call.
  10. fused_bwd_kernel: the fused layer's two backward kernels (FFN, then
      attention) against fused_layer_bwd_plain on fused_kernel's grid and the
      GEMM tile edges FUSED_BWD_EDGES, r and lse from the forward kernel: dx
@@ -61,9 +68,10 @@ Phases, each printing one JSON line:
      kernel_bwd rule against the plain bf16 backward's own error and an f32
      gold; a repeat call bitwise equal.
  11. fused_bwd_timing: both backward kernels at the flagship shape beside
-     their plain versions, the unfused PFNEncoderLayer's backward and the
-     bound; a device profile of one call of each (every device kernel), its
-     host time per call and its device kernels per layer.
+     their plain versions, the unfused PFNEncoderLayer's backward (events
+     and device time) and the bound; a device profile of one call of each
+     (every device kernel), its host time per call and its device kernels
+     per layer.
  12. fused_path: fused_forward at the bench.py flagship model (6 layers, 100
      buckets, bf16, seeded weights, 64 GP datasets of T = 100): logits
      against the unfused forward in bf16 and f32, the kernel launched once
@@ -85,8 +93,9 @@ Phases, each printing one JSON line:
  15. dkv_against_library: the dk/dv kernel at sep 1000, both variants,
      beside SDPA's backward less the dq kernel, from this run.
 Then the kernels line (each kernel's launches on its path, error, time,
-plain time, bound and library time; its route, and the design of its bf16
-body), and last {"ok": true, "device": {...}}.
+plain time, bound and library time, for the fused kernels also the library
+call's device time; its route, and the design of its bf16 body), and last
+{"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits nonzero and prints no result line.
 It also fails when there is no CUDA device, and when the package beside it
@@ -147,6 +156,14 @@ FUSED_BWD_F32_TOL = 3e-4  # atol and rtol of f32 gradients, as tests/test_fused_
 # against the attention products' 64-deep K tiles.
 FUSED_BWD_EDGES = [(D, H, F, T, B) for D, H, F in ((80, 5, 144), (128, 2, 128))
                    for T, B in ((63, 1), (65, 2), (255, 1), (257, 1))]
+# Edges of the fused forward's bf16 kernels that fused_kernel's grid does not
+# straddle, as (D, H, F, T, B), each at sep in {0, T//2, T-1, T} (sep inside
+# a diagonal key tile, and sep = T): K and N crossing 64 (D 64, F 96), head
+# dim 16 (D 32, H 2) against the attention's 64-column panel, T 63/64/65
+# against its 64-row query and key tiles, and M = B*T = 2 * 128 +- 1 against
+# the GEMM's 128-row tiles.
+FUSED_FWD_EDGES = [(D, H, F, T, B) for D, H, F in ((64, 2, 96), (32, 2, 48))
+                   for T, B in ((63, 1), (64, 2), (65, 1), (85, 3), (257, 1))]
 # f32 fused path against the f32 unfused forward: 6 layers of f32
 # summation-order differences (each within FUSED_F32_TOL), then the decoder.
 FUSED_PATH_F32_TOL = 1e-3
@@ -159,7 +176,17 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 # The design of each kernel's bf16 body, beside its route in the kernels line.
 SM90_DESIGN = "sm90-wgmma-tma"  # wgmma fed by TMA through an mbarrier ring (pfn_flash_sm90.cuh, pfn_gemm_sm90.cuh)
-WMMA_DESIGN = "wmma"  # mma.sync 16x16x16 through WMMA fragments from shared memory
+# The device kernels a bf16 call of the fused forward may launch (name
+# fragments as the profiler shows them): anything else is a fallback.
+FUSED_FWD_BF16_KERNELS = ("gemm_sm90", "attn_fwd_sm90", "layernorm_kernel", "cast_bf16_kernel")
+# torch.profiler keeps only the device kernels whose timestamps, converted
+# to the host's clock, fall inside its recording window: the window is padded
+# on both sides so that a skew between the two clocks drops none of a short
+# call's kernels. A session that saw no kernel is tried again.
+PROFILE_PAD_S = 0.02
+PROFILE_TRIES = 3
+# Profiler sessions of this run that saw no device kernel.
+profile_misses = 0
 
 
 def emit(obj) -> None:
@@ -184,6 +211,56 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profiled_kernels(fn, calls: int = 1, cpu: bool = False):
+    """([name, ms, launches] of each device kernel, wall ms) of ``calls``
+    calls of fn() in one recorded profiler step, after a warm-up call and a
+    profiler warm-up step (the tracer can miss the first kernels of a
+    session). The step is padded by PROFILE_PAD_S on both sides, and a
+    session that saw no kernel is tried again, up to PROFILE_TRIES in all.
+    Annotated ranges such as the optimizer step's are left out, their
+    kernels count; ``cpu`` records the host's operators as well."""
+    global profile_misses
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(PROFILE_PAD_S)
+            prof.step()
+        kernels = []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            if e.device_type == torch.autograd.DeviceType.CUDA and us > 0 and not getattr(e, "is_user_annotation", False):
+                kernels.append([e.key[:120], us / 1e3, e.count])
+        if kernels:
+            break
+        profile_misses += 1
+    return kernels, wall_ms
+
+
+def device_ms(fn, calls: int = 20):
+    """Mean device time of one fn() call: the time of the kernels it
+    launches, by torch.profiler over ``calls`` calls (profiled_kernels).
+    Unlike cuda_ms it does not grow when the host enqueues slower than the
+    card runs. "not measured" if the profiler saw no kernel."""
+    kernels, _ = profiled_kernels(fn, calls)
+    return sum(k[1] for k in kernels) / calls if kernels else "not measured"
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -255,35 +332,12 @@ def fused_layer_bwd_bound(kind: str, B: int, T: int, D: int, H: int, F: int, sep
 
 
 def device_profile(fn, top: int = 8) -> dict:
-    """One call of fn() under torch.profiler, after a warm-up call and a
-    profiler warm-up step (the tracer can miss the first kernels of a
-    session): the wall time from a synchronize to a synchronize, the device
-    time of its kernels (their sum, so overlapping kernels would count twice;
-    this path runs one stream; annotated ranges such as the optimizer step's
-    are left out, their kernels count), the idle share of the card in
-    between, and the kernels that took most of it: [name, ms, launches]."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        prof.step()
-    kernels = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0 and not getattr(e, "is_user_annotation", False):
-            kernels.append([e.key[:120], us / 1e3, e.count])
+    """One call of fn() under torch.profiler (profiled_kernels): the wall
+    time from a synchronize to a synchronize, the device time of its kernels
+    (their sum, so overlapping kernels would count twice; this path runs one
+    stream), the idle share of the card in between, and the kernels that
+    took most of it: [name, ms, launches]."""
+    kernels, wall_ms = profiled_kernels(fn, cpu=True)
     kernels.sort(key=lambda k: -k[1])
     device_ms = sum(k[1] for k in kernels)
     return {"wall_ms": wall_ms, "device_ms": device_ms if kernels else "not measured",
@@ -362,13 +416,23 @@ def phase_build():
                      "library": str(Path(info["path"]).relative_to(ROOT)), "ptxas": ptxas_report(info["log"]),
                      "warnings": [line.strip() for line in info["log"].splitlines() if "warning" in line.lower()]}
               for name, info in libraries.items()}
-    emit({"phase": "build", "seconds": seconds, "libraries": report})
-    # The bf16 flash bodies keep their accumulators in registers: a spill
+    # The bf16 Hopper bodies keep their accumulators in registers: a spill
     # there is a regression. (Only a fresh build carries ptxas's report.)
+    checked = {name: sorted({k["kernel"].split("(")[0].removeprefix("void ") for k in lib["ptxas"]
+                             if "_sm90<" in k["kernel"]}) for name, lib in report.items()}
+    # No fallback in the fused forward: every kernel of its library that
+    # takes bf16 is one of the Hopper chain's.
+    fwd_bf16 = sorted({k["kernel"] for k in report["pfn_fused_layer_fwd"]["ptxas"]
+                       if "bfloat16" in k["kernel"] or "_sm90" in k["kernel"]})
+    emit({"phase": "build", "seconds": seconds, "libraries": report, "spill_checked": checked,
+          "fused_fwd_bf16_kernels": fwd_bf16})
     for k in (k for lib in report.values() for k in lib["ptxas"] if "_sm90<" in k["kernel"]):
         spilled = [int(n) for n in re.findall(r"(\d+) bytes spill", k.get("spills", ""))]
         if any(spilled):
             raise AssertionError(f"{k['kernel']} spills: {k['spills']}")
+    other = [k for k in fwd_bf16 if not any(name in k for name in FUSED_FWD_BF16_KERNELS)]
+    if other:
+        raise AssertionError(f"the fused forward's library holds bf16 kernels outside its Hopper chain: {other}")
 
 
 def phase_kernel_cases(device):
@@ -961,49 +1025,65 @@ def _fused_params(D: int, F: int, g, device) -> dict:
 
 
 def phase_fused_kernel(device):
-    """The fused layer kernel against its plain version: y, r and lse."""
+    """The fused layer kernel against its plain version: y, r and lse, on the
+    grid and at FUSED_FWD_EDGES; a repeat call bitwise equal."""
     import torch
 
     from pfn_tpu_torch.ops.fused_layer import fused_layer_fwd, fused_layer_fwd_plain
 
     g = torch.Generator(device=device).manual_seed(4)
     worst, n = {}, 0
+
+    def check(D, H, F, p, T, B, sep):
+        x = torch.randn(B, T, D, generator=g, device=device)
+        gold = fused_layer_fwd_plain(x, p, sep, H, torch.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = fused_layer_fwd(x, p, sep, H, dtype)
+            again = fused_layer_fwd(x, p, sep, H, dtype)
+            torch.cuda.synchronize()
+            case = dict(D=D, H=H, F=F, T=T, B=B, sep=sep, dtype=str(dtype))
+            if not all(bool(torch.isfinite(t).all()) for t in got):
+                raise AssertionError(f"fused kernel: non-finite output {case}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"fused kernel: a repeat call differs {case}")
+            errs = {name: max_abs(a, b) for name, a, b in zip(("y", "r", "lse"), got, gold)}
+            if dtype == torch.float32:
+                for name, a, b in zip(("y", "r", "lse"), got, gold):
+                    if not torch.allclose(a, b, atol=FUSED_F32_TOL, rtol=FUSED_F32_TOL):
+                        raise AssertionError(f"fused kernel: {name} mismatch {case}: {errs[name]}")
+            else:
+                plain = fused_layer_fwd_plain(x, p, sep, H, torch.bfloat16)
+                for name, a, b in zip(("y", "r", "lse"), plain, gold):
+                    budget = 2 * max_abs(a, b) + 1e-3
+                    errs[f"{name}_budget"] = budget
+                    if errs[name] > budget:
+                        raise AssertionError(
+                            f"fused kernel: bf16 {name} error {errs[name]} over budget {budget}: {case}")
+            w = worst.setdefault(case["dtype"], {"cases": 0})
+            w["cases"] += 1
+            for name in ("y", "r", "lse"):
+                w[name] = max(w.get(name, 0.0), errs[name])
+                if f"{name}_budget" in errs:
+                    w[f"{name}_worst_share_of_budget"] = max(
+                        w.get(f"{name}_worst_share_of_budget", 0.0), errs[name] / errs[f"{name}_budget"])
+
     for D, H, F in ((512, 4, 1024), (64, 2, 96), (32, 2, 48)):
         p = _fused_params(D, F, g, device)
         for T in (1, 16, 100, 127, 128, 129, 512):
             for B in ((1, 3, 64) if T == 100 else (1, 3)):
                 for sep in sorted({0, 1, T // 2, T - 1, T}):
-                    x = torch.randn(B, T, D, generator=g, device=device)
-                    gold = fused_layer_fwd_plain(x, p, sep, H, torch.float32)
-                    for dtype in (torch.float32, torch.bfloat16):
-                        got = fused_layer_fwd(x, p, sep, H, dtype)
-                        torch.cuda.synchronize()
-                        case = dict(D=D, H=H, F=F, T=T, B=B, sep=sep, dtype=str(dtype))
-                        if not all(bool(torch.isfinite(t).all()) for t in got):
-                            raise AssertionError(f"fused kernel: non-finite output {case}")
-                        errs = {name: max_abs(a, b) for name, a, b in zip(("y", "r", "lse"), got, gold)}
-                        if dtype == torch.float32:
-                            for name, a, b in zip(("y", "r", "lse"), got, gold):
-                                if not torch.allclose(a, b, atol=FUSED_F32_TOL, rtol=FUSED_F32_TOL):
-                                    raise AssertionError(f"fused kernel: {name} mismatch {case}: {errs[name]}")
-                        else:
-                            plain = fused_layer_fwd_plain(x, p, sep, H, torch.bfloat16)
-                            for name, a, b in zip(("y", "r", "lse"), plain, gold):
-                                budget = 2 * max_abs(a, b) + 1e-3
-                                errs[f"{name}_budget"] = budget
-                                if errs[name] > budget:
-                                    raise AssertionError(
-                                        f"fused kernel: bf16 {name} error {errs[name]} over budget {budget}: {case}")
-                        w = worst.setdefault(case["dtype"], {"cases": 0})
-                        w["cases"] += 1
-                        for name in ("y", "r", "lse"):
-                            w[name] = max(w.get(name, 0.0), errs[name])
-                            if f"{name}_budget" in errs:
-                                w[f"{name}_worst_share_of_budget"] = max(
-                                    w.get(f"{name}_worst_share_of_budget", 0.0), errs[name] / errs[f"{name}_budget"])
-                        n += 1
-    emit({"phase": "fused_kernel", "cases": n, "worst": worst, "tol_f32": FUSED_F32_TOL,
-          "bf16_rule": "err <= 2 * plain_bf16_err + 1e-3 against the plain f32 gold, for y, r and lse"})
+                    check(D, H, F, p, T, B, sep)
+                    n += 2
+    grid = n
+    for D, H, F, T, B in FUSED_FWD_EDGES:
+        p = _fused_params(D, F, g, device)
+        for sep in sorted({0, T // 2, T - 1, T}):
+            check(D, H, F, p, T, B, sep)
+            n += 2
+    emit({"phase": "fused_kernel", "cases": n, "grid_cases": grid, "edge_cases": n - grid, "worst": worst,
+          "tol_f32": FUSED_F32_TOL,
+          "bf16_rule": "err <= 2 * plain_bf16_err + 1e-3 against the plain f32 gold, for y, r and lse",
+          "repeat_bitwise_equal": True})
 
 
 def _load_layer(layer, p: dict) -> None:
@@ -1021,10 +1101,25 @@ def _load_layer(layer, p: dict) -> None:
             layer.get_submodule(f"norm{i}").bias.copy_(p[f"ln{i}_b"])
 
 
+def _chain_kernels(profile: dict) -> list:
+    """The kernels of a fused entry point's own chain in a device_profile
+    (PyTorch's kernels, the wrappers' allocations and fills, are named
+    at::...)."""
+    return [k for k in profile["kernels"] if "at::" not in k[0]]
+
+
+def _kernel_count(chain: list):
+    """Device kernels launched in a profiled call, or "not measured"."""
+    return sum(k[2] for k in chain) if chain else "not measured"
+
+
 def phase_fused_timing(device, smi: str, size: dict = FLAGSHIP):
     """One fused layer at the flagship shape, bf16: the kernel, its plain
     version and the unfused PFNEncoderLayer forward (cuBLAS and the flash
-    forward kernel), beside the bound."""
+    forward kernel), by CUDA events, and the kernel's and the unfused
+    layer's device time (the unfused layer's events time is bound by its
+    host), beside the bound; at the flagship sep a device profile of one
+    kernel call, its device kernels per layer and its host time per call."""
     import torch
 
     from pfn_tpu_torch.models import PFNEncoderLayer
@@ -1050,11 +1145,28 @@ def phase_fused_timing(device, smi: str, size: dict = FLAGSHIP):
                 "plain_ms": cuda_ms(lambda: fused_layer_fwd_plain(x, p, sep_t, H, torch.bfloat16)),
                 "unfused_layer_ms": cuda_ms(lambda: layer(x, sep_t)),
                 "kernel_ms_again": cuda_ms(lambda: _ext.fused_layer_fwd(x, kp, sep_t, H)),
+                "kernel_dev_ms": device_ms(lambda: _ext.fused_layer_fwd(x, kp, sep_t, H)),
+                "unfused_layer_dev_ms": device_ms(lambda: layer(x, sep_t)),
                 "max_abs_err": max_abs(y, y_plain),
                 **fused_layer_bound(B, T, D, H, F, sep),
             })
+        sep_t = torch.full((1,), size["sep"], dtype=torch.int32, device=device)
+
+        def call():
+            return _ext.fused_layer_fwd(x, kp, sep_t, H)
+
+        profile = device_profile(call, top=64)
+        host = host_us(call)
+    chain = _chain_kernels(profile)
     emit({"phase": "fused_timing", "shape": {"B": B, "T": T, "D": D, "H": H, "F": F, "dtype": "bf16"},
-          "card": smi, "device_kernels_per_layer": 8, "rows": rows})
+          "card": smi, "device_kernels_per_layer": _kernel_count(chain), "rows": rows,
+          "sep_profiled": size["sep"], "profile": profile, "host_us_per_call": host})
+    # No fallback: a bf16 call launches only the Hopper kernels, the
+    # LayerNorm and the cast. (Where the profiler saw no kernel, phase_build's
+    # check of the library's kernels stands alone.)
+    other = [k[0] for k in chain if not any(name in k[0] for name in FUSED_FWD_BF16_KERNELS)]
+    if other:
+        raise AssertionError(f"fused_timing: the bf16 forward launched {other}")
     return rows
 
 
@@ -1142,7 +1254,8 @@ def host_us(fn, calls: int = 50) -> float:
 def phase_fused_bwd_timing(device, smi: str, size: dict = FLAGSHIP):
     """The fused layer's two backward kernels at the flagship shape, bf16,
     beside their plain versions, the unfused PFNEncoderLayer's backward
-    (autograd through cuBLAS and the flash backward kernels) and the bound;
+    (autograd through cuBLAS and the flash backward kernels; by events and
+    by device time) and the bound;
     at the flagship sep a device profile of one call of each entry point
     (every device kernel with its time), its host time per call, and its
     device kernels per layer counted from that profile."""
@@ -1180,8 +1293,11 @@ def phase_fused_bwd_timing(device, smi: str, size: dict = FLAGSHIP):
             "ffn_plain_ms": cuda_ms(lambda: _bwd_ffn_plain(r, p, dy, torch.bfloat16)),
             "attn_plain_ms": cuda_ms(lambda: _bwd_attn_plain(x, p, sep_t, lse, dr, H, torch.bfloat16)),
             "unfused_layer_bwd_ms": cuda_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)),
+            "unfused_layer_bwd_dev_ms": device_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)),
             "ffn_kernel_ms_again": cuda_ms(lambda: _ext.fused_layer_bwd_ffn(r, kp, dy)),
             "attn_kernel_ms_again": cuda_ms(lambda: _ext.fused_layer_bwd_attn(x, kp, lse, dr, sep_t, H)),
+            "ffn_kernel_dev_ms": device_ms(lambda: _ext.fused_layer_bwd_ffn(r, kp, dy)),
+            "attn_kernel_dev_ms": device_ms(lambda: _ext.fused_layer_bwd_attn(x, kp, lse, dr, sep_t, H)),
             "ffn_max_abs_err": ffn_err,
             "attn_max_abs_err": attn_err,
             "ffn_bound": fused_layer_bwd_bound("ffn", B, T, D, H, F, sep),
@@ -1193,9 +1309,7 @@ def phase_fused_bwd_timing(device, smi: str, size: dict = FLAGSHIP):
     calls = {"ffn": lambda: _ext.fused_layer_bwd_ffn(r, kp, dy),
              "attn": lambda: _ext.fused_layer_bwd_attn(x, kp, lse, dr, sep_t, H)}
     profiles = {part: device_profile(fn, top=64) for part, fn in calls.items()}
-    # The chain's own kernels; PyTorch's (the wrappers' allocations and
-    # fills) are listed in the profile beside them.
-    per_layer = {part: sum(k[2] for k in prof["kernels"] if "at::" not in k[0]) for part, prof in profiles.items()}
+    per_layer = {part: _kernel_count(_chain_kernels(prof)) for part, prof in profiles.items()}
     emit({"phase": "fused_bwd_timing", "shape": {"B": B, "T": T, "D": D, "H": H, "F": F, "dtype": "bf16"},
           "card": smi, "device_kernels_per_layer": per_layer, "rows": rows, "sep_profiled": size["sep"],
           "profiles": profiles, "host_us_per_call": {part: host_us(fn) for part, fn in calls.items()}})
@@ -1497,6 +1611,7 @@ def main() -> int:
         variant: {"dkv_ms": row["dkv_ms"], "sdpa_bwd_minus_dq_ms": library[key] - row["dq_ms"],
                   "held": row["dkv_ms"] <= library[key] - row["dq_ms"]}
         for variant, row, key in (("diag", bwd, "sdpa_bwd_ms"), ("prefix", bwd_prefix, "sdpa_prefix_bwd_ms"))}})
+    emit({"phase": "profiler", "sessions_without_kernels": profile_misses, "pad_s": PROFILE_PAD_S})
     emit({"kernels": [
         {"name": "pfn_flash_fwd", "route": "cuda", "design": SM90_DESIGN,
          "source": "pfn_tpu_torch/ops/csrc/pfn_flash_fwd.cu",
@@ -1512,17 +1627,20 @@ def main() -> int:
          "max_abs_err": max(bwd["max_abs_err"]["dk"], bwd["max_abs_err"]["dv"]), "ms": bwd["dkv_ms"],
          "plain_ms": bwd["plain_ms"], **flash_bound("dkv", 16, 2010, 128, 1000),
          "library_ms": library["sdpa_bwd_ms"]},
-        {"name": "pfn_fused_layer_fwd", "route": "cuda", "design": WMMA_DESIGN,
+        {"name": "pfn_fused_layer_fwd", "route": "cuda", "design": SM90_DESIGN,
          "source": "pfn_tpu_torch/ops/csrc/pfn_fused_layer_fwd.cu",
          "replaces": "pfn_tpu/ops/fused_layer.py:324", "launches": fused_launches,
-         "max_abs_err": fused["max_abs_err"], "ms": fused["kernel_ms"], "plain_ms": fused["plain_ms"],
-         "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"], "library_ms": fused["unfused_layer_ms"]},
+         "max_abs_err": fused["max_abs_err"], "ms": fused["kernel_ms"], "dev_ms": fused["kernel_dev_ms"],
+         "plain_ms": fused["plain_ms"], "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
+         "library_ms": fused["unfused_layer_ms"], "library_dev_ms": fused["unfused_layer_dev_ms"]},
         *({"name": f"pfn_fused_layer_bwd_{part}", "route": "cuda", "design": SM90_DESIGN, "source": fused_bwd_source,
            "replaces": f"pfn_tpu/ops/fused_layer.py:{line}",
            "launches": fused_train_launches[f"pfn_fused_layer_bwd_{part}"],
            "max_abs_err": fused_bwd[f"{part}_max_abs_err"], "ms": fused_bwd[f"{part}_kernel_ms"],
+           "dev_ms": fused_bwd[f"{part}_kernel_dev_ms"],
            "plain_ms": fused_bwd[f"{part}_plain_ms"], "bound_ms": fused_bwd[f"{part}_bound"]["bound_ms"],
-           "bound_by": fused_bwd[f"{part}_bound"]["bound_by"], "library_ms": fused_bwd["unfused_layer_bwd_ms"]}
+           "bound_by": fused_bwd[f"{part}_bound"]["bound_by"], "library_ms": fused_bwd["unfused_layer_bwd_ms"],
+           "library_dev_ms": fused_bwd["unfused_layer_bwd_dev_ms"]}
           for part, line in (("ffn", 358), ("attn", 387))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(device),

@@ -28,8 +28,8 @@ the bench.py flagship shape (B 64, T 100, D 512, H 4, F 1024, bf16) at sep
 against the plain bf16
 backward relative to its largest entry, a device profile of one call of each
 of the three at sep 50 (every device kernel), their host time per
-call (50 calls without a synchronize), ptxas's report of the backward
-library's kernels; and with ``--train`` the JSON line of the tree's
+call (50 calls without a synchronize), ptxas's report of the forward and
+backward libraries' kernels; and with ``--train`` the JSON line of the tree's
 ``chip_smoke.phase_fused_train``. Any failure of a run stops the script with
 a nonzero exit.
 """
@@ -55,18 +55,29 @@ def ms(fn) -> float:
 
 def dev_ms(fn, calls: int = 20) -> float:
     """Mean device time of one fn() call: the time of the kernels it
-    launches, by torch.profiler over ``calls`` calls after a warm-up. Unlike
-    ``ms`` it does not grow when the host enqueues slower than the card
-    runs."""
+    launches, by torch.profiler over ``calls`` calls after a warm-up call and
+    a profiler warm-up step (the tracer can miss the first kernels of a
+    window), the recorded step padded by 20 ms on both sides (the profiler
+    drops kernels whose timestamps fall outside it); as chip_smoke.device_ms,
+    which a parent tree may lack. Unlike ``ms`` it does not grow when the
+    host enqueues slower than the card runs."""
+    import time
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(0.02)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(0.02)
+        prof.step()
     us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA)
     return us / calls / 1e3
@@ -97,8 +108,9 @@ def run_fused(tree: str, device, smi: str, train: bool) -> dict:
     from pfn_tpu_torch.ops import _ext
     from pfn_tpu_torch.ops.fused_layer import _bwd_attn_plain, _bwd_ffn_plain, _kernel_params
 
-    log = _ext.build(["pfn_fused_layer_fwd", "pfn_fused_layer_bwd"])["pfn_fused_layer_bwd"]["log"]
-    out = {"tree": tree, "card": smi, "ptxas_bwd": chip_smoke.ptxas_report(log)}
+    logs = {name: info["log"] for name, info in _ext.build(["pfn_fused_layer_fwd", "pfn_fused_layer_bwd"]).items()}
+    out = {"tree": tree, "card": smi, "ptxas_fwd": chip_smoke.ptxas_report(logs["pfn_fused_layer_fwd"]),
+           "ptxas_bwd": chip_smoke.ptxas_report(logs["pfn_fused_layer_bwd"])}
     size = chip_smoke.FLAGSHIP
     B, T, D, H, F = size["B"], size["T"], size["emsize"], size["nhead"], size["nhid"]
     g = torch.Generator(device=device).manual_seed(10)

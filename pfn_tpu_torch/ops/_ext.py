@@ -40,11 +40,12 @@ SOURCES = {
     "pfn_fused_layer_bwd": _CSRC / "pfn_fused_layer_bwd.cu",
 }
 # Headers the sources include; each library's hash covers them too.
-HEADERS = (_CSRC / "pfn_fused_common.cuh", _CSRC / "pfn_flash_sm90.cuh", _CSRC / "pfn_gemm_sm90.cuh")
+HEADERS = (_CSRC / "pfn_fused_common.cuh", _CSRC / "pfn_flash_sm90.cuh", _CSRC / "pfn_gemm_sm90.cuh",
+           _CSRC / "pfn_fused_layer.cuh")
 # Head dims the forward and both backward kernels are instantiated for.
 FLASH_HEAD_DIMS = (32, 64, 128)
 # Head dims the fused layer's attention is instantiated for, and its longest
-# sequence (one block holds a (32, T) f32 score row buffer).
+# sequence (an f32 block holds a (32, T) f32 score row buffer).
 FUSED_HEAD_DIMS = (16, 32, 64, 128)
 FUSED_MAX_SEQ = 512
 # The fused layer's parameters, in the order of its C entry point (the JAX
@@ -340,7 +341,7 @@ def fused_layer_fwd(x: torch.Tensor, params: dict, sep: torch.Tensor,
                     nhead: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the fused encoder-layer forward: one call, which enqueues the
     layer's device kernels (eight in bf16, seven in f32) on the current
-    stream and counts one launch.
+    stream and counts one launch. Its scratch is one workspace allocation.
 
     x: (B, T, D) float32; ``params`` holds the entries of
     ``FUSED_PARAM_ORDER`` in the JAX package's layout: the four matrices
@@ -357,16 +358,12 @@ def fused_layer_fwd(x: torch.Tensor, params: dict, sep: torch.Tensor,
     lse = torch.empty((B, T, nhead), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return y, r, lse
-    # Scratch for the intermediates that pass between the layer's kernels. It
-    # is freed when this returns, before the kernels have run: the caching
-    # allocator hands its blocks only to later work on this stream.
-    qkv = torch.empty((B * T, 3 * D), dtype=cdt, device=x.device)
-    attn = torch.empty((B * T, D), dtype=cdt, device=x.device)
-    rc = torch.empty((B * T, D), dtype=cdt, device=x.device)
-    g = torch.empty((B * T, F), dtype=cdt, device=x.device)
+    # The intermediates that pass between the layer's kernels, in the compute
+    # dtype: qkv, attn, rc = cdt(r) (first cdt(x)), g.
+    M, c = B * T, 2 if cdt == torch.bfloat16 else 4
+    work, (qkv, attn, rc, g) = _workspace(x.device, (M * 3 * D, c), (M * D, c), (M * D, c), (M * F, c))
     _launch(name, x, x.data_ptr(), *(params[k].data_ptr() for k in FUSED_PARAM_ORDER), y.data_ptr(), r.data_ptr(),
-            lse.data_ptr(), qkv.data_ptr(), attn.data_ptr(), rc.data_ptr(), g.data_ptr(), sep.data_ptr(),
-            B, T, D, nhead, F, int(cdt == torch.bfloat16))
+            lse.data_ptr(), qkv, attn, rc, g, sep.data_ptr(), B, T, D, nhead, F, int(cdt == torch.bfloat16))
     return y, r, lse
 
 

@@ -2,19 +2,18 @@
 // (pfn_fused_layer_fwd.cu) and its backward (pfn_fused_layer_bwd.cu), each of
 // which is compiled into a library of its own:
 //   * a bf16 cast;
-//   * the GEMM of the forward and of the backward's f32 body: 128 x 64
-//     output tiles over 32-deep K tiles, four warps, a three-deep cp.async
-//     ring, WMMA (mma.sync 16x16x16, f32 accumulate) in bf16 and an FMA path
-//     in f32 (no TF32); A may be read transposed, and in f32 also W (TB), a
-//     batch of products may share one launch, and the epilogue fuses the
-//     bias, rounding, GELU, GELU's derivative, a residual or a scale; a
-//     weight gradient may split its K rows (split-K, summed in order). The
-//     backward's bf16 products run on the wgmma GEMM of pfn_gemm_sm90.cuh,
-//     which takes the same epilogue modes;
-//   * the PFN attention per (32 query rows, head, item) with a (32, T) f32
+//   * the f32 body's GEMM: 128 x 64 output tiles over 32-deep K tiles, four
+//     warps, a three-deep cp.async ring, FMA (no TF32); A and W may be read
+//     transposed (TA, TB), a batch of products may share one launch, and the
+//     epilogue fuses the bias, GELU, GELU's derivative, a residual or a
+//     scale; a weight gradient may split its K rows (split-K, summed in
+//     order). The bf16 products run on the wgmma GEMM of pfn_gemm_sm90.cuh,
+//     which takes the same epilogue modes (pfn_fused_layer.cuh dispatches);
+//   * the f32 PFN attention per (32 query rows, head, item) with a (32, T)
 //     score row buffer, normalised from the row (the forward) or from a
 //     saved lse (the backward's recompute), and its score loop, which the
-//     backward's f32 softmax kernel reuses;
+//     backward's f32 softmax kernel reuses; the bf16 attention is
+//     attn_fwd_sm90 (pfn_fused_layer.cuh);
 //   * the f32 LayerNorm and its row statistics.
 // Rounding follows pfn_tpu/ops/fused_layer.py (see each source's note).
 
@@ -23,7 +22,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -40,24 +38,13 @@ constexpr int NTHREADS = 128;  // four warps in every kernel
 constexpr float LN_EPS = 1e-5f;
 constexpr float GELU_C = 0.7978845608028654f;  // sqrt(2/pi)
 constexpr float GELU_A = 0.044715f;
-
-template <typename T>
-struct Pad;  // row padding in elements: keeps rows 16-byte aligned, spreads banks
-template <>
-struct Pad<float> {
-  static constexpr int v = 4;
-};
-template <>
-struct Pad<__nv_bfloat16> {
-  static constexpr int v = 8;
-};
+constexpr int PAD = 4;  // f32 row padding in shared memory: keeps rows 16-byte aligned, spreads banks
 
 template <typename T>
 constexpr bool is_bf16_v = std::is_same<T, __nv_bfloat16>::value;
 
 __host__ __device__ constexpr int round128(int bytes) { return (bytes + 127) / 128 * 128; }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
@@ -161,34 +148,36 @@ inline cudaError_t cast_bf16(const void* x, void* out, size_t n, cudaStream_t s)
   return cudaGetLastError();
 }
 
-// ---- GEMM: out = epilogue(op(A) W) ------------------------------------------
+// ---- f32 GEMM: out = epilogue(op(A) op(W)) ----------------------------------
 
 // Block tile 128 x 64 over 32-deep K tiles, four warps of 64 x 32; a ring of
 // GSTAGES K tiles in shared memory filled by cp.async, so the loads of tile
 // k + 2 overlap the products on tile k.
 constexpr int GBM = 128, GBN = 64, GBK = 32, GSTAGES = 3;
 
+// The epilogue modes of both GEMMs; cdt is the compute dtype (the identity
+// in f32), and out and out2 are in the dtype named.
 enum Epilogue {
-  EPI_ROUND = 0,        // out (T)     = cdt(acc + bias)
+  EPI_ROUND = 0,        // out (cdt)   = cdt(acc + bias)
   EPI_ROUND_RESID = 1,  // out (float) = aux + cdt(acc + bias)
-  EPI_GELU = 2,         // out (T)     = cdt(gelu(acc + bias))
+  EPI_GELU = 2,         // out (cdt)   = cdt(gelu(acc + bias))
   EPI_RESID = 3,        // out (float) = aux + (acc + bias)
-  EPI_F32_GELU = 4,     // out (float) = acc + bias, out2 (T) = cdt(gelu(acc + bias))
-  EPI_GELU_GRAD = 5,    // out (float) = acc * gelu'(aux), out2 (T) = cdt(out) if out2
-  EPI_SCALE = 6,        // out (float) = acc * scale,      out2 (T) = cdt(out) if out2
+  EPI_F32_GELU = 4,     // out (float) = acc + bias, out2 (cdt) = cdt(gelu(acc + bias))
+  EPI_GELU_GRAD = 5,    // out (float) = acc * gelu'(aux), out2 (cdt) = cdt(out) if out2
+  EPI_SCALE = 6,        // out (float) = acc * scale,      out2 (cdt) = cdt(out) if out2
 };
 
 // One product, or a batch of them on blockIdx.z: batch z reads A at
 // a_hi * (z / zdiv) + a_lo * (z % zdiv) elements, and likewise W and the
 // outputs (out, out2 and aux share one element index). A is (M, K) row-major
 // with row stride lda, or, read transposed (TA), stored (K, M) with row
-// stride lda; W is (K, N) with row stride ldw, or, read transposed (TB, f32
-// only), stored (N, K) with row stride ldw; the outputs (M, N) with row
-// stride ldo. bias (N,) f32 may be null (no bias). Rows of A and W past K
-// read as zero. A vector of 8 bf16 (4 f32) along A's or W's rows is loaded
-// whole once it starts inside the bounds, so ragged rows are padded with
-// zeros by the caller (K for A not transposed, M for A transposed, N for W
-// are multiples of the vector width or padded). With ksplit > 0, batch z
+// stride lda; W is (K, N) with row stride ldw, or, read transposed (TB),
+// stored (N, K) with row stride ldw; the outputs (M, N) with row stride ldo;
+// all f32. bias (N,) f32 may be null (no bias). Rows of A and W past K read
+// as zero. A vector of 4 f32 along A's or W's rows is loaded whole once it
+// starts inside the bounds, so ragged rows are padded with zeros by the
+// caller (K for A not transposed, M for A transposed, N for W are multiples
+// of the vector width or padded). With ksplit > 0, batch z
 // sums only its rows [z * ksplit, (z + 1) * ksplit) of K (split-K: the batch
 // offsets of A and W step by ksplit rows, each z writes its own partial).
 struct GemmArgs {
@@ -203,31 +192,30 @@ struct GemmArgs {
   float scale;
 };
 
-template <typename T, bool TA, bool TB>
+template <bool TA, bool TB>
 struct GemmSmem {
-  static constexpr int LDA = (TA ? GBM : GBK) + Pad<T>::v;  // A tile: (GBM, GBK), or (GBK, GBM) transposed
-  static constexpr int LDW = (TB ? GBK : GBN) + Pad<T>::v;  // W tile: (GBK, GBN), or (GBN, GBK) transposed
-  static constexpr int LDC = GBN + 4;  // f32 staging of the output tile
-  static constexpr int w_off = round128((TA ? GBK : GBM) * LDA * (int)sizeof(T));
-  static constexpr int stage = w_off + round128((TB ? GBN : GBK) * LDW * (int)sizeof(T));
+  static constexpr int LDA = (TA ? GBM : GBK) + PAD;  // A tile: (GBM, GBK), or (GBK, GBM) transposed
+  static constexpr int LDW = (TB ? GBK : GBN) + PAD;  // W tile: (GBK, GBN), or (GBN, GBK) transposed
+  static constexpr int LDC = GBN + 4;  // staging of the output tile
+  static constexpr int w_off = round128((TA ? GBK : GBM) * LDA * 4);
+  static constexpr int stage = w_off + round128((TB ? GBN : GBK) * LDW * 4);
   static constexpr int c_bytes = GBM * LDC * 4;
   // The output staging reuses the ring once the last K tile is consumed.
   static constexpr int bytes = GSTAGES * stage > c_bytes ? GSTAGES * stage : c_bytes;
 };
 
 // Grid (ceil(N/64), ceil(M/128), batches).
-template <typename T, int EPI, bool TA, bool TB = false>
+template <int EPI, bool TA, bool TB = false>
 __global__ void __launch_bounds__(NTHREADS) gemm_kernel(const GemmArgs g) {
-  static_assert(!(TB && is_bf16_v<T>), "W is read transposed by the f32 body only");
-  using L = GemmSmem<T, TA, TB>;
+  using L = GemmSmem<TA, TB>;
   extern __shared__ __align__(128) unsigned char smem[];
-  auto a_tile = [&](int s) { return reinterpret_cast<T*>(smem + s * L::stage); };
-  auto w_tile = [&](int s) { return reinterpret_cast<T*>(smem + s * L::stage + L::w_off); };
+  auto a_tile = [&](int s) { return reinterpret_cast<float*>(smem + s * L::stage); };
+  auto w_tile = [&](int s) { return reinterpret_cast<float*>(smem + s * L::stage + L::w_off); };
   float* cs = reinterpret_cast<float*>(smem);
 
   const long long zh = blockIdx.z / g.zdiv, zl = blockIdx.z % g.zdiv;
-  const T* A = static_cast<const T*>(g.A) + zh * g.a_hi + zl * g.a_lo;
-  const T* W = static_cast<const T*>(g.W) + zh * g.w_hi + zl * g.w_lo;
+  const float* A = static_cast<const float*>(g.A) + zh * g.a_hi + zl * g.a_lo;
+  const float* W = static_cast<const float*>(g.W) + zh * g.w_hi + zl * g.w_lo;
   const size_t obase = (size_t)(zh * g.o_hi + zl * g.o_lo);
   const int M = g.M, N = g.N;
   const int K = g.ksplit ? min(g.ksplit, g.K - (int)blockIdx.z * g.ksplit) : g.K;
@@ -236,14 +224,14 @@ __global__ void __launch_bounds__(NTHREADS) gemm_kernel(const GemmArgs g) {
   auto load = [&](int kt) {
     const int s = kt % GSTAGES;
     if constexpr (TA) {
-      cp_async_tile<T, GBK, GBM, L::LDA>(a_tile(s), A, g.lda, kt * GBK, K, m0, M);
+      cp_async_tile<float, GBK, GBM, L::LDA>(a_tile(s), A, g.lda, kt * GBK, K, m0, M);
     } else {
-      cp_async_tile<T, GBM, GBK, L::LDA>(a_tile(s), A, g.lda, m0, M, kt * GBK, K);
+      cp_async_tile<float, GBM, GBK, L::LDA>(a_tile(s), A, g.lda, m0, M, kt * GBK, K);
     }
     if constexpr (TB) {
-      cp_async_tile<T, GBN, GBK, L::LDW>(w_tile(s), W, g.ldw, n0, N, kt * GBK, K);
+      cp_async_tile<float, GBN, GBK, L::LDW>(w_tile(s), W, g.ldw, n0, N, kt * GBK, K);
     } else {
-      cp_async_tile<T, GBK, GBN, L::LDW>(w_tile(s), W, g.ldw, kt * GBK, K, n0, N);
+      cp_async_tile<float, GBK, GBN, L::LDW>(w_tile(s), W, g.ldw, kt * GBK, K, n0, N);
     }
   };
 #pragma unroll
@@ -252,85 +240,40 @@ __global__ void __launch_bounds__(NTHREADS) gemm_kernel(const GemmArgs g) {
     cp_async_commit();
   }
 
-  if constexpr (is_bf16_v<T>) {
-    using namespace nvcuda;
-    using ALayout = typename std::conditional<TA, wmma::col_major, wmma::row_major>::type;
-    // Warp w owns the 64 x 32 quarter (w / 2, w % 2): 4 x 2 fragments.
-    const int warp = threadIdx.x / 32;
-    const int wr = (warp / 2) * 64, wc = (warp % 2) * 32;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+  // Thread (ty, tx) owns rows ty*8 .. ty*8+7 and columns tx + 8*j.
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  float acc[8][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-    for (int kt = 0; kt < k_tiles; ++kt) {
-      cp_async_wait<GSTAGES - 2>();  // tile kt has landed
-      __syncthreads();               // and every warp is done with tile kt - 1
-      if (kt + GSTAGES - 1 < k_tiles) load(kt + GSTAGES - 1);
-      cp_async_commit();
-      const T* as = a_tile(kt % GSTAGES);
-      const T* ws = w_tile(kt % GSTAGES);
-#pragma unroll
-      for (int kk = 0; kk < GBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> a[4];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          // Element (m, k) of the tile: as[m * LDA + k], or as[k * LDA + m] transposed.
-          const T* ap = TA ? as + kk * L::LDA + wr + 16 * i : as + (wr + 16 * i) * L::LDA + kk;
-          wmma::load_matrix_sync(a[i], ap, L::LDA);
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], ws + kk * L::LDW + wc + 16 * j, L::LDW);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // the staging below overwrites the ring
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(cs + (wr + 16 * i) * L::LDC + wc + 16 * j, acc[i][j], L::LDC, wmma::mem_row_major);
-  } else {
-    // Thread (ty, tx) owns rows ty*8 .. ty*8+7 and columns tx + 8*j.
-    const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-    for (int kt = 0; kt < k_tiles; ++kt) {
-      cp_async_wait<GSTAGES - 2>();
-      __syncthreads();
-      if (kt + GSTAGES - 1 < k_tiles) load(kt + GSTAGES - 1);
-      cp_async_commit();
-      const T* as = a_tile(kt % GSTAGES);
-      const T* ws = w_tile(kt % GSTAGES);
-#pragma unroll 4
-      for (int k = 0; k < GBK; ++k) {
-        float w[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) w[j] = to_float(TB ? ws[(tx + 8 * j) * L::LDW + k] : ws[k * L::LDW + tx + 8 * j]);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int m = ty * 8 + i;
-          const float a = to_float(TA ? as[k * L::LDA + m] : as[m * L::LDA + k]);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
-        }
-      }
-    }
-    cp_async_wait<0>();
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<GSTAGES - 2>();
     __syncthreads();
+    if (kt + GSTAGES - 1 < k_tiles) load(kt + GSTAGES - 1);
+    cp_async_commit();
+    const float* as = a_tile(kt % GSTAGES);
+    const float* ws = w_tile(kt % GSTAGES);
+#pragma unroll 4
+    for (int k = 0; k < GBK; ++k) {
+      float w[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+      for (int j = 0; j < 8; ++j) w[j] = TB ? ws[(tx + 8 * j) * L::LDW + k] : ws[k * L::LDW + tx + 8 * j];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) cs[(ty * 8 + i) * L::LDC + tx + 8 * j] = acc[i][j];
+      for (int i = 0; i < 8; ++i) {
+        const int m = ty * 8 + i;
+        const float a = TA ? as[k * L::LDA + m] : as[m * L::LDA + k];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
+      }
+    }
   }
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) cs[(ty * 8 + i) * L::LDC + tx + 8 * j] = acc[i][j];
   __syncthreads();
 
   for (int i = threadIdx.x; i < GBM * GBN; i += NTHREADS) {
@@ -340,29 +283,28 @@ __global__ void __launch_bounds__(NTHREADS) gemm_kernel(const GemmArgs g) {
     const size_t o = obase + (size_t)m * g.ldo + n;
     float v = cs[r * L::LDC + c];
     if (g.bias) v += g.bias[n];
+    float* out = static_cast<float*>(g.out);
     if constexpr (EPI == EPI_ROUND) {
-      static_cast<T*>(g.out)[o] = from_float<T>(v);
-    } else if constexpr (EPI == EPI_ROUND_RESID) {
-      static_cast<float*>(g.out)[o] = g.aux[o] + to_float(from_float<T>(v));
+      out[o] = v;
+    } else if constexpr (EPI == EPI_ROUND_RESID || EPI == EPI_RESID) {
+      out[o] = g.aux[o] + v;
     } else if constexpr (EPI == EPI_GELU) {
-      static_cast<T*>(g.out)[o] = from_float<T>(gelu(v));
-    } else if constexpr (EPI == EPI_RESID) {
-      static_cast<float*>(g.out)[o] = g.aux[o] + v;
+      out[o] = gelu(v);
     } else if constexpr (EPI == EPI_F32_GELU) {
-      static_cast<float*>(g.out)[o] = v;
-      static_cast<T*>(g.out2)[o] = from_float<T>(gelu(v));
+      out[o] = v;
+      static_cast<float*>(g.out2)[o] = gelu(v);
     } else {
       const float d = EPI == EPI_GELU_GRAD ? v * gelu_grad(g.aux[o]) : v * g.scale;
-      static_cast<float*>(g.out)[o] = d;
-      if (g.out2) static_cast<T*>(g.out2)[o] = from_float<T>(d);
+      out[o] = d;
+      if (g.out2) static_cast<float*>(g.out2)[o] = d;
     }
   }
 }
 
-template <typename T, int EPI, bool TA = false, bool TB = false>
+template <int EPI, bool TA = false, bool TB = false>
 cudaError_t gemm(const GemmArgs& a, int batches, cudaStream_t stream) {
-  auto kernel = gemm_kernel<T, EPI, TA, TB>;
-  const int bytes = GemmSmem<T, TA, TB>::bytes;
+  auto kernel = gemm_kernel<EPI, TA, TB>;
+  const int bytes = GemmSmem<TA, TB>::bytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.N + GBN - 1) / GBN, (a.M + GBM - 1) / GBM, batches);
@@ -370,7 +312,7 @@ cudaError_t gemm(const GemmArgs& a, int batches, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// One (M, K) x (K, N) product, all row-major and dense: the forward's form.
+// One (M, K) x (K, N) product, all row-major and dense.
 inline GemmArgs dense_args(const void* A, const void* W, const void* bias, const void* aux, void* out, int M, int N,
                            int K) {
   GemmArgs a{};
@@ -388,12 +330,6 @@ inline GemmArgs dense_args(const void* A, const void* W, const void* bias, const
   a.zdiv = 1;
   a.scale = 1.0f;
   return a;
-}
-
-template <typename T, int EPI>
-cudaError_t gemm(const void* A, const void* W, const void* bias, const void* aux, void* out, int M, int N, int K,
-                 cudaStream_t stream) {
-  return gemm<T, EPI, false>(dense_args(A, W, bias, aux, out, M, N, K), 1, stream);
 }
 
 // out[i] = sum of the `splits` partials in[s * n + i], in order of s.
@@ -414,13 +350,12 @@ inline cudaError_t split_sum(const void* partial, void* out, size_t n, int split
   return cudaGetLastError();
 }
 
-// A weight gradient: dW (Kin, N) f32 = X^T dY summed over the M rows, X (M,
-// Kin) and dY (M, N) row-major in T. With splits > 1 the M rows are cut into
+// A weight gradient: dW (Kin, N) = X^T dY summed over the M rows, X (M, Kin)
+// and dY (M, N) row-major, all f32. With splits > 1 the M rows are cut into
 // `splits` chunks (multiples of the K tile), each chunk's product goes to its
 // own (Kin, N) slice of `partial`, and the slices are summed in order: more
 // blocks than the (Kin / 128) x (N / 64) output tiles, and no atomics.
-template <typename T>
-cudaError_t gemm_weight_grad(const void* X, const void* dY, void* dW, int M, int Kin, int N, int splits,
+inline cudaError_t gemm_weight_grad(const void* X, const void* dY, void* dW, int M, int Kin, int N, int splits,
                              void* partial, cudaStream_t stream) {
   GemmArgs a = dense_args(X, dY, nullptr, nullptr, splits > 1 ? partial : dW, Kin, N, M);
   a.lda = Kin;
@@ -430,133 +365,91 @@ cudaError_t gemm_weight_grad(const void* X, const void* dY, void* dW, int M, int
     a.w_hi = (long long)a.ksplit * N;
     a.o_hi = (long long)Kin * N;
   }
-  RETURN_IF_ERROR((gemm<T, EPI_SCALE, true>(a, splits, stream)));
+  RETURN_IF_ERROR((gemm<EPI_SCALE, true>(a, splits, stream)));
   return splits > 1 ? split_sum(partial, dW, (size_t)Kin * N, splits, stream) : cudaSuccess;
 }
 
-// ---- PFN attention over one item's qkv, all heads ----------------------------
+// ---- f32 PFN attention over one item's qkv, all heads ------------------------
 
 constexpr int ABQ = 32;  // query rows per block
 constexpr int ABK = 64;  // keys per K/V tile
 
 // Shared-memory layout of an attention block for sequence length `seq`; every
-// region starts on a 128-byte boundary (WMMA needs 32-byte aligned fragments).
-template <typename T, int DH>
+// region starts on a 128-byte boundary.
+template <int DH>
 struct AttnLayout {
-  static constexpr int LDH = DH + Pad<T>::v;  // q rows, K/V tile rows (T)
-  static constexpr int LDO = DH + 4;          // f32 output accumulator
+  static constexpr int LDH = DH + PAD;  // q rows, K/V tile rows
+  static constexpr int LDO = DH + 4;    // output accumulator
   int LDS, LDP, q_off, kv_off, o_off, s_off, p_off, bytes;
   __host__ __device__ explicit AttnLayout(int seq) {
     const int tpad = (seq + ABK - 1) / ABK * ABK;
-    LDS = tpad + 4;          // f32 scores, then e
-    LDP = tpad + Pad<T>::v;  // probabilities in T
+    LDS = tpad + 4;    // scores, then e
+    LDP = tpad + PAD;  // probabilities
     q_off = 0;
-    kv_off = q_off + round128(ABQ * LDH * (int)sizeof(T));
-    o_off = kv_off + round128(ABK * LDH * (int)sizeof(T));
+    kv_off = q_off + round128(ABQ * LDH * 4);
+    o_off = kv_off + round128(ABK * LDH * 4);
     s_off = o_off + round128(ABQ * LDO * 4);
     p_off = s_off + round128(ABQ * LDS * 4);
-    bytes = p_off + round128(ABQ * LDP * (int)sizeof(T));
+    bytes = p_off + round128(ABQ * LDP * 4);
   }
 };
 
 // S[:, key0 : key0 + ABK] = scale * Q K^T for the K tile in ks.
-template <typename T, int DH>
-__device__ __forceinline__ void tile_scores(const T* qs, const T* ks, float* ss, int LDS, int key0, float scale) {
-  constexpr int LDH = AttnLayout<T, DH>::LDH;
-  if constexpr (is_bf16_v<T>) {
-    using namespace nvcuda;
-    // Warp w: rows 16*(w % 2), key columns 32*(w / 2) .. +32.
-    const int warp = threadIdx.x / 32;
-    const int r0 = (warp % 2) * 16, c0 = (warp / 2) * 32;
+template <int DH>
+__device__ __forceinline__ void tile_scores(const float* qs, const float* ks, float* ss, int LDS, int key0,
+                                            float scale) {
+  constexpr int LDH = AttnLayout<DH>::LDH;
+  // Thread (ty, tx) owns rows ty*4 .. ty*4+3 and key columns tx + 16*j.
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][ABK / 16];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int kd = 0; kd < DH; kd += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, qs + r0 * LDH + kd, LDH);
-        wmma::load_matrix_sync(b, ks + (c0 + 16 * j) * LDH + kd, LDH);
-        wmma::mma_sync(acc, a, b, acc);
-      }
+    for (int j = 0; j < ABK / 16; ++j) acc[i][j] = 0.0f;
+  for (int d = 0; d < DH; ++d) {
+    float kv[ABK / 16];
 #pragma unroll
-      for (int e = 0; e < acc.num_elements; ++e) acc.x[e] *= scale;
-      wmma::store_matrix_sync(ss + r0 * LDS + key0 + c0 + 16 * j, acc, LDS, wmma::mem_row_major);
+    for (int j = 0; j < ABK / 16; ++j) kv[j] = ks[(tx + 16 * j) * LDH + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float qv = qs[(ty * 4 + i) * LDH + d];
+#pragma unroll
+      for (int j = 0; j < ABK / 16; ++j) acc[i][j] = fmaf(qv, kv[j], acc[i][j]);
     }
-  } else {
-    // Thread (ty, tx) owns rows ty*4 .. ty*4+3 and key columns tx + 16*j.
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    float acc[4][ABK / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < ABK / 16; ++j) acc[i][j] = 0.0f;
-    for (int d = 0; d < DH; ++d) {
-      float kv[ABK / 16];
-#pragma unroll
-      for (int j = 0; j < ABK / 16; ++j) kv[j] = to_float(ks[(tx + 16 * j) * LDH + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float qv = to_float(qs[(ty * 4 + i) * LDH + d]);
-#pragma unroll
-        for (int j = 0; j < ABK / 16; ++j) acc[i][j] = fmaf(qv, kv[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < ABK / 16; ++j) ss[(ty * 4 + i) * LDS + key0 + tx + 16 * j] = acc[i][j] * scale;
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < ABK / 16; ++j) ss[(ty * 4 + i) * LDS + key0 + tx + 16 * j] = acc[i][j] * scale;
 }
 
 // O += P[:, key0 : key0 + ABK] V for the V tile in vs.
-template <typename T, int DH>
-__device__ __forceinline__ void tile_accumulate(float* os, const T* ps, const T* vs, int LDP, int key0) {
-  constexpr int LDH = AttnLayout<T, DH>::LDH;
-  constexpr int LDO = AttnLayout<T, DH>::LDO;
-  if constexpr (is_bf16_v<T>) {
-    using namespace nvcuda;
-    // The (ABQ / 16) x (DH / 16) output fragments, dealt round the warps.
-    constexpr int NF = (ABQ / 16) * (DH / 16);
-    for (int f = threadIdx.x / 32; f < NF; f += NTHREADS / 32) {
-      const int r0 = (f % (ABQ / 16)) * 16, c0 = (f / (ABQ / 16)) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, os + r0 * LDO + c0, LDO, wmma::mem_row_major);
+template <int DH>
+__device__ __forceinline__ void tile_accumulate(float* os, const float* ps, const float* vs, int LDP, int key0) {
+  constexpr int LDH = AttnLayout<DH>::LDH;
+  constexpr int LDO = AttnLayout<DH>::LDO;
+  // Thread (ty, tx) owns rows ty*4 .. ty*4+3 and columns tx + 16*j.
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][DH / 16];
 #pragma unroll
-      for (int kk = 0; kk < ABK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, ps + r0 * LDP + key0 + kk, LDP);
-        wmma::load_matrix_sync(b, vs + kk * LDH + c0, LDH);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(os + r0 * LDO + c0, acc, LDO, wmma::mem_row_major);
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DH / 16; ++j) acc[i][j] = os[(ty * 4 + i) * LDO + tx + 16 * j];
+  for (int kk = 0; kk < ABK; ++kk) {
+    float vv[DH / 16];
+#pragma unroll
+    for (int j = 0; j < DH / 16; ++j) vv[j] = vs[kk * LDH + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float p = ps[(ty * 4 + i) * LDP + key0 + kk];
+#pragma unroll
+      for (int j = 0; j < DH / 16; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
     }
-  } else {
-    // Thread (ty, tx) owns rows ty*4 .. ty*4+3 and columns tx + 16*j.
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    float acc[4][DH / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < DH / 16; ++j) acc[i][j] = os[(ty * 4 + i) * LDO + tx + 16 * j];
-    for (int kk = 0; kk < ABK; ++kk) {
-      float vv[DH / 16];
-#pragma unroll
-      for (int j = 0; j < DH / 16; ++j) vv[j] = to_float(vs[kk * LDH + tx + 16 * j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = to_float(ps[(ty * 4 + i) * LDP + key0 + kk]);
-#pragma unroll
-        for (int j = 0; j < DH / 16; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < DH / 16; ++j) os[(ty * 4 + i) * LDO + tx + 16 * j] = acc[i][j];
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DH / 16; ++j) os[(ty * 4 + i) * LDO + tx + 16 * j] = acc[i][j];
 }
 
 // The key tiles that hold an allowed key for query rows [q0, q0 + ABQ): the
@@ -576,45 +469,44 @@ struct KeyTiles {
 // S for the block's rows over the allowed key tiles: qs holds the rows, each
 // K (or V) tile of head h at column offset `col` of the item's rows is
 // staged in kvs.
-template <typename T, int DH>
-__device__ __forceinline__ void block_scores(const T* qs, T* kvs, float* ss, int LDS, const T* item, size_t ld,
-                                             int col, int seq, const KeyTiles& tiles, float scale) {
+template <int DH>
+__device__ __forceinline__ void block_scores(const float* qs, float* kvs, float* ss, int LDS, const float* item,
+                                             size_t ld, int col, int seq, const KeyTiles& tiles, float scale) {
   for (int i = 0; i < tiles.n; ++i) {
     const int key0 = tiles.key0(i);
-    load_tile<T, ABK, DH, AttnLayout<T, DH>::LDH>(kvs, item + col, ld, key0, seq, 0, DH);
+    load_tile<float, ABK, DH, AttnLayout<DH>::LDH>(kvs, item + col, ld, key0, seq, 0, DH);
     __syncthreads();
-    tile_scores<T, DH>(qs, kvs, ss, LDS, key0, scale);
+    tile_scores<DH>(qs, kvs, ss, LDS, key0, scale);
     __syncthreads();
   }
 }
 
-// One block per (32 query rows, head h, item b). qkv (B*seq, 3D) in T;
-// writes attn (B*seq, D) in T (head h at columns h*DH ..). SAVED_LSE false:
-// the softmax of each row, writing its lse (B, seq, H) (`_attn_item`
-// :105-111); true: p = exp(s - lse) from the given lse, the backward's
-// recompute (:112-114).
-template <typename T, int DH, bool SAVED_LSE>
+// One block per (32 query rows, head h, item b). qkv (B*seq, 3D); writes
+// attn (B*seq, D) (head h at columns h*DH ..). SAVED_LSE false: the softmax
+// of each row, writing its lse (B, seq, H) (`_attn_item` :105-111); true:
+// p = exp(s - lse) from the given lse, the backward's recompute (:112-114).
+template <int DH, bool SAVED_LSE>
 __global__ void __launch_bounds__(NTHREADS)
-    attn_kernel(const T* __restrict__ qkv, T* __restrict__ attn, float* __restrict__ lse,
+    attn_kernel(const float* __restrict__ qkv, float* __restrict__ attn, float* __restrict__ lse,
                 const int* __restrict__ sep_ptr, int seq, int D, int H) {
-  const AttnLayout<T, DH> L(seq);
+  const AttnLayout<DH> L(seq);
   extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem + L.q_off);
-  T* kvs = reinterpret_cast<T*>(smem + L.kv_off);
+  float* qs = reinterpret_cast<float*>(smem + L.q_off);
+  float* kvs = reinterpret_cast<float*>(smem + L.kv_off);
   float* os = reinterpret_cast<float*>(smem + L.o_off);
   float* ss = reinterpret_cast<float*>(smem + L.s_off);
-  T* ps = reinterpret_cast<T*>(smem + L.p_off);
+  float* ps = reinterpret_cast<float*>(smem + L.p_off);
 
   const int q0 = blockIdx.x * ABQ, h = blockIdx.y, b = blockIdx.z;
   const int sep = min(max(*sep_ptr, 0), seq);
   const float scale = 1.0f / sqrtf((float)DH);  // 1 / sqrt(dh), correctly rounded
   const size_t ld = 3 * (size_t)D;
-  const T* item = qkv + (size_t)b * seq * ld;
+  const float* item = qkv + (size_t)b * seq * ld;
 
-  load_tile<T, ABQ, DH, AttnLayout<T, DH>::LDH>(qs, item + h * DH, ld, q0, seq, 0, DH);
-  for (int i = threadIdx.x; i < ABQ * AttnLayout<T, DH>::LDO; i += NTHREADS) os[i] = 0.0f;
+  load_tile<float, ABQ, DH, AttnLayout<DH>::LDH>(qs, item + h * DH, ld, q0, seq, 0, DH);
+  for (int i = threadIdx.x; i < ABQ * AttnLayout<DH>::LDO; i += NTHREADS) os[i] = 0.0f;
   const KeyTiles tiles(sep, q0, seq);
-  block_scores<T, DH>(qs, kvs, ss, L.LDS, item, ld, D + h * DH, seq, tiles, scale);
+  block_scores<DH>(qs, kvs, ss, L.LDS, item, ld, D + h * DH, seq, tiles, scale);
 
   // Softmax over each whole row. Every row holds its diagonal, so the max is
   // finite. Warp w owns rows w*8 .. w*8+7.
@@ -624,15 +516,14 @@ __global__ void __launch_bounds__(NTHREADS)
     const int r = warp * (ABQ / (NTHREADS / 32)) + rr;
     const int query = q0 + r;
     float* srow = ss + r * L.LDS;
-    T* prow = ps + r * L.LDP;
+    float* prow = ps + r * L.LDP;
     if (query >= seq) {
-      for (int c = lane; c < tpad; c += 32) prow[c] = from_float<T>(0.0f);
+      for (int c = lane; c < tpad; c += 32) prow[c] = 0.0f;
       continue;
     }
     if constexpr (SAVED_LSE) {
       const float ls = lse[((size_t)b * seq + query) * H + h];
-      for (int c = lane; c < tpad; c += 32)
-        prow[c] = from_float<T>((c < sep || c == query) ? expf(srow[c] - ls) : 0.0f);
+      for (int c = lane; c < tpad; c += 32) prow[c] = (c < sep || c == query) ? expf(srow[c] - ls) : 0.0f;
     } else {
       float mx = -INFINITY;
       for (int c = lane; c < tpad; c += 32)
@@ -645,7 +536,7 @@ __global__ void __launch_bounds__(NTHREADS)
         l += e;
       }
       l = warp_sum(l);
-      for (int c = lane; c < tpad; c += 32) prow[c] = from_float<T>(srow[c] / l);
+      for (int c = lane; c < tpad; c += 32) prow[c] = srow[c] / l;
       if (lane == 0) lse[((size_t)b * seq + query) * H + h] = mx + logf(l);
     }
   }
@@ -653,44 +544,43 @@ __global__ void __launch_bounds__(NTHREADS)
 
   for (int i = 0; i < tiles.n; ++i) {
     const int key0 = tiles.key0(i);
-    load_tile<T, ABK, DH, AttnLayout<T, DH>::LDH>(kvs, item + 2 * D + h * DH, ld, key0, seq, 0, DH);
+    load_tile<float, ABK, DH, AttnLayout<DH>::LDH>(kvs, item + 2 * D + h * DH, ld, key0, seq, 0, DH);
     __syncthreads();
-    tile_accumulate<T, DH>(os, ps, kvs, L.LDP, key0);
+    tile_accumulate<DH>(os, ps, kvs, L.LDP, key0);
     __syncthreads();
   }
 
   for (int i = threadIdx.x; i < ABQ * DH; i += NTHREADS) {
     const int r = i / DH, c = i % DH;
-    if (q0 + r < seq)
-      attn[((size_t)b * seq + q0 + r) * D + h * DH + c] = from_float<T>(os[r * AttnLayout<T, DH>::LDO + c]);
+    if (q0 + r < seq) attn[((size_t)b * seq + q0 + r) * D + h * DH + c] = os[r * AttnLayout<DH>::LDO + c];
   }
 }
 
-template <typename T, int DH, bool SAVED_LSE>
-cudaError_t attention_dh(const void* qkv, void* attn, void* lse, const void* sep, int B, int seq, int D, int H,
-                         cudaStream_t stream) {
-  const AttnLayout<T, DH> L(seq);
-  auto kernel = attn_kernel<T, DH, SAVED_LSE>;
+template <int DH, bool SAVED_LSE>
+cudaError_t attention_f32_dh(const void* qkv, void* attn, void* lse, const void* sep, int B, int seq, int D, int H,
+                             cudaStream_t stream) {
+  const AttnLayout<DH> L(seq);
+  auto kernel = attn_kernel<DH, SAVED_LSE>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + ABQ - 1) / ABQ, H, B);
-  kernel<<<grid, NTHREADS, L.bytes, stream>>>(static_cast<const T*>(qkv), static_cast<T*>(attn),
+  kernel<<<grid, NTHREADS, L.bytes, stream>>>(static_cast<const float*>(qkv), static_cast<float*>(attn),
                                                static_cast<float*>(lse), static_cast<const int*>(sep), seq, D, H);
   return cudaGetLastError();
 }
 
-template <typename T, bool SAVED_LSE>
-cudaError_t attention(const void* qkv, void* attn, void* lse, const void* sep, int B, int seq, int D, int H,
-                      cudaStream_t s) {
+template <bool SAVED_LSE>
+cudaError_t attention_f32(const void* qkv, void* attn, void* lse, const void* sep, int B, int seq, int D, int H,
+                          cudaStream_t s) {
   switch (D / H) {
     case 16:
-      return attention_dh<T, 16, SAVED_LSE>(qkv, attn, lse, sep, B, seq, D, H, s);
+      return attention_f32_dh<16, SAVED_LSE>(qkv, attn, lse, sep, B, seq, D, H, s);
     case 32:
-      return attention_dh<T, 32, SAVED_LSE>(qkv, attn, lse, sep, B, seq, D, H, s);
+      return attention_f32_dh<32, SAVED_LSE>(qkv, attn, lse, sep, B, seq, D, H, s);
     case 64:
-      return attention_dh<T, 64, SAVED_LSE>(qkv, attn, lse, sep, B, seq, D, H, s);
+      return attention_f32_dh<64, SAVED_LSE>(qkv, attn, lse, sep, B, seq, D, H, s);
     case 128:
-      return attention_dh<T, 128, SAVED_LSE>(qkv, attn, lse, sep, B, seq, D, H, s);
+      return attention_f32_dh<128, SAVED_LSE>(qkv, attn, lse, sep, B, seq, D, H, s);
     default:
       return cudaErrorInvalidValue;
   }

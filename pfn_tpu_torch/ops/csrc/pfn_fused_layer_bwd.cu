@@ -30,9 +30,11 @@
 // it lies: nothing is transposed or copied.
 //
 // Numerics follow the TPU kernels: the same roundings to the compute dtype
-// as the forward (pfn_fused_layer_fwd.cu), then dr2, dh1, dr1, the head
-// output gradient dO, ds and dqkv rounded before they enter a product; every
-// product accumulates in f32; LayerNorm statistics and gradients in f32.
+// as the forward (pfn_fused_layer_fwd.cu), whose attention the recompute
+// shares (attention<T, true> of pfn_fused_layer.cuh), then dr2, dh1, dr1,
+// the head output gradient dO, ds and dqkv rounded before they enter a
+// product; every product accumulates in f32; LayerNorm statistics and
+// gradients in f32.
 //
 // Design. The TPU kernels walk the batch on a sequential grid and add each
 // item's weight gradients into one VMEM block. Here the whole batch is one
@@ -62,11 +64,11 @@
 // partial sums of its gain, bias and preceding-bias gradients itself. The
 // softmax backward runs S and dP on wgmma too (attn_bwd_sm90). In f32 the
 // products run on the FMA GEMM of pfn_fused_common.cuh, which reads A (TA)
-// and W (TB) transposed in place, the softmax backward on the first port's
-// FMA kernel, and dh1 and dqkv are stored and summed by two passes. Each
-// entry point enqueues a chain of kernels on the caller's stream and counts
-// one launch (each weight gradient adds its ordered sum when its split count
-// is above 1):
+// and W (TB) transposed in place, the attention and its softmax backward on
+// the first port's FMA kernels, and dh1 and dqkv are stored and summed by two
+// passes. Each entry point enqueues a chain of kernels on the caller's stream
+// and counts one launch (each weight gradient adds its ordered sum when its
+// split count is above 1):
 //   FFN (ten in bf16, ten in f32):
 //     0. cast rc = cdt(r) (bf16 only)
 //     1. gemm h1 = rc W1 + b1 (f32) and g = cdt(gelu(h1))
@@ -83,7 +85,8 @@
 //   attention (fifteen in bf16, fifteen in f32):
 //     0. cast xc = cdt(x) (bf16 only)
 //     1. gemm qkv = cdt(xc Wqkv + bqkv)
-//     2. attn attn = cdt(cdt(p) V), p = exp(s - lse), per (32 rows, head, item)
+//     2. attn attn = cdt(cdt(p) V), p = exp(s - lse): bf16 attn_fwd_sm90's
+//             recompute mode per (64 rows, head, item) on wgmma
 //     3. gemm r1 = x + cdt(attn Wout + bout)
 //     4. ln'  dr1 = LN1'(r1, dr), cdt(dr1), partial sums as in the FFN
 //     5. sums dgamma1, dbeta1, dbout
@@ -104,8 +107,7 @@
 // The (T, T) probabilities and score gradients are written to device memory
 // (2 x 5.3 MB at the flagship shape, in L2), so the three attention products
 // are plain batched GEMMs; their masked entries are zeros, which add
-// nothing to a sum. The recompute (2) keeps the forward's WMMA attention
-// code.
+// nothing to a sum.
 //
 // What bounds it at the flagship shape (B 64, T 100, D 512, H 4, F 1024,
 // bf16, sep 50): the FFN part is six (6400 x 512 x 1024) products, 40.3
@@ -122,40 +124,15 @@
 // device time and the attention chain 0.32 ms; the dense products run at
 // 120-330 TFLOP/s (K of 512-1536 is 8-24 K tiles, so a tile's ring fill and
 // its epilogue's stores weigh on each, and 400 tiles at N = 1024 take 3.03
-// waves), the recompute's WMMA attention takes 43 us and the softmax
-// backward 31 us. Later work: the recompute on wgmma, saving qkv and h1 in
-// the forward instead of recomputing them (memory for time), and the
+// waves), and the softmax backward takes 31 us. Later work: saving qkv and
+// h1 in the forward instead of recomputing them (memory for time), and the
 // epilogue overlapped with the next tile's products.
 
-#include "pfn_fused_common.cuh"
-#include "pfn_gemm_sm90.cuh"
+#include "pfn_fused_layer.cuh"
 
 namespace {
 
-namespace g90 = pfn_gemm_sm90;
-
-// ---- the products ------------------------------------------------------------
-
-// out (M, N) = epilogue(A W) with A (M, K) row-major and W (K, N) row-major,
-// or, with WT, W stored (N, K) and read as its transpose where it lies. bf16:
-// the wgmma GEMM, which with `colsum` also writes the f32 output's column
-// sums over each 128-row tile (ceil(M / 128) rows of N); f32: the FMA GEMM.
-template <typename T, int EPI, bool WT = false>
-cudaError_t product(const void* A, const void* W, const void* bias, const void* aux, void* out, void* out2, int M,
-                    int N, int K, cudaStream_t s, void* colsum = nullptr) {
-  if constexpr (is_bf16_v<T>) {
-    const g90::Epi ep{static_cast<const float*>(bias), static_cast<const float*>(aux), out, out2,
-                      static_cast<float*>(colsum), N, 0, 0, 1.0f};
-    return g90::gemm<EPI, 128, false, !WT>(g90::matrix(A, M, K, K),
-                                                 WT ? g90::matrix(W, N, K, K) : g90::matrix(W, K, N, N),
-                                                 g90::Shape{M, N, K, 1, 1, 0, 0}, ep, s);
-  } else {
-    GemmArgs a = dense_args(A, W, bias, aux, out, M, N, K);
-    a.out2 = out2;
-    if (WT) a.ldw = K;
-    return gemm<T, EPI, false, WT>(a, 1, s);
-  }
-}
+// ---- the weight gradients ------------------------------------------------------
 
 // dW (Kin, N) f32 = X^T dY over the M rows of X (M, Kin) and dY (M, N), in
 // `splits` chunks of rows summed in order (see the note at the top).
@@ -170,7 +147,7 @@ cudaError_t weight_grad(const void* X, const void* dY, void* dW, int M, int Kin,
                                                                   g90::Shape{Kin, N, M, splits, 1, 0, ksplit}, ep, s)));
     return splits > 1 ? split_sum(partial, dW, (size_t)Kin * N, splits, s) : cudaSuccess;
   } else {
-    return gemm_weight_grad<T>(X, dY, dW, M, Kin, N, splits, partial, s);
+    return gemm_weight_grad(X, dY, dW, M, Kin, N, splits, partial, s);
   }
 }
 
@@ -328,15 +305,15 @@ cudaError_t layernorm_bwd(const void* pre, const void* dout, const void* gamma, 
 
 // ---- softmax backward of the PFN attention ----------------------------------
 
-template <typename T, int DH>
+template <int DH>
 struct AttnBwdLayout {
   int LDS, q_off, kv_off, s_off, dp_off, bytes;
   __host__ __device__ explicit AttnBwdLayout(int seq) {
-    constexpr int LDH = AttnLayout<T, DH>::LDH;
-    LDS = (seq + ABK - 1) / ABK * ABK + 4;  // f32 rows of S (then p) and dP
+    constexpr int LDH = AttnLayout<DH>::LDH;
+    LDS = (seq + ABK - 1) / ABK * ABK + 4;  // rows of S (then p) and dP
     q_off = 0;
-    kv_off = q_off + round128(ABQ * LDH * (int)sizeof(T));
-    s_off = kv_off + round128(ABK * LDH * (int)sizeof(T));
+    kv_off = q_off + round128(ABQ * LDH * 4);
+    s_off = kv_off + round128(ABK * LDH * 4);
     dp_off = s_off + round128(ABQ * LDS * 4);
     bytes = dp_off + round128(ABQ * LDS * 4);
   }
@@ -345,19 +322,19 @@ struct AttnBwdLayout {
 // The f32 body (bf16: attn_bwd_sm90 below). One block per (32 query rows,
 // head h, item b): S = scale Q K^T and dP = dO V^T over the key tiles that
 // hold an allowed key (the forward's tiles), then for each row
-// p = exp(s - lse) on the allowed keys, delta = sum_j cdt(p_j) dp_j, and
-// writes pc = cdt(p) and ds = cdt(p (dp - delta)) as row (b, h, query) of
-// (B*H*seq, ldp), zeros at the keys the rule forbids and in the padding.
-template <typename T, int DH>
+// p = exp(s - lse) on the allowed keys, delta = sum_j p_j dp_j, and writes
+// p and ds = p (dp - delta) as row (b, h, query) of (B*H*seq, ldp), zeros at
+// the keys the rule forbids and in the padding.
+template <int DH>
 __global__ void __launch_bounds__(NTHREADS)
-    attn_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, const float* __restrict__ lse,
-                    const int* __restrict__ sep_ptr, T* __restrict__ pc, T* __restrict__ ds, int seq, int ldp, int D,
-                    int H) {
-  constexpr int LDH = AttnLayout<T, DH>::LDH;
-  const AttnBwdLayout<T, DH> L(seq);
+    attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dout, const float* __restrict__ lse,
+                    const int* __restrict__ sep_ptr, float* __restrict__ pc, float* __restrict__ ds, int seq, int ldp,
+                    int D, int H) {
+  constexpr int LDH = AttnLayout<DH>::LDH;
+  const AttnBwdLayout<DH> L(seq);
   extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem + L.q_off);
-  T* kvs = reinterpret_cast<T*>(smem + L.kv_off);
+  float* qs = reinterpret_cast<float*>(smem + L.q_off);
+  float* kvs = reinterpret_cast<float*>(smem + L.kv_off);
   float* ss = reinterpret_cast<float*>(smem + L.s_off);
   float* dps = reinterpret_cast<float*>(smem + L.dp_off);
 
@@ -365,14 +342,14 @@ __global__ void __launch_bounds__(NTHREADS)
   const int sep = min(max(*sep_ptr, 0), seq);
   const float scale = 1.0f / sqrtf((float)DH);
   const size_t ld = 3 * (size_t)D;
-  const T* item = qkv + (size_t)b * seq * ld;
+  const float* item = qkv + (size_t)b * seq * ld;
   const KeyTiles tiles(sep, q0, seq);
 
-  load_tile<T, ABQ, DH, LDH>(qs, item + h * DH, ld, q0, seq, 0, DH);
-  block_scores<T, DH>(qs, kvs, ss, L.LDS, item, ld, D + h * DH, seq, tiles, scale);
+  load_tile<float, ABQ, DH, LDH>(qs, item + h * DH, ld, q0, seq, 0, DH);
+  block_scores<DH>(qs, kvs, ss, L.LDS, item, ld, D + h * DH, seq, tiles, scale);
   // The rows of dO take the q rows' place (block_scores ends on a barrier).
-  load_tile<T, ABQ, DH, LDH>(qs, dout + (size_t)b * seq * D + h * DH, D, q0, seq, 0, DH);
-  block_scores<T, DH>(qs, kvs, dps, L.LDS, item, ld, 2 * D + h * DH, seq, tiles, 1.0f);
+  load_tile<float, ABQ, DH, LDH>(qs, dout + (size_t)b * seq * D + h * DH, D, q0, seq, 0, DH);
+  block_scores<DH>(qs, kvs, dps, L.LDS, item, ld, 2 * D + h * DH, seq, tiles, 1.0f);
 
   // Warp w owns rows w*8 .. w*8+7. Only allowed entries of S and dP are read.
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -388,29 +365,29 @@ __global__ void __launch_bounds__(NTHREADS)
       const bool allowed = c < sep || c == query;
       const float p = allowed ? expf(srow[c] - ls) : 0.0f;
       srow[c] = p;
-      if (allowed) delta += to_float(from_float<T>(p)) * dprow[c];
+      if (allowed) delta += p * dprow[c];
     }
     delta = warp_sum(delta);
     const size_t base = (((size_t)b * H + h) * seq + query) * ldp;
     for (int c = lane; c < ldp; c += 32) {
       const bool allowed = c < seq && (c < sep || c == query);
-      pc[base + c] = from_float<T>(allowed ? srow[c] : 0.0f);
-      ds[base + c] = from_float<T>(allowed ? srow[c] * (dprow[c] - delta) : 0.0f);
+      pc[base + c] = allowed ? srow[c] : 0.0f;
+      ds[base + c] = allowed ? srow[c] * (dprow[c] - delta) : 0.0f;
     }
   }
 }
 
-template <typename T, int DH>
-cudaError_t attention_bwd_dh(const void* qkv, const void* dout, const void* lse, const void* sep, void* pc, void* ds,
-                             int B, int seq, int ldp, int D, int H, cudaStream_t stream) {
-  const AttnBwdLayout<T, DH> L(seq);
-  auto kernel = attn_bwd_kernel<T, DH>;
+template <int DH>
+cudaError_t attention_bwd_f32(const void* qkv, const void* dout, const void* lse, const void* sep, void* pc, void* ds,
+                              int B, int seq, int ldp, int D, int H, cudaStream_t stream) {
+  const AttnBwdLayout<DH> L(seq);
+  auto kernel = attn_bwd_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + ABQ - 1) / ABQ, H, B);
-  kernel<<<grid, NTHREADS, L.bytes, stream>>>(static_cast<const T*>(qkv), static_cast<const T*>(dout),
+  kernel<<<grid, NTHREADS, L.bytes, stream>>>(static_cast<const float*>(qkv), static_cast<const float*>(dout),
                                                static_cast<const float*>(lse), static_cast<const int*>(sep),
-                                               static_cast<T*>(pc), static_cast<T*>(ds), seq, ldp, D, H);
+                                               static_cast<float*>(pc), static_cast<float*>(ds), seq, ldp, D, H);
   return cudaGetLastError();
 }
 
@@ -583,13 +560,13 @@ cudaError_t attention_bwd(const void* qkv, const void* dout, const void* lse, co
   } else {
     switch (D / H) {
       case 16:
-        return attention_bwd_dh<T, 16>(qkv, dout, lse, sep, pc, ds, B, seq, ldp, D, H, s);
+        return attention_bwd_f32<16>(qkv, dout, lse, sep, pc, ds, B, seq, ldp, D, H, s);
       case 32:
-        return attention_bwd_dh<T, 32>(qkv, dout, lse, sep, pc, ds, B, seq, ldp, D, H, s);
+        return attention_bwd_f32<32>(qkv, dout, lse, sep, pc, ds, B, seq, ldp, D, H, s);
       case 64:
-        return attention_bwd_dh<T, 64>(qkv, dout, lse, sep, pc, ds, B, seq, ldp, D, H, s);
+        return attention_bwd_f32<64>(qkv, dout, lse, sep, pc, ds, B, seq, ldp, D, H, s);
       case 128:
-        return attention_bwd_dh<T, 128>(qkv, dout, lse, sep, pc, ds, B, seq, ldp, D, H, s);
+        return attention_bwd_f32<128>(qkv, dout, lse, sep, pc, ds, B, seq, ldp, D, H, s);
       default:
         return cudaErrorInvalidValue;
     }
@@ -654,23 +631,23 @@ cudaError_t attention_grads(const void* qkv, const void* dout, const void* pc, c
     a.o_hi = n * 3 * D;
     a.o_lo = DH;
     a.scale = 1.0f / sqrtf((float)DH);
-    const T* q = static_cast<const T*>(qkv);
+    const float* q = static_cast<const float*>(qkv);
     float* dq = static_cast<float*>(dqkv);
     auto at = [&](int col) { a.out = dq + col; };  // column block col of dqkv
     a.A = ds;
     a.W = q + D;
     at(0);
-    RETURN_IF_ERROR((gemm<T, EPI_SCALE, false>(a, B * H, s)));
+    RETURN_IF_ERROR((gemm<EPI_SCALE, false>(a, B * H, s)));
     a.W = q;
     at(D);
-    RETURN_IF_ERROR((gemm<T, EPI_SCALE, true>(a, B * H, s)));
+    RETURN_IF_ERROR((gemm<EPI_SCALE, true>(a, B * H, s)));
     a.A = pc;
     a.W = dout;
     a.ldw = D;
     a.w_hi = n * D;
     a.scale = 1.0f;
     at(2 * D);
-    return gemm<T, EPI_SCALE, true>(a, B * H, s);
+    return gemm<EPI_SCALE, true>(a, B * H, s);
   }
 }
 

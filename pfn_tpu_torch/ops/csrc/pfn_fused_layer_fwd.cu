@@ -7,8 +7,10 @@
 //   query i when j < sep or j == i); ao = cdt(attn Wout + bout);
 //   r = LN1(x + ao); g = cdt(gelu_tanh(cdt(r) W1 + b1)); y = LN2(r + g W2 + b2).
 // Every product runs in this repository's kernels: no cuBLAS, no library
-// call. The GEMM, attention and LayerNorm kernels live in
-// pfn_fused_common.cuh, which the backward (pfn_fused_layer_bwd.cu) shares.
+// call. The GEMMs, the attention and the LayerNorm are shared with the
+// backward (pfn_fused_layer_bwd.cu): pfn_fused_layer.cuh dispatches bf16 to
+// the Hopper kernels (pfn_gemm_sm90.cuh's GEMM, attn_fwd_sm90) and f32 to the
+// FMA bodies of pfn_fused_common.cuh.
 //
 // Layout: x (B, T, D) f32; wqkv (D, 3D), wout (D, D), w1 (D, F), w2 (F, D) in
 // the compute dtype (f32 or bf16), row-major as in the JAX package; biases
@@ -20,11 +22,12 @@
 //
 // Numerics follow `_fwd_kernel`, not the unfused model: qkv is rounded to the
 // compute dtype after its f32 bias add; scores are f32 products of the
-// rounded q and k; softmax in f32, p = e / l rounded to the compute dtype
-// before P.V; the head outputs and ao are rounded; the residuals, both
-// LayerNorms (eps 1e-5), the FFN hidden h1 (into the GELU) and f stay f32.
-// bf16 products run on the tensor cores through WMMA (mma.sync 16x16x16, f32
-// accumulate); f32 takes an FMA path, so f32 stays f32 (no TF32).
+// rounded q and k; softmax in f32, p normalised and then rounded to the
+// compute dtype before P.V (in bf16 p = cdt(exp(s - lse)) from a first pass
+// that finds lse, see pfn_fused_layer.cuh); the head outputs and ao are
+// rounded; the residuals, both LayerNorms (eps 1e-5), the FFN hidden h1
+// (into the GELU) and f stay f32. bf16 products accumulate in f32 on the
+// tensor cores; f32 takes an FMA path, so f32 stays f32 (no TF32).
 //
 // Design. The TPU kernel holds the four weight matrices and a whole item's
 // qkv and (T, T) scores in VMEM. A Hopper block has 227 KB of shared memory,
@@ -34,31 +37,30 @@
 // ~20 MB at the flagship shape, stay in the 50 MB L2):
 //   0. cast  xc   = cdt(x), into the rc scratch (bf16 only)
 //   1. gemm  qkv  = cdt(xc Wqkv + bqkv)
-//   2. attn  per (32 query rows, head, item): scores into a (32, T) f32 row
-//            buffer over the key tiles that hold an allowed key, softmax on
-//            the whole row, then P.V over the same tiles; lse written
+//   2. attn  per (64 query rows, head, item) in bf16 on wgmma over the key
+//            tiles that hold an allowed key, lse written (f32: per 32 rows,
+//            a (32, T) f32 row buffer in shared memory)
 //   3. gemm  r1   = x + cdt(attn Wout + bout)          (into y)
 //   4. ln    r    = LN1(r1), rc = cdt(r)
 //   5. gemm  g    = cdt(gelu(rc W1 + b1))
 //   6. gemm  r2   = r + (g W2 + b2)                    (into y)
 //   7. ln    y    = LN2(r2), in place
-// The GEMMs are 128 x 64 output tiles over 32-deep K tiles, four warps, with
-// a three-deep cp.async ring so that loads overlap the products; ragged
-// edges of M, N and K are masked. T is at most 512 (the (32, T) row buffer).
+// In bf16 the GEMMs are pfn_gemm_sm90.cuh's: 128 x 128 output tiles, a
+// producer thread feeding a TMA ring of 64-deep K tiles, two consumer
+// warpgroups on wgmma with the epilogue (bias, rounding, GELU, residual) on
+// the accumulator fragments; the activation is read K-major and W (K, N)
+// MN-major where it lies. The LayerNorms are a separate f32 pass each.
 //
 // What bounds it at the flagship shape (B 64, T 100, D 512, H 4, F 1024,
 // bf16): ~28 GFLOP of products (qkv 10.1, attention <= 1.3, out 3.4, FFN
 // 13.4), 28.5 us at the bf16 tensor-core peak, against ~43.5 MB of unique
 // bytes (x, y, r in f32, the weights in bf16), 13 us at HBM rate. So it is
-// compute bound, and nearly all of it is the four GEMMs. This design is far
-// from that bound: WMMA (mma.sync) from padded shared memory rather than
-// wgmma fed by TMA, 128 x 64 tiles with four warps, intermediates written
-// to and re-read from L2 between the kernels, the LayerNorms as separate
-// passes, and an attention kernel that stages scores and probabilities in
-// shared memory. Later work: wgmma with TMA-fed rings, LayerNorm in the
-// epilogue of a whole-row GEMM (N = D), one persistent kernel per layer.
+// compute bound, and nearly all of it is the four GEMMs, which at K of 512
+// to 1024 (8-16 K tiles) and 200-600 output tiles run well below the peak
+// (pfn_fused_layer_bwd.cu's note). Later work: LayerNorm in the epilogue of
+// a whole-row GEMM (N = D), one persistent kernel per layer.
 
-#include "pfn_fused_common.cuh"
+#include "pfn_fused_layer.cuh"
 
 namespace {
 
@@ -74,12 +76,12 @@ cudaError_t layer(const void* x, const void* wqkv, const void* bqkv, const void*
     RETURN_IF_ERROR(cast_bf16(x, rc, (size_t)M * D, s));
     xc = rc;
   }
-  RETURN_IF_ERROR((gemm<T, EPI_ROUND>(xc, wqkv, bqkv, nullptr, qkv, M, 3 * D, D, s)));
+  RETURN_IF_ERROR((product<T, EPI_ROUND>(xc, wqkv, bqkv, nullptr, qkv, nullptr, M, 3 * D, D, s)));
   RETURN_IF_ERROR((attention<T, false>(qkv, attn, lse, sep, B, seq, D, H, s)));
-  RETURN_IF_ERROR((gemm<T, EPI_ROUND_RESID>(attn, wout, bout, x, y, M, D, D, s)));
+  RETURN_IF_ERROR((product<T, EPI_ROUND_RESID>(attn, wout, bout, x, y, nullptr, M, D, D, s)));
   RETURN_IF_ERROR((layernorm<T>(y, g1, be1, r, rc, M, D, s)));
-  RETURN_IF_ERROR((gemm<T, EPI_GELU>(rc, w1, b1, nullptr, g, M, F, D, s)));
-  RETURN_IF_ERROR((gemm<T, EPI_RESID>(g, w2, b2, r, y, M, D, F, s)));
+  RETURN_IF_ERROR((product<T, EPI_GELU>(rc, w1, b1, nullptr, g, nullptr, M, F, D, s)));
+  RETURN_IF_ERROR((product<T, EPI_RESID>(g, w2, b2, r, y, nullptr, M, D, F, s)));
   RETURN_IF_ERROR((layernorm<T>(y, g2, be2, y, nullptr, M, D, s)));
   return cudaSuccess;
 }

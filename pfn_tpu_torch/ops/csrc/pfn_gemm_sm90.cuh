@@ -1,4 +1,6 @@
-// The bf16 GEMM of the fused layer's backward (pfn_fused_layer_bwd.cu) for
+// The bf16 GEMM of the fused layer's forward and backward
+// (pfn_fused_layer_fwd.cu, pfn_fused_layer_bwd.cu, through
+// pfn_fused_layer.cuh's `product` and the backward's attention products) for
 // Hopper: out = epilogue(A B), A and B bf16 in device memory, f32
 // accumulation. sm_90a only.
 //
@@ -48,6 +50,13 @@
 #include "pfn_flash_sm90.cuh"
 #include "pfn_fused_common.cuh"
 
+// Internal linkage (an unnamed namespace around the named one): the
+// forward's and the backward's libraries each instantiate gemm<> with its
+// once-per-device flag of the shared-memory limit, and a function-local
+// static of a template with external linkage is one object across every
+// library loaded into the process, so one library's flag would skip the
+// other's cudaFuncSetAttribute.
+namespace {
 namespace pfn_gemm_sm90 {
 
 namespace sm90 = pfn_flash_sm90;
@@ -375,3 +384,4 @@ cudaError_t gemm(const Tensor4& a, const Tensor4& b, const Shape& sh, const Epi&
 }
 
 }  // namespace pfn_gemm_sm90
+}  // namespace
