@@ -90,11 +90,29 @@ Phases, each printing one JSON line:
      mask, forward and backward, at the flash kernels' timing shapes (the
      library yardstick of the kernels line; the port never calls it), and
      with the prefix rule's mask (the prefix variants' yardstick).
- 15. dkv_against_library: the dk/dv kernel at sep 1000, both variants,
+ 15. tabular: the tabular classification slice at the TabularEvalSimple
+     scale (TABULAR: the MLP prior at 60 features, BCE, emsize 512, 6
+     layers, bptt 100, batch 256, f32, attention_impl "auto"): the prior
+     alone (device ms of one batch, peak memory); train(...) for 2 epochs of
+     2 updates with a checkpoint and a resume (bitwise equal to an
+     uninterrupted run), each flash kernel launched once per layer per
+     update (no dense fallback), update time, datasets/s,
+     the prior's share of an update's device time, a device profile of one
+     update that must show the three flash f32 bodies; PFNClassifier
+     .from_checkpoint on held-out datasets (30 context rows, 70 queries):
+     predict_proba latency, a profile of one request showing the forward
+     kernel, kernel-path logits against the dense path within
+     TABULAR_F32_PATH_TOL; evaluate_position_pfn over 20 windows with
+     ensembles 1 and 8 (the AUC is reported, not gated: the weights are
+     trained a few steps). Then tabular_kernel_timing: the flash kernels'
+     f32 bodies at B*H = 1024, T = 100, D = 128, sep 30, against their plain
+     versions, their f32 bounds and SDPA with the PFN mask.
+ 16. dkv_against_library: the dk/dv kernel at sep 1000, both variants,
      beside SDPA's backward less the dq kernel, from this run.
 Then the kernels line (each kernel's launches on its path, error, time,
 plain time, bound and library time, for the fused kernels also the library
-call's device time; its route, and the design of its bf16 body), and last
+call's device time, for the flash kernels also their f32 rows at the tabular
+shape; its route, and the design of its bf16 body), and last
 {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits nonzero and prints no result line.
@@ -126,6 +144,24 @@ FIG3A = dict(T=2010, datasets=8, n_ctx=1000, positions=[1, 10, 100, 1000, 2000],
 # update (4 x 25 microbatches), 2 epochs of 2 updates.
 FIG3A_TRAIN = dict(T=2010, emsize=512, nhead=4, nhid=1024, nlayers=6, batch_size=4, agg=25, updates=2,
                    buckets=10_000, bucket_seq_cap=128, grid=8192, lr=1e-4, timed_updates=4)
+# The tabular classification slice at the TabularEvalSimple scale, the
+# non-quick config of experiments/tabular_eval.py (:98-111, 159-170): the MLP
+# prior at 60 features (binary labels, categoricals, num_features_used ~
+# UniformInt(1, 61), groups of 32 datasets), BCE, emsize 512, nhid 1024, 6
+# layers, 4 heads, bptt 100, batch 256, lr 1e-4, warmup 25 epochs, f32,
+# attention_impl "auto". Cut: 2 epochs of 2 updates (tabular_eval.py runs 300 of
+# 100). Serving: 30 context rows and 70 queries of held-out datasets, and
+# evaluate_position_pfn over 20 windows of a 119-row dataset at position 30.
+TABULAR = dict(num_features=60, emsize=512, nhid=1024, nlayers=6, nhead=4, bptt=100, batch_size=256, lr=1e-4,
+               warmup_epochs=25, updates=2, timed_updates=4, n_ctx=30, held_out=8, windows=20, ensembles=[1, 8])
+# f32 logits on the kernel path against the dense path: 6 layers of f32
+# summation-order differences (PERF.md section 2, as FUSED_PATH_F32_TOL).
+TABULAR_F32_PATH_TOL = 1e-3
+# The f32 bodies of the flash kernels at the tabular shape: B*H = 256 x 4,
+# T = 100, D = 128, at sep 30 (the serving context).
+TABULAR_KERNEL_SHAPE = dict(BH=1024, T=100, D=128, sep=30)
+# Device kernels of the flash f32 bodies, as the profiler names them.
+FLASH_F32_KERNELS = {"pfn_flash_fwd": "fwd_f32", "pfn_flash_bwd_dq": "dq_f32", "pfn_flash_bwd_dkv": "dkv_f32"}
 TIMING_SEPS = [400, 1000, 2000]
 # The flash kernels' agreement grid: (T, sep) over the edges of the first
 # port's 64-row tiles at T in {127, 128, 129, 2010}, and of the 128-row query
@@ -171,8 +207,9 @@ FUSED_PATH_F32_TOL = 1e-3
 # summation-order differences through 6 layers and back).
 FUSED_TRAIN_F32_TOL = 1e-4
 # The card's peaks for the bound (H100 SXM data sheet, dense, at the 700 W
-# limit): bf16 tensor cores and HBM.
+# limit): bf16 tensor cores, f32 outside them, and HBM.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 # The design of each kernel's bf16 body, beside its route in the kernels line.
 SM90_DESIGN = "sm90-wgmma-tma"  # wgmma fed by TMA through an mbarrier ring (pfn_flash_sm90.cuh, pfn_gemm_sm90.cuh)
@@ -263,10 +300,11 @@ def device_ms(fn, calls: int = 20):
     return sum(k[1] for k in kernels) / calls if kernels else "not measured"
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    HBM rate and the bf16 products over the tensor-core peak."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    HBM rate and the products over the peak of their type (bf16 tensor cores
+    unless ``peak_flops`` says otherwise)."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
     return {"bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
@@ -287,13 +325,16 @@ def flash_flops(kind: str, BH: int, T: int, D: int, sep: int, include_diag: bool
     return 2 * products * D * BH * pairs
 
 
-def flash_bound(kind: str, BH: int, T: int, D: int, sep: int, include_diag: bool = True) -> dict:
-    """Bound of a flash kernel in bf16: :func:`flash_flops`, and the bytes of
-    each input read once and each output written once."""
-    tensor = BH * T * D * 2
+def flash_bound(kind: str, BH: int, T: int, D: int, sep: int, include_diag: bool = True, dtype: str = "bf16") -> dict:
+    """Bound of a flash kernel: :func:`flash_flops` over the peak of
+    ``dtype`` ("bf16": the tensor cores; "f32": the f32 FMA units, where the
+    kernels' f32 bodies run), and the bytes of each input read once and each
+    output written once."""
+    tensor = BH * T * D * (2 if dtype == "bf16" else 4)
     rows = BH * T * 4
     nbytes = {"fwd": 4 * tensor + rows, "dq": 5 * tensor + 2 * rows, "dkv": 6 * tensor + 2 * rows}[kind]
-    return bound(flash_flops(kind, BH, T, D, sep, include_diag), nbytes)
+    peak = PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_F32_FLOPS
+    return bound(flash_flops(kind, BH, T, D, sep, include_diag), nbytes, peak)
 
 
 def rate(kind: str, BH: int, T: int, D: int, sep: int, ms: float, include_diag: bool = True) -> dict:
@@ -1577,6 +1618,246 @@ def phase_library_timing(device, smi: str):
     return result
 
 
+def _kernel_launches(kernels: list) -> dict:
+    """Launches of each flash f32 body in a profiler's kernel list."""
+    return {name: sum(k[2] for k in kernels if frag in k[0]) for name, frag in FLASH_F32_KERNELS.items()}
+
+
+def phase_tabular(device, smi: str, size: dict = TABULAR):
+    """The tabular classification slice at the TabularEvalSimple scale: the
+    MLP prior alone, train(...) with a checkpoint and a resume, update time
+    and a device profile of one update, PFNClassifier.from_checkpoint serving
+    held-out datasets, kernel path against the dense path, and
+    evaluate_position_pfn with ensembles 1 and 8. Returns the flash kernels'
+    launches on the path (training and serving)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pfn_tpu_torch.evals import evaluate_position_pfn, pfn_predict
+    from pfn_tpu_torch.inference import PFNClassifier
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.priors import MLPPrior
+    from pfn_tpu_torch.priors.hyper import UniformInt
+    from pfn_tpu_torch.train import (
+        TrainConfig,
+        TrainState,
+        bce_criterion,
+        build_model,
+        seeded_flax_params,
+        state_dict_from_flax_params,
+        train,
+    )
+    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step
+
+    F, T, B = size["num_features"], size["bptt"], size["batch_size"]
+    prior = MLPPrior(num_features=F, is_binary_classification=True, is_causal=False, categorical_x=True,
+                     num_features_used=UniformInt(1, F + 1))
+    criterion = bce_criterion()
+
+    # 1. The prior alone: one batch of B datasets.
+    g = torch.Generator(device=device).manual_seed(0)
+    x, y, _ = prior.sample(B, T, generator=g, device=device)
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    prior.sample(B, T, generator=g, device=device)
+    torch.cuda.synchronize(device)
+    prior_peak_mb = (torch.cuda.max_memory_allocated(device) - base) / 1e6
+    prior_ms = cuda_ms(lambda: prior.sample(B, T, generator=g, device=device), iters=10, warmup=2)
+    prior_dev_ms = device_ms(lambda: prior.sample(B, T, generator=g, device=device), calls=5)
+    prior_ok = (tuple(x.shape) == (B, T, F) and bool(torch.isfinite(x).all())
+                and set(y.unique().tolist()) == {0.0, 1.0})
+
+    # 2. Training through train(...): epoch 1 into a checkpoint, then a second
+    # call that resumes it. Seeded random weights, as the train phase's.
+    ckdir = tempfile.mkdtemp(prefix="pfn_tabular_")
+    cfg = TrainConfig(emsize=size["emsize"], nhid=size["nhid"], nlayers=size["nlayers"], nhead=size["nhead"],
+                      bptt=T, batch_size=B, epochs=2, steps_per_epoch=size["updates"], lr=size["lr"],
+                      warmup_epochs=size["warmup_epochs"], attention_impl="auto", dtype=torch.float32,
+                      checkpoint_dir=ckdir, checkpoint_every=1, device=device, seed=0)
+    init = state_dict_from_flax_params(seeded_flax_params(F, cfg.emsize, cfg.nhid, cfg.nlayers, 1, seed=0),
+                                       cfg.nlayers)
+    torch.cuda.reset_peak_memory_stats(device)
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = train(prior, criterion, dataclasses.replace(cfg, epochs=1), init_params=init)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        result = train(prior, criterion, cfg, init_params=init)
+    train_s = time.perf_counter() - t0
+    print(log.getvalue(), end="", flush=True)
+    train_launches = {name: _ext.launch_counts[name] for name in FLASH_F32_KERNELS}
+    expected = cfg.nlayers * 2 * size["updates"]
+    peak_train_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    stats = first.epoch_stats + result.epoch_stats
+    uninterrupted = train(prior, criterion, dataclasses.replace(cfg, checkpoint_dir=None, verbose=False),
+                          init_params=init)
+    resume_bitwise = all(torch.equal(a, b) for a, b in zip(uninterrupted.model.state_dict().values(),
+                                                           result.model.state_dict().values()))
+
+    # 3. Update time and a device profile of one update, from the trained
+    # weights: the first update of a new optimizer state, then the median.
+    optimizer, _, schedule = _make_optimizer(cfg, result.model)
+    state = TrainState(result.model, optimizer, torch.Generator(device=device).manual_seed(1))
+    step = make_train_step(prior, criterion, cfg, schedule)
+    update_ms = []
+    for _ in range(1 + size["timed_updates"]):
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        float(step(state)["loss"])
+        torch.cuda.synchronize(device)
+        update_ms.append((time.perf_counter() - t1) * 1e3)
+    median_ms = float(np.median(update_ms[1:]))
+    kernels, wall_ms = profiled_kernels(lambda: float(step(state)["loss"]), cpu=True)
+    update_dev_ms = sum(k[1] for k in kernels)
+    update_flash = _kernel_launches(kernels)
+    kernels.sort(key=lambda k: -k[1])
+    update_profile = {"wall_ms": wall_ms, "device_ms": update_dev_ms if kernels else "not measured",
+                      "idle_share": 1.0 - update_dev_ms / wall_ms if kernels else "not measured",
+                      "kernels": kernels[:10], "flash_launches": update_flash}
+
+    # 4. Serving: PFNClassifier from the checkpoint, held-out datasets from
+    # another seed, 30 context rows and 70 queries each.
+    clf = PFNClassifier.from_checkpoint(ckdir, prior, criterion, cfg)
+    xh, yh, _ = prior.sample(size["held_out"], T, generator=torch.Generator(device=device).manual_seed(1234),
+                             device=device)
+    xh_np, yh_np = xh.cpu().numpy(), yh.cpu().numpy()
+    n_ctx = size["n_ctx"]
+    _ext.reset_launch_counts()
+    runs, probs = [], []
+    for i in range(1 + REPEATS):
+        clf.fit(xh_np[i % len(xh_np), :n_ctx], yh_np[i % len(xh_np), :n_ctx])
+        ms, wall, p = timed_request(lambda: clf.predict_proba(xh_np[i % len(xh_np), n_ctx:]))
+        runs.append((ms, wall))
+        probs.append(p)
+    serve_launches = {name: _ext.launch_counts[name] for name in FLASH_F32_KERNELS}
+    request_kernels, _ = profiled_kernels(lambda: clf.predict_proba(xh_np[0, n_ctx:]))
+    request_flash = _kernel_launches(request_kernels)
+    acc = float(np.mean([(p.argmax(-1) == yh_np[i % len(xh_np), n_ctx:]).mean() for i, p in enumerate(probs)]))
+
+    # Kernel path against the dense path: the held-out datasets' logits.
+    dense = build_model(prior, criterion, dataclasses.replace(cfg, attention_impl="dense"))
+    dense.load_state_dict(clf.model.state_dict())
+    dense.eval()
+    with torch.no_grad():
+        logits = pfn_predict(clf.model, xh, yh, n_ctx)
+        logits_dense = pfn_predict(dense, xh, yh, n_ctx)
+    err_kernel_dense = max_abs(logits, logits_dense)
+
+    # evaluate_position_pfn over 20 windows of one 119-row dataset.
+    xw, yw, _ = prior.sample(1, T + size["windows"] - 1, generator=torch.Generator(device=device).manual_seed(77),
+                             device=device)
+    evals = {}
+    for ensemble in size["ensembles"]:
+        aucs, wprobs, _ = evaluate_position_pfn(clf.model, xw[0].cpu().numpy(), yw[0].cpu().numpy(), T, n_ctx,
+                                                max_samples=size["windows"], num_features=F, ensemble=ensemble)
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        evaluate_position_pfn(clf.model, xw[0].cpu().numpy(), yw[0].cpu().numpy(), T, n_ctx,
+                              max_samples=size["windows"], num_features=F, ensemble=ensemble)
+        evals[f"ensemble_{ensemble}"] = {"ms": (time.perf_counter() - t1) * 1e3, "windows_scored": len(aucs),
+                                         "auc_mean": float(np.mean(aucs)) if len(aucs) else "no window",
+                                         "probs_finite": bool(np.isfinite(wprobs).all())}
+
+    checks = {
+        "prior_batch": prior_ok,
+        "resumed": "resumed from" in log.getvalue(),
+        "epochs": [s["epoch"] for s in stats] == [1, 2],
+        "losses_finite": all(np.isfinite(s["mean_loss"]) and np.isfinite(s["grad_norm"]) for s in stats),
+        # The prior draws from the training generator alone, and no kernel
+        # of the update sums with atomics: the resumed run is the same run.
+        "resume_bitwise_equal": resume_bitwise,
+        # Every layer of every update on the kernels: no dense fallback.
+        "train_launches": all(n == expected for n in train_launches.values()),
+        "update_profile_has_flash": all(n == cfg.nlayers for n in update_flash.values()),
+        "serve_launches": serve_launches["pfn_flash_fwd"] == cfg.nlayers * (1 + REPEATS),
+        "request_profile_has_flash_fwd": request_flash["pfn_flash_fwd"] == cfg.nlayers,
+        "probs": all(p.shape == (T - n_ctx, 2) and np.isfinite(p).all() and np.allclose(p.sum(-1), 1.0, atol=1e-5)
+                     for p in probs),
+        "kernel_vs_dense": err_kernel_dense <= TABULAR_F32_PATH_TOL,
+        "evaluate_finite": all(e["probs_finite"] for e in evals.values()),
+    }
+    latency = {"predict_proba/first": runs[0][0], f"predict_proba/median_of_{REPEATS}":
+               float(np.median([ms for ms, _ in runs[1:]])), "predict_proba_wall/first": runs[0][1],
+               f"predict_proba_wall/median_of_{REPEATS}": float(np.median([w for _, w in runs[1:]]))}
+    emit({
+        "phase": "tabular", "card": smi, "size": size, "dtype": "f32",
+        "prior": {"ms": prior_ms, "device_ms": prior_dev_ms, "peak_mb": prior_peak_mb},
+        "epoch_stats": stats, "train_calls_s": train_s, "launches": train_launches, "expected_launches": expected,
+        "update_ms": {"first": update_ms[0], f"median_of_{size['timed_updates']}": median_ms},
+        "datasets_per_s": B / (median_ms / 1e3), "peak_memory_gb": peak_train_gb,
+        "prior_share_of_update_device_time": (prior_dev_ms / update_dev_ms
+                                              if kernels and prior_dev_ms != "not measured" else "not measured"),
+        "update_profile": update_profile, "serve_launches": serve_launches, "request_flash": request_flash,
+        "latency_ms": latency, "held_out_accuracy": acc, "err_kernel_vs_dense": err_kernel_dense,
+        "tol_kernel_vs_dense": TABULAR_F32_PATH_TOL, "evaluate_position_pfn": evals, "checks": checks,
+    })
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"tabular checks failed: {failed}")
+    return {name: train_launches[name] + serve_launches[name] for name in FLASH_F32_KERNELS}
+
+
+def phase_tabular_kernel_timing(device, smi: str, shape: dict = TABULAR_KERNEL_SHAPE):
+    """The f32 bodies of the flash kernels at the tabular shape, each against
+    its plain version, its f32 bound and SDPA with the boolean PFN mask
+    (forward; backward with dq, dk and dv together)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.ops.attention import pfn_mask
+    from pfn_tpu_torch.ops.flash_attention import _flash_bwd_plain, _flash_fwd, _flash_fwd_plain
+
+    BH, T, D, sep = shape["BH"], shape["T"], shape["D"], shape["sep"]
+    H = 4
+    g = torch.Generator(device=device).manual_seed(9)
+    q, k, v, do = (torch.randn(BH, T, D, generator=g, device=device) for _ in range(4))
+    qs = q * D**-0.5
+    sep_t = torch.full((1,), sep, dtype=torch.int32, device=device)
+    o, lse = _flash_fwd(qs, k, v, sep_t, True)
+    o_plain, lse_plain = _flash_fwd_plain(qs, k, v, sep, T, True)
+    delta = (do * o).sum(-1)
+    dq = _ext.flash_bwd_dq(qs, k, v, do, lse, delta, sep_t, True)
+    dk, dv = _ext.flash_bwd_dkv(qs, k, v, do, lse, delta, sep_t, True)
+    plain = _flash_bwd_plain(qs, k, v, o, lse, do, None, sep_t, T, True)
+    errs = {"fwd": max(max_abs(o, o_plain), max_abs(lse, lse_plain)), "dq": max_abs(dq, plain[0]),
+            "dkv": max(max_abs(dk, plain[1]), max_abs(dv, plain[2]))}
+    if not (torch.allclose(o, o_plain, atol=F32_TOL, rtol=F32_TOL)
+            and all(torch.allclose(a, b, atol=F32_GRAD_TOL, rtol=F32_GRAD_TOL) for a, b in zip((dq, dk, dv), plain))):
+        raise AssertionError(f"tabular_kernel_timing: f32 kernels disagree with their plain versions: {errs}")
+    fwd_ms = cuda_ms(lambda: _flash_fwd(qs, k, v, sep_t, True))
+    dq_ms = cuda_ms(lambda: _ext.flash_bwd_dq(qs, k, v, do, lse, delta, sep_t, True))
+    dkv_ms = cuda_ms(lambda: _ext.flash_bwd_dkv(qs, k, v, do, lse, delta, sep_t, True))
+    fwd_plain_ms = cuda_ms(lambda: _flash_fwd_plain(qs, k, v, sep_t, T, True))
+    bwd_plain_ms = cuda_ms(lambda: _flash_bwd_plain(qs, k, v, o, lse, do, None, sep_t, T, True))
+    # SDPA on the same inputs as (B, H, T, D), with the boolean PFN mask.
+    mask = pfn_mask(T, sep, device=device)
+    q4, k4, v4, do4 = (t.reshape(BH // H, H, T, D) for t in (q, k, v, do))
+    with torch.no_grad():
+        sdpa_err = max_abs(F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask).reshape(BH, T, D), o)
+        sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask))
+    leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do4, retain_graph=True))
+    rows = {}
+    for kind, ms, plain_ms, lib_ms in (("fwd", fwd_ms, fwd_plain_ms, sdpa_fwd_ms),
+                                       ("dq", dq_ms, bwd_plain_ms, sdpa_bwd_ms),
+                                       ("dkv", dkv_ms, bwd_plain_ms, sdpa_bwd_ms)):
+        b = flash_bound(kind, BH, T, D, sep, dtype="f32")
+        rows[kind] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "max_abs_err": errs[kind], **b,
+                      "pct_of_bound": 100.0 * b["bound_ms"] / ms,
+                      "gflop": flash_flops(kind, BH, T, D, sep) / 1e9}
+    emit({"phase": "tabular_kernel_timing", "card": smi, "shape": {**shape, "dtype": "f32", "H": H}, "rows": rows,
+          "plain_note": "the bwd plain time is dq, dk and dv together", "sdpa_vs_kernel_max_abs": sdpa_err,
+          "library_note": "SDPA with the boolean PFN mask; its backward computes dq, dk and dv together"})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1599,6 +1880,11 @@ def main() -> int:
     fused_launches, _ = phase_fused_path(device, smi)
     fused_train_launches = phase_fused_train(device, smi)
     library = phase_library_timing(device, smi)
+    tabular_launches = phase_tabular(device, smi)
+    tabular_timing = phase_tabular_kernel_timing(device, smi)
+    # The flash kernels' launches on their two paths: the train phase's and
+    # the tabular phase's.
+    flash_launches = {name: launches[name] + tabular_launches[name] for name in FLASH_F32_KERNELS}
     fwd = next(r for r in timing if r["sep"] == 1000)
     bwd = next(r for r in bwd_timing if r["sep"] == 1000)
     fused = next(r for r in fused_timing if r["sep"] == FLAGSHIP["sep"])
@@ -1615,18 +1901,20 @@ def main() -> int:
     emit({"kernels": [
         {"name": "pfn_flash_fwd", "route": "cuda", "design": SM90_DESIGN,
          "source": "pfn_tpu_torch/ops/csrc/pfn_flash_fwd.cu",
-         "replaces": "pfn_tpu/ops/flash_attention.py:255", "launches": launches["pfn_flash_fwd"],
+         "replaces": "pfn_tpu/ops/flash_attention.py:255", "launches": flash_launches["pfn_flash_fwd"],
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"],
-         **flash_bound("fwd", 32, 2010, 128, 1000), "library_ms": library["sdpa_fwd_ms"]},
+         **flash_bound("fwd", 32, 2010, 128, 1000), "library_ms": library["sdpa_fwd_ms"],
+         "f32_tabular": tabular_timing["fwd"]},
         {"name": "pfn_flash_bwd_dq", "route": "cuda", "design": SM90_DESIGN, "source": bwd_source,
-         "replaces": "pfn_tpu/ops/flash_attention.py:315", "launches": launches["pfn_flash_bwd_dq"],
+         "replaces": "pfn_tpu/ops/flash_attention.py:315", "launches": flash_launches["pfn_flash_bwd_dq"],
          "max_abs_err": bwd["max_abs_err"]["dq"], "ms": bwd["dq_ms"], "plain_ms": bwd["plain_ms"],
-         **flash_bound("dq", 16, 2010, 128, 1000), "library_ms": library["sdpa_bwd_ms"]},
+         **flash_bound("dq", 16, 2010, 128, 1000), "library_ms": library["sdpa_bwd_ms"],
+         "f32_tabular": tabular_timing["dq"]},
         {"name": "pfn_flash_bwd_dkv", "route": "cuda", "design": SM90_DESIGN, "source": bwd_source,
-         "replaces": "pfn_tpu/ops/flash_attention.py:340", "launches": launches["pfn_flash_bwd_dkv"],
+         "replaces": "pfn_tpu/ops/flash_attention.py:340", "launches": flash_launches["pfn_flash_bwd_dkv"],
          "max_abs_err": max(bwd["max_abs_err"]["dk"], bwd["max_abs_err"]["dv"]), "ms": bwd["dkv_ms"],
          "plain_ms": bwd["plain_ms"], **flash_bound("dkv", 16, 2010, 128, 1000),
-         "library_ms": library["sdpa_bwd_ms"]},
+         "library_ms": library["sdpa_bwd_ms"], "f32_tabular": tabular_timing["dkv"]},
         {"name": "pfn_fused_layer_fwd", "route": "cuda", "design": SM90_DESIGN,
          "source": "pfn_tpu_torch/ops/csrc/pfn_fused_layer_fwd.cu",
          "replaces": "pfn_tpu/ops/fused_layer.py:324", "launches": fused_launches,

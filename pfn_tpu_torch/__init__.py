@@ -7,21 +7,24 @@ PyTorch on an NVIDIA H100; ``pfn_tpu`` stays the reference it is tested
 against. The layout mirrors it: ``pfn_tpu/X/y.py`` has its counterpart at
 ``pfn_tpu_torch/X/y.py``.
 
-This package imports torch and never jax. What is ported so far is the main
-path: the inference slice (GP prior → PFN forward with the hand-written PFN
+This package imports torch and never jax. What is ported so far: the
+inference slice (GP prior → PFN forward with the hand-written PFN
 flash-attention kernel → bar-distribution posterior summaries → exact-GP
-oracle) and the training slice (samplers and schedules → masked loss →
-backward through the hand-written flash-attention backward kernels →
-clipped Adam → checkpoints and resume, in ``train.train``). See ROADMAP.md
-for what remains.
+oracle), the training slice (samplers and schedules → masked loss → backward
+through the hand-written flash-attention backward kernels → clipped Adam →
+checkpoints and resume, in ``train.train``), the fused-layer path, and the
+tabular classification slice (the MLP/BNN, GP-mix, binarized and mixture
+priors → BCE training → ``PFNClassifier`` → ``evals.tabular``'s PFN
+evaluation). See ROADMAP.md for what remains.
 """
 
 __version__ = "0.1.0"
 
 from pfn_tpu_torch import distributions, evals, inference, models, ops, priors, train, utils
-from pfn_tpu_torch.inference import PFNRegressor
+from pfn_tpu_torch.inference import PFNClassifier, PFNRegressor
 
 __all__ = [
+    "PFNClassifier",
     "PFNRegressor",
     "distributions",
     "evals",

@@ -1,7 +1,7 @@
 """User-facing amortized inference: ``fit`` stores the context, ``predict``
 is one batched forward pass; no per-dataset training happens.
 
-Port of ``PFNRegressor`` from ``pfn_tpu/inference.py``:
+Port of ``PFNRegressor`` and ``PFNClassifier`` from ``pfn_tpu/inference.py``:
 
     reg = PFNRegressor(model, criterion)   # a PFNTransformer and its Criterion
     reg.fit(X_ctx, y_ctx)                  # stores the context
@@ -11,8 +11,12 @@ Port of ``PFNRegressor`` from ``pfn_tpu/inference.py``:
     reg = PFNRegressor.from_train_result(train(prior, criterion, cfg))
     reg = PFNRegressor.from_checkpoint(cfg.checkpoint_dir, prior, criterion, cfg)
 
+    clf = PFNClassifier.from_train_result(result).fit(X_ctx, labels)
+    p = clf.predict_proba(X_query)         # (n_query, max(n_classes, 2))
+
 The forward runs on the model's device; inputs and outputs are numpy.
-``PFNClassifier`` waits for a later slice (ROADMAP.md queue 1 item 10).
+``PFNRegressor.sample`` takes a ``torch.Generator`` where the JAX one takes a
+key: the two random streams differ anyway.
 """
 
 from __future__ import annotations
@@ -161,3 +165,45 @@ class PFNRegressor(_PFNEstimator):
         crit = self.criterion.to(self.device)
         yq = torch.as_tensor(np.asarray(yq, np.float32), device=self.device)
         return float(crit.per_position(logits[None], yq[None]).mean())
+
+
+class PFNClassifier(_PFNEstimator):
+    """Zero-shot classification from a BCE- or CE-head PFN (the tabular
+    protocol: class codes as float y inputs, a sigmoid or softmax read-out).
+
+    ``fit`` maps the labels to codes 0 .. n-1 in the order of ``classes_``
+    (their sorted unique values); a BCE head takes at most 2 classes, a CE
+    head at most its ``num_classes``.
+    """
+
+    classes_: np.ndarray | None = None
+
+    def fit(self, X, y):
+        y = np.asarray(y)
+        self.classes_ = np.unique(y)
+        n = len(self.classes_)
+        if self.criterion.kind == "bce":
+            if n > 2:
+                raise ValueError(f"a BCE head is binary, got {n} classes")
+        elif self.criterion.kind == "ce":
+            if n > self.criterion.num_classes:
+                raise ValueError(f"{n} classes > the CE head's {self.criterion.num_classes}")
+        else:
+            raise ValueError(f"a classifier needs a bce or ce criterion, got {self.criterion.kind!r}")
+        return super().fit(X, np.searchsorted(self.classes_, y).astype(np.float32))
+
+    def predict_proba(self, Xq) -> np.ndarray:
+        """(n_query, max(n_classes, 2)) class probabilities: [1 - p, p] from
+        the BCE logit, or the CE head's softmax over the first
+        max(n_classes, 2) logits, so that the classes absent from the context
+        get no mass."""
+        logits = self._logits(Xq)
+        k = max(len(self.classes_), 2)
+        if self.criterion.kind == "bce":
+            p1 = torch.sigmoid(logits[..., 0])
+            return torch.stack([1.0 - p1, p1], dim=-1)[:, :k].cpu().numpy()
+        return torch.softmax(logits[:, :k], dim=-1).cpu().numpy()
+
+    def predict(self, Xq) -> np.ndarray:
+        codes = self.predict_proba(Xq).argmax(axis=-1)
+        return self.classes_[np.minimum(codes, len(self.classes_) - 1)]

@@ -12,6 +12,7 @@ from pfn_tpu_torch.ops.gp_sample import (
     gp_posterior,
     gp_sample_paths,
     gp_sample_paths_grid,
+    matern52_kernel,
     psd_safe_cholesky,
     rbf_kernel,
 )
@@ -20,6 +21,7 @@ __all__ = [
     "gp_posterior",
     "gp_sample_paths",
     "gp_sample_paths_grid",
+    "matern52_kernel",
     "pfn_attention",
     "pfn_attention_prefix_merge",
     "pfn_attention_reference",

@@ -42,6 +42,48 @@ def rbf_kernel(x1, x2, lengthscale, outputscale):
     return outputscale * torch.exp(-0.5 * _sq_dists(x1 / ls, x2 / ls))
 
 
+def matern52_kernel(x1, x2, lengthscale, outputscale):
+    """Matern-5/2 (ARD) kernel, the covariance of the GP hyperprior-mixture
+    prior (botorch's SingleTaskGP default, reference priors/fast_gp_mix.py:24-55):
+    K = outputscale (1 + sqrt5 d + 5/3 d^2) exp(-sqrt5 d), d the distance
+    in lengthscale units."""
+    ls = torch.as_tensor(lengthscale, dtype=x1.dtype, device=x1.device)
+    d = torch.sqrt(_sq_dists(x1 / ls, x2 / ls) + 1e-20)
+    sqrt5_d = math.sqrt(5.0) * d
+    return outputscale * (1.0 + sqrt5_d + (5.0 / 3.0) * d * d) * torch.exp(-sqrt5_d)
+
+
+def per_dataset_hypers(lengthscale, outputscale, noise, batch_size: int, num_features: int, device=None):
+    """The hyperparameters of a batch of B datasets shaped to broadcast
+    against its (B, T, T) kernel matrices: lengthscale (B, 1, F or 1),
+    outputscale and noise (B, 1, 1), f32 on ``device``.
+
+    Each may be a scalar (shared), (B,) (per dataset), (F,) or (1, F)
+    (shared ARD) or (B, F) (per-dataset ARD), as the JAX package's
+    ``gp_sample_paths`` takes them. A 1-D value of length B = F is ambiguous
+    and raises: pass (1, F) for a shared ARD vector or (B, 1) for per-dataset
+    scalars.
+    """
+    B, F = batch_size, num_features
+
+    def bcast(h):
+        h = torch.as_tensor(h, dtype=torch.float32, device=device)
+        if h.ndim == 1 and h.shape[0] == B == F:
+            raise ValueError(
+                f"ambiguous 1-D hyperparameter of length {B} with batch_size == num_features == {B}: "
+                f"pass (1, {F}) for a shared ARD vector or ({B}, 1) for per-dataset scalars")
+        if h.ndim == 1 and h.shape[0] == F:
+            return h.expand(B, F)  # shared ARD
+        if h.ndim == 2 and h.shape[0] == 1:
+            return h.expand(B, h.shape[1])
+        if h.ndim > 0 and h.shape[0] == B:
+            return h  # per dataset
+        return h.expand((B,) + tuple(h.shape))
+
+    ls, os_, nz = bcast(lengthscale), bcast(outputscale), bcast(noise)
+    return ls.reshape(B, 1, -1), os_.reshape(B, 1, 1), nz.reshape(B, 1, 1)
+
+
 def psd_safe_cholesky(A: torch.Tensor, initial_jitter: float = 1e-6, max_tries: int = 5) -> torch.Tensor:
     """Cholesky with escalating diagonal jitter (x10 per retry), per matrix.
 
@@ -69,12 +111,15 @@ def psd_safe_cholesky(A: torch.Tensor, initial_jitter: float = 1e-6, max_tries: 
 def gp_sample_paths_from_normals(x, z, lengthscale, outputscale, noise, kernel=rbf_kernel, jitter: float = 1e-6):
     """y = L z with L L^T = K(x, x) + noise I, per dataset.
 
-    x: (B, T, F); z: (B, T) standard normals; the hyperparameters are
-    shared by the batch (``lengthscale`` may be an (F,) ARD vector). Returns
-    y (B, T) f32.
+    x: (B, T, F); z: (B, T) standard normals. The hyperparameters are Python
+    numbers shared by the batch, or arrays in any of the shapes
+    :func:`per_dataset_hypers` takes (shared ARD, per dataset, per-dataset
+    ARD). Returns y (B, T) f32.
     """
-    T = x.shape[1]
+    B, T, F = x.shape
     x = x.float()
+    if not all(isinstance(h, (int, float)) for h in (lengthscale, outputscale, noise)):
+        lengthscale, outputscale, noise = per_dataset_hypers(lengthscale, outputscale, noise, B, F, x.device)
     K = kernel(x, x, lengthscale, outputscale)
     A = K + noise * torch.eye(T, dtype=torch.float32, device=x.device)
     L = psd_safe_cholesky(A, initial_jitter=jitter)
