@@ -95,25 +95,45 @@ Phases, each printing one JSON line:
      layers, bptt 100, batch 256, f32, attention_impl "auto"): the prior
      alone (device ms of one batch, peak memory); train(...) for 2 epochs of
      2 updates with a checkpoint and a resume (bitwise equal to an
-     uninterrupted run), each flash kernel launched once per layer per
-     update (no dense fallback), update time, datasets/s,
-     the prior's share of an update's device time, a device profile of one
-     update that must show the three flash f32 bodies; PFNClassifier
+     uninterrupted run); at T = 100 the attention runs dense (flash_supported
+     needs T >= 256, as the JAX package's rule): no flash kernel launches and
+     the dense path runs once per layer per forward; update time,
+     datasets/s, the prior's share of an update's device time, a device
+     profile of one update without a flash body; PFNClassifier
      .from_checkpoint on held-out datasets (30 context rows, 70 queries):
-     predict_proba latency, a profile of one request showing the forward
-     kernel, kernel-path logits against the dense path within
-     TABULAR_F32_PATH_TOL; evaluate_position_pfn over 20 windows with
-     ensembles 1 and 8 (the AUC is reported, not gated: the weights are
-     trained a few steps). Then tabular_kernel_timing: the flash kernels'
-     f32 bodies at B*H = 1024, T = 100, D = 128, sep 30, against their plain
-     versions, their f32 bounds and SDPA with the PFN mask.
- 16. dkv_against_library: the dk/dv kernel at sep 1000, both variants,
+     predict_proba latency, a profile of one request, auto-path logits
+     against impl="dense" within TABULAR_F32_PATH_TOL; evaluate_position_pfn
+     over 20 windows with ensembles 1 and 8 (the AUC is reported, not gated:
+     the weights are trained a few steps). Then tabular_kernel_timing: the
+     flash kernels' f32 bodies at B*H = 1024, T = 100, D = 128, sep 30,
+     against their plain versions, their f32 bounds and SDPA with the PFN
+     mask.
+ 16. dispatch: impl="dense" against impl="flash" at T 100 and 256, forward
+     and forward + backward, bf16 at the bench.py flagship (B 64, H 4, D 128,
+     sep 50) and f32 at the tabular shape (B*H 1024, sep 30), each flash
+     output held to the dense f32 path; the auto rule on the card: dense at
+     T 100 and 255, the kernels at T 256 and 2010.
+ 17. f32_long_timing: the f32 bodies at T 2010, D 128, sep 1000 (forward at
+     B*H 32, backward at B*H 16) against their plain versions, f32 bounds and
+     SDPA with the PFN mask in f32.
+ 18. fig3a: the ported Fig-3a experiments (pfn_tpu_torch.experiments) at the
+     full width on the round-5 recipe (FIG3A_EXPERIMENTS), seeded weights:
+     fig3a_longrun 1 epoch on the grid-8192 sampler, a resume to 2 with its
+     scoring and f64 oracle (profiled: fwd_sm90, dq_sm90 and dkv_sm90 must
+     run), bitwise equal to an uninterrupted 2-epoch run, 2 epochs on the
+     exact sampler (s/epoch of both); fig3a_analytic_gap (f64 moments on the
+     card, KL finite and >= -1e-6) and fig3a_robust_eval on 2 chunks of 8
+     datasets; the oracle pass alone (its throughput); grid_fidelity with
+     both methods at G 8192, T 2010, batch 64 (effective noise, the prior's
+     moments); gp_fitting --quick cut to 2 epochs (finite, decreasing
+     losses). The flash kernels' launches are counted over the phase.
+ 19. dkv_against_library: the dk/dv kernel at sep 1000, both variants,
      beside SDPA's backward less the dq kernel, from this run.
 Then the kernels line (each kernel's launches on its path, error, time,
 plain time, bound and library time, for the fused kernels also the library
-call's device time, for the flash kernels also their f32 rows at the tabular
-shape; its route, and the design of its bf16 body), and last
-{"ok": true, "device": {...}}.
+call's device time, for the flash kernels also their f32 rows at T 100 and
+T 2010; its route, and the design of its bf16 body), the run's seconds, and
+last {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits nonzero and prints no result line.
 It also fails when there is no CUDA device, and when the package beside it
@@ -122,6 +142,7 @@ is missing. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -159,7 +180,22 @@ TABULAR = dict(num_features=60, emsize=512, nhid=1024, nlayers=6, nhead=4, bptt=
 TABULAR_F32_PATH_TOL = 1e-3
 # The f32 bodies of the flash kernels at the tabular shape: B*H = 256 x 4,
 # T = 100, D = 128, at sep 30 (the serving context).
-TABULAR_KERNEL_SHAPE = dict(BH=1024, T=100, D=128, sep=30)
+TABULAR_KERNEL_SHAPE = dict(fwd_BH=1024, bwd_BH=1024, T=100, D=128, sep=30)
+# The dispatch phase: dense against flash at these (B, H, D, sep) and T, and
+# the auto rule at DISPATCH_AUTO_SEQS.
+DISPATCH_SHAPES = {"bf16_flagship": (64, 4, 128, 50), "f32_tabular": (256, 4, 128, 30)}
+DISPATCH_SEQS = [100, 256]
+DISPATCH_AUTO_SEQS = [100, 255, 256, 2010]
+# The Fig-3a experiments at the full width on the round-5 recipe (ROUND5.md:25-29:
+# grid 8192, mixture sampler, 10 000 buckets, cap 128, 4 x 25 microbatches);
+# cut in the schedule: 1 + 1 epochs and 2 straight on the grid sampler, 2 on
+# the exact one; scoring on 2 chunks of 8 datasets (longrun: 8); gp_fitting's
+# quick config cut to 2 epochs.
+FIG3A_EXPERIMENTS = dict(T=2010, buckets=10_000, bucket_seq_cap=128, grid=8192, batch_size=4, agg=25, eval_batch=8,
+                     chunks=2, chunk_batch=8, quick_epochs=2)
+# The f32 bodies at the bf16 rows' shapes: T = 2010, D = 128, sep 1000, the
+# forward at B*H 32 and the backward at B*H 16.
+F32_LONG_SHAPE = dict(fwd_BH=32, bwd_BH=16, T=2010, D=128, sep=1000)
 # Device kernels of the flash f32 bodies, as the profiler names them.
 FLASH_F32_KERNELS = {"pfn_flash_fwd": "fwd_f32", "pfn_flash_bwd_dq": "dq_f32", "pfn_flash_bwd_dkv": "dkv_f32"}
 TIMING_SEPS = [400, 1000, 2000]
@@ -397,6 +433,25 @@ def timed_request(fn):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end), (time.perf_counter() - t0) * 1e3, out
+
+
+@contextlib.contextmanager
+def counting_calls(module, name: str):
+    """Count the calls of ``module.<name>`` while the block runs (the
+    module's own functions look it up at call time). Yields a one-element
+    list that holds the count."""
+    real = getattr(module, name)
+    count = [0]
+
+    def counted(*args, **kwargs):
+        count[0] += 1
+        return real(*args, **kwargs)
+
+    setattr(module, name, counted)
+    try:
+        yield count
+    finally:
+        setattr(module, name, real)
 
 
 def phase_card():
@@ -918,7 +973,6 @@ def _param_vector(state_dict):
 def phase_train(device, smi: str, size: dict = FIG3A_TRAIN):
     """The round-5 Fig-3a recipe at full width through ``train(...)``: epoch 1
     into a checkpoint, a second call that resumes it and runs epoch 2."""
-    import contextlib
     import io
     import tempfile
 
@@ -1450,7 +1504,6 @@ def phase_fused_train(device, smi: str, size: dict = FLAGSHIP, updates: int = 2,
     (bench.py:27-31, 73-87): epoch 1 into a checkpoint, a second call that
     resumes it and runs epoch 2; then one update fused against unfused, and
     the update times of both."""
-    import contextlib
     import io
     import tempfile
 
@@ -1627,10 +1680,11 @@ def phase_tabular(device, smi: str, size: dict = TABULAR):
     """The tabular classification slice at the TabularEvalSimple scale: the
     MLP prior alone, train(...) with a checkpoint and a resume, update time
     and a device profile of one update, PFNClassifier.from_checkpoint serving
-    held-out datasets, kernel path against the dense path, and
-    evaluate_position_pfn with ensembles 1 and 8. Returns the flash kernels'
-    launches on the path (training and serving)."""
-    import contextlib
+    held-out datasets, the auto path against the dense path, and
+    evaluate_position_pfn with ensembles 1 and 8. At T = 100 the attention
+    runs dense (the T >= 256 rule of flash_supported, as the JAX package):
+    no flash kernel launches, and the dense path runs once per layer per
+    forward. Returns the dense path's calls (training and serving)."""
     import io
     import tempfile
 
@@ -1640,6 +1694,7 @@ def phase_tabular(device, smi: str, size: dict = TABULAR):
     from pfn_tpu_torch.evals import evaluate_position_pfn, pfn_predict
     from pfn_tpu_torch.inference import PFNClassifier
     from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.ops import attention as attention_ops
     from pfn_tpu_torch.priors import MLPPrior
     from pfn_tpu_torch.priors.hyper import UniformInt
     from pfn_tpu_torch.train import (
@@ -1684,10 +1739,11 @@ def phase_tabular(device, smi: str, size: dict = TABULAR):
     torch.cuda.reset_peak_memory_stats(device)
     _ext.reset_launch_counts()
     t0 = time.perf_counter()
-    first = train(prior, criterion, dataclasses.replace(cfg, epochs=1), init_params=init)
-    log = io.StringIO()
-    with contextlib.redirect_stdout(log):
-        result = train(prior, criterion, cfg, init_params=init)
+    with counting_calls(attention_ops, "pfn_attention_reference") as dense_train:
+        first = train(prior, criterion, dataclasses.replace(cfg, epochs=1), init_params=init)
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            result = train(prior, criterion, cfg, init_params=init)
     train_s = time.perf_counter() - t0
     print(log.getvalue(), end="", flush=True)
     train_launches = {name: _ext.launch_counts[name] for name in FLASH_F32_KERNELS}
@@ -1729,17 +1785,18 @@ def phase_tabular(device, smi: str, size: dict = TABULAR):
     n_ctx = size["n_ctx"]
     _ext.reset_launch_counts()
     runs, probs = [], []
-    for i in range(1 + REPEATS):
-        clf.fit(xh_np[i % len(xh_np), :n_ctx], yh_np[i % len(xh_np), :n_ctx])
-        ms, wall, p = timed_request(lambda: clf.predict_proba(xh_np[i % len(xh_np), n_ctx:]))
-        runs.append((ms, wall))
-        probs.append(p)
+    with counting_calls(attention_ops, "pfn_attention_reference") as dense_serve:
+        for i in range(1 + REPEATS):
+            clf.fit(xh_np[i % len(xh_np), :n_ctx], yh_np[i % len(xh_np), :n_ctx])
+            ms, wall, p = timed_request(lambda: clf.predict_proba(xh_np[i % len(xh_np), n_ctx:]))
+            runs.append((ms, wall))
+            probs.append(p)
     serve_launches = {name: _ext.launch_counts[name] for name in FLASH_F32_KERNELS}
     request_kernels, _ = profiled_kernels(lambda: clf.predict_proba(xh_np[0, n_ctx:]))
     request_flash = _kernel_launches(request_kernels)
     acc = float(np.mean([(p.argmax(-1) == yh_np[i % len(xh_np), n_ctx:]).mean() for i, p in enumerate(probs)]))
 
-    # Kernel path against the dense path: the held-out datasets' logits.
+    # The auto path against impl="dense": the held-out datasets' logits.
     dense = build_model(prior, criterion, dataclasses.replace(cfg, attention_impl="dense"))
     dense.load_state_dict(clf.model.state_dict())
     dense.eval()
@@ -1771,11 +1828,14 @@ def phase_tabular(device, smi: str, size: dict = TABULAR):
         # The prior draws from the training generator alone, and no kernel
         # of the update sums with atomics: the resumed run is the same run.
         "resume_bitwise_equal": resume_bitwise,
-        # Every layer of every update on the kernels: no dense fallback.
-        "train_launches": all(n == expected for n in train_launches.values()),
-        "update_profile_has_flash": all(n == cfg.nlayers for n in update_flash.values()),
-        "serve_launches": serve_launches["pfn_flash_fwd"] == cfg.nlayers * (1 + REPEATS),
-        "request_profile_has_flash_fwd": request_flash["pfn_flash_fwd"] == cfg.nlayers,
+        # T = 100 < 256: every layer of every update and request on the dense
+        # path, no flash kernel.
+        "train_no_flash_launch": all(n == 0 for n in train_launches.values()),
+        "train_dense_path": dense_train[0] == expected,
+        "update_profile_no_flash": all(n == 0 for n in update_flash.values()),
+        "serve_no_flash_launch": all(n == 0 for n in serve_launches.values()),
+        "serve_dense_path": dense_serve[0] == cfg.nlayers * (1 + REPEATS),
+        "request_profile_no_flash": all(n == 0 for n in request_flash.values()),
         "probs": all(p.shape == (T - n_ctx, 2) and np.isfinite(p).all() and np.allclose(p.sum(-1), 1.0, atol=1e-5)
                      for p in probs),
         "kernel_vs_dense": err_kernel_dense <= TABULAR_F32_PATH_TOL,
@@ -1787,7 +1847,8 @@ def phase_tabular(device, smi: str, size: dict = TABULAR):
     emit({
         "phase": "tabular", "card": smi, "size": size, "dtype": "f32",
         "prior": {"ms": prior_ms, "device_ms": prior_dev_ms, "peak_mb": prior_peak_mb},
-        "epoch_stats": stats, "train_calls_s": train_s, "launches": train_launches, "expected_launches": expected,
+        "epoch_stats": stats, "train_calls_s": train_s, "launches": train_launches,
+        "dense_calls": {"train": dense_train[0], "serve": dense_serve[0]}, "expected_dense_train_calls": expected,
         "update_ms": {"first": update_ms[0], f"median_of_{size['timed_updates']}": median_ms},
         "datasets_per_s": B / (median_ms / 1e3), "peak_memory_gb": peak_train_gb,
         "prior_share_of_update_device_time": (prior_dev_ms / update_dev_ms
@@ -1799,13 +1860,17 @@ def phase_tabular(device, smi: str, size: dict = TABULAR):
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"tabular checks failed: {failed}")
-    return {name: train_launches[name] + serve_launches[name] for name in FLASH_F32_KERNELS}
+    return {"train": dense_train[0], "serve": dense_serve[0]}
 
 
-def phase_tabular_kernel_timing(device, smi: str, shape: dict = TABULAR_KERNEL_SHAPE):
-    """The f32 bodies of the flash kernels at the tabular shape, each against
-    its plain version, its f32 bound and SDPA with the boolean PFN mask
-    (forward; backward with dq, dk and dv together)."""
+def f32_kernel_timing(device, smi: str, phase: str, shape: dict):
+    """The f32 bodies of the flash kernels, each against its plain version,
+    its f32 bound and SDPA with the boolean PFN mask (forward; backward with
+    dq, dk and dv together): the forward at B*H = shape["fwd_BH"], the
+    backward at shape["bwd_BH"] (the leading rows of the same inputs). The
+    phases tabular_kernel_timing (TABULAR_KERNEL_SHAPE, where the tabular
+    path ran them before the T >= 256 rule) and f32_long_timing
+    (F32_LONG_SHAPE: whether an f32 path at T >= 256 loses to SDPA)."""
     import torch
     import torch.nn.functional as F
 
@@ -1813,49 +1878,278 @@ def phase_tabular_kernel_timing(device, smi: str, shape: dict = TABULAR_KERNEL_S
     from pfn_tpu_torch.ops.attention import pfn_mask
     from pfn_tpu_torch.ops.flash_attention import _flash_bwd_plain, _flash_fwd, _flash_fwd_plain
 
-    BH, T, D, sep = shape["BH"], shape["T"], shape["D"], shape["sep"]
+    T, D, sep = shape["T"], shape["D"], shape["sep"]
     H = 4
     g = torch.Generator(device=device).manual_seed(9)
+    BH = max(shape["fwd_BH"], shape["bwd_BH"])
     q, k, v, do = (torch.randn(BH, T, D, generator=g, device=device) for _ in range(4))
-    qs = q * D**-0.5
     sep_t = torch.full((1,), sep, dtype=torch.int32, device=device)
-    o, lse = _flash_fwd(qs, k, v, sep_t, True)
-    o_plain, lse_plain = _flash_fwd_plain(qs, k, v, sep, T, True)
-    delta = (do * o).sum(-1)
-    dq = _ext.flash_bwd_dq(qs, k, v, do, lse, delta, sep_t, True)
-    dk, dv = _ext.flash_bwd_dkv(qs, k, v, do, lse, delta, sep_t, True)
-    plain = _flash_bwd_plain(qs, k, v, o, lse, do, None, sep_t, T, True)
-    errs = {"fwd": max(max_abs(o, o_plain), max_abs(lse, lse_plain)), "dq": max_abs(dq, plain[0]),
-            "dkv": max(max_abs(dk, plain[1]), max_abs(dv, plain[2]))}
-    if not (torch.allclose(o, o_plain, atol=F32_TOL, rtol=F32_TOL)
-            and all(torch.allclose(a, b, atol=F32_GRAD_TOL, rtol=F32_GRAD_TOL) for a, b in zip((dq, dk, dv), plain))):
-        raise AssertionError(f"tabular_kernel_timing: f32 kernels disagree with their plain versions: {errs}")
-    fwd_ms = cuda_ms(lambda: _flash_fwd(qs, k, v, sep_t, True))
-    dq_ms = cuda_ms(lambda: _ext.flash_bwd_dq(qs, k, v, do, lse, delta, sep_t, True))
-    dkv_ms = cuda_ms(lambda: _ext.flash_bwd_dkv(qs, k, v, do, lse, delta, sep_t, True))
-    fwd_plain_ms = cuda_ms(lambda: _flash_fwd_plain(qs, k, v, sep_t, T, True))
-    bwd_plain_ms = cuda_ms(lambda: _flash_bwd_plain(qs, k, v, o, lse, do, None, sep_t, T, True))
-    # SDPA on the same inputs as (B, H, T, D), with the boolean PFN mask.
     mask = pfn_mask(T, sep, device=device)
-    q4, k4, v4, do4 = (t.reshape(BH // H, H, T, D) for t in (q, k, v, do))
+
+    # The forward at fwd_BH.
+    n = shape["fwd_BH"]
+    qs, kn, vn = q[:n] * D**-0.5, k[:n], v[:n]
+    o, lse = _flash_fwd(qs, kn, vn, sep_t, True)
+    o_plain, lse_plain = _flash_fwd_plain(qs, kn, vn, sep, T, True)
+    errs = {"fwd": max(max_abs(o, o_plain), max_abs(lse, lse_plain))}
+    if not torch.allclose(o, o_plain, atol=F32_TOL, rtol=F32_TOL):
+        raise AssertionError(f"{phase}: the f32 forward disagrees with its plain version: {errs}")
+    q4, k4, v4 = (t[:n].reshape(n // H, H, T, D) for t in (q, k, v))
     with torch.no_grad():
-        sdpa_err = max_abs(F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask).reshape(BH, T, D), o)
+        sdpa_err = max_abs(F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask).reshape(n, T, D), o)
         sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask))
-    leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+    times = {"fwd": (n, cuda_ms(lambda: _flash_fwd(qs, kn, vn, sep_t, True)),
+                     cuda_ms(lambda: _flash_fwd_plain(qs, kn, vn, sep_t, T, True)), sdpa_fwd_ms)}
+
+    # The backward at bwd_BH.
+    n = shape["bwd_BH"]
+    qs, kn, vn, don = q[:n] * D**-0.5, k[:n], v[:n], do[:n]
+    o, lse = _flash_fwd(qs, kn, vn, sep_t, True)
+    delta = (don * o).sum(-1)
+    dq = _ext.flash_bwd_dq(qs, kn, vn, don, lse, delta, sep_t, True)
+    dk, dv = _ext.flash_bwd_dkv(qs, kn, vn, don, lse, delta, sep_t, True)
+    plain = _flash_bwd_plain(qs, kn, vn, o, lse, don, None, sep_t, T, True)
+    errs.update({"dq": max_abs(dq, plain[0]), "dkv": max(max_abs(dk, plain[1]), max_abs(dv, plain[2]))})
+    if not all(torch.allclose(a, b, atol=F32_GRAD_TOL, rtol=F32_GRAD_TOL) for a, b in zip((dq, dk, dv), plain)):
+        raise AssertionError(f"{phase}: the f32 backward kernels disagree with their plain version: {errs}")
+    leaves = [t[:n].reshape(n // H, H, T, D).detach().requires_grad_() for t in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
-    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do4, retain_graph=True))
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do[:n].reshape(n // H, H, T, D),
+                                                      retain_graph=True))
+    bwd_plain_ms = cuda_ms(lambda: _flash_bwd_plain(qs, kn, vn, o, lse, don, None, sep_t, T, True))
+    times["dq"] = (n, cuda_ms(lambda: _ext.flash_bwd_dq(qs, kn, vn, don, lse, delta, sep_t, True)), bwd_plain_ms,
+                   sdpa_bwd_ms)
+    times["dkv"] = (n, cuda_ms(lambda: _ext.flash_bwd_dkv(qs, kn, vn, don, lse, delta, sep_t, True)), bwd_plain_ms,
+                    sdpa_bwd_ms)
+
     rows = {}
-    for kind, ms, plain_ms, lib_ms in (("fwd", fwd_ms, fwd_plain_ms, sdpa_fwd_ms),
-                                       ("dq", dq_ms, bwd_plain_ms, sdpa_bwd_ms),
-                                       ("dkv", dkv_ms, bwd_plain_ms, sdpa_bwd_ms)):
-        b = flash_bound(kind, BH, T, D, sep, dtype="f32")
-        rows[kind] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "max_abs_err": errs[kind], **b,
-                      "pct_of_bound": 100.0 * b["bound_ms"] / ms,
-                      "gflop": flash_flops(kind, BH, T, D, sep) / 1e9}
-    emit({"phase": "tabular_kernel_timing", "card": smi, "shape": {**shape, "dtype": "f32", "H": H}, "rows": rows,
+    for kind, (n, ms, plain_ms, lib_ms) in times.items():
+        b = flash_bound(kind, n, T, D, sep, dtype="f32")
+        rows[kind] = {"BH": n, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "max_abs_err": errs[kind], **b,
+                      "pct_of_bound": 100.0 * b["bound_ms"] / ms, "gflop": flash_flops(kind, n, T, D, sep) / 1e9}
+    emit({"phase": phase, "card": smi, "shape": {**shape, "dtype": "f32", "H": H}, "rows": rows,
+          "against_library": {"fwd": rows["fwd"]["ms"] / sdpa_fwd_ms,
+                              "dq_plus_dkv": (rows["dq"]["ms"] + rows["dkv"]["ms"]) / sdpa_bwd_ms},
           "plain_note": "the bwd plain time is dq, dk and dv together", "sdpa_vs_kernel_max_abs": sdpa_err,
-          "library_note": "SDPA with the boolean PFN mask; its backward computes dq, dk and dv together"})
+          "library_note": "SDPA with the boolean PFN mask in f32; its backward computes dq, dk and dv together"})
     return rows
+
+
+def phase_dispatch(device, smi: str):
+    """impl="dense" against impl="flash" at T 100 and 256, forward and
+    forward + backward, in bf16 at the bench.py flagship (B 64, H 4, D 128,
+    sep 50) and in f32 at the tabular shape (B*H 1024, D 128, sep 30): which
+    way each goes. Then the auto rule on the card: dense at T 100 and 255,
+    the kernels at T 256 and 2010 (flash_supported's T >= 256)."""
+    import torch
+
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.ops.attention import pfn_attention
+    from pfn_tpu_torch.ops.flash_attention import FLASH_MIN_SEQ
+
+    g = torch.Generator(device=device).manual_seed(21)
+    rows = []
+    for name, dtype, (B, H, D, sep) in (("bf16_flagship", torch.bfloat16, DISPATCH_SHAPES["bf16_flagship"]),
+                                        ("f32_tabular", torch.float32, DISPATCH_SHAPES["f32_tabular"])):
+        for T in DISPATCH_SEQS:
+            q, k, v, do = (torch.randn(B, H, T, D, generator=g, device=device).to(dtype) for _ in range(4))
+            row = {"shape": name, "dtype": str(dtype).removeprefix("torch."), "B": B, "H": H, "T": T, "D": D,
+                   "sep": sep}
+            with torch.no_grad():
+                outs = {impl: pfn_attention(q, k, v, sep, impl=impl) for impl in ("dense", "flash")}
+                for impl in ("dense", "flash"):
+                    row[f"{impl}_fwd_ms"] = cuda_ms(lambda: pfn_attention(q, k, v, sep, impl=impl))
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            for impl in ("dense", "flash"):
+                row[f"{impl}_fwd_bwd_ms"] = cuda_ms(
+                    lambda: torch.autograd.grad(pfn_attention(*leaves, sep, impl=impl), leaves, do))
+            gold = pfn_attention(q.float(), k.float(), v.float(), sep, impl="dense")
+            row["flash_vs_dense_max_abs"] = max_abs(outs["flash"], outs["dense"])
+            budget = F32_TOL * (1 + float(gold.abs().max())) if dtype == torch.float32 else (
+                2 * max_abs(outs["dense"], gold) + 1e-3)
+            if max_abs(outs["flash"], gold) > budget:
+                raise AssertionError(f"dispatch: flash {name} T {T} error {max_abs(outs['flash'], gold)} over {budget}")
+            row["faster_fwd"] = "flash" if row["flash_fwd_ms"] < row["dense_fwd_ms"] else "dense"
+            row["faster_fwd_bwd"] = "flash" if row["flash_fwd_bwd_ms"] < row["dense_fwd_bwd_ms"] else "dense"
+            rows.append(row)
+    auto = {}
+    for T in DISPATCH_AUTO_SEQS:
+        q = torch.randn(2, 4, T, 128, generator=g, device=device).to(torch.bfloat16)
+        _ext.reset_launch_counts()
+        with torch.no_grad():
+            pfn_attention(q, q, q, T // 2, impl="auto")
+        auto[T] = "flash" if _ext.launch_counts["pfn_flash_fwd"] == 1 else "dense"
+    _ext.reset_launch_counts()
+    want = {T: "flash" if T >= FLASH_MIN_SEQ else "dense" for T in DISPATCH_AUTO_SEQS}
+    emit({"phase": "dispatch", "card": smi, "rows": rows, "auto_picks": auto, "auto_expected": want,
+          "min_seq": FLASH_MIN_SEQ})
+    if auto != want:
+        raise AssertionError(f"dispatch: auto picked {auto}, expected {want}")
+    return rows
+
+
+def _quietly(fn, *args):
+    """fn(*args) with its printing kept in a buffer: (result, text). The
+    text is printed when fn raises."""
+    import io
+
+    log = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(log):
+            out = fn(*args)
+    except BaseException:
+        print(log.getvalue(), flush=True)
+        raise
+    return out, log.getvalue()
+
+
+def phase_fig3a(device, smi: str, size: dict = FIG3A_EXPERIMENTS):
+    """The ported Fig-3a experiments at the full Fig-3a width (emsize 512, 4
+    heads of 128, nhid 1024, 6 layers, bf16, T 2010) on the round-5 recipe
+    (mixture sampler, 10 000 buckets, cap 128, 4 x 25 microbatches), seeded
+    weights through --init_from; cut in the depth of the schedule only:
+    fig3a_longrun 1 epoch on the grid-8192 sampler, then a resume to 2 with
+    the scoring (profiled: the bf16 flash bodies must run), bitwise equal to
+    an uninterrupted 2-epoch run, and 2 epochs on the exact sampler (s/epoch
+    of both samplers); fig3a_analytic_gap (f64 moments on the card) and
+    fig3a_robust_eval on the checkpoint, 2 chunks of 8 datasets at the 14
+    positions; grid_fidelity with both methods at G 8192, T 2010, batch 64;
+    gp_fitting --quick cut to 2 epochs. Returns the flash kernels' launches
+    over the whole phase."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pfn_tpu_torch.experiments import (
+        fig3a_analytic_gap,
+        fig3a_longrun,
+        fig3a_robust_eval,
+        gp_fitting,
+        grid_fidelity,
+    )
+    from pfn_tpu_torch.experiments.common import FIG3A_MODEL, POSITIONS
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.train import restore_checkpoint, save_checkpoint, seeded_flax_params, state_dict_from_flax_params
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="pfn_fig3a_"))
+    buckets, T = size["buckets"], size["T"]
+    dev = ["--device", str(device)]
+    save_checkpoint(str(tmp / "init" / "epoch_0"), {"model": state_dict_from_flax_params(
+        seeded_flax_params(1, FIG3A_MODEL["emsize"], FIG3A_MODEL["nhid"], FIG3A_MODEL["nlayers"], buckets, seed=0),
+        FIG3A_MODEL["nlayers"])})
+    recipe = dev + ["--bptt", str(T), "--num_buckets", str(buckets), "--bucket_seq_cap", str(size["bucket_seq_cap"]),
+                    "--eval_pos_sampler", "mixture", "--batch_size", str(size["batch_size"]), "--agg",
+                    str(size["agg"]), "--checkpoint_every", "1", "--init_from", str(tmp / "init")]
+    grid = ["--grid", str(size["grid"])]
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out, text = _quietly(fn, *args)
+        seconds[name] = time.perf_counter() - t0
+        return out, text
+
+    _ext.reset_launch_counts()
+    first, _ = timed("longrun_epoch1", fig3a_longrun.main,
+                     recipe + grid + ["--out", str(tmp / "run"), "--epochs", "1", "--skip_eval"])
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        resumed, resume_log = timed("longrun_resume_and_score", fig3a_longrun.main,
+                                    recipe + grid + ["--out", str(tmp / "run"), "--epochs", "2", "--eval_batch",
+                                                     str(size["eval_batch"])])
+        torch.cuda.synchronize(device)
+        time.sleep(PROFILE_PAD_S)
+    bf16_kernels = {frag: sum(e.count for e in prof.key_averages() if frag in e.key)
+                    for frag in ("fwd_sm90", "dq_sm90", "dkv_sm90")}
+    straight, _ = timed("longrun_straight", fig3a_longrun.main,
+                        recipe + grid + ["--out", str(tmp / "straight"), "--epochs", "2", "--skip_eval"])
+    exact, _ = timed("longrun_exact", fig3a_longrun.main,
+                     recipe + ["--out", str(tmp / "exact"), "--epochs", "2", "--skip_eval"])
+    a = restore_checkpoint(str(tmp / "run" / "ck" / "epoch_2"), map_location="cpu")
+    b = restore_checkpoint(str(tmp / "straight" / "ck" / "epoch_2"), map_location="cpu")
+    resume_bitwise = (a["step"] == b["step"] and torch.equal(a["generator"], b["generator"])
+                      and all(torch.equal(a["model"][k], b["model"][k]) for k in a["model"])
+                      and all(torch.equal(sa[k], sb[k]) for sa, sb in zip(a["optimizer"]["state"].values(),
+                                                                           b["optimizer"]["state"].values())
+                              for k in ("exp_avg", "exp_avg_sq")))
+    ck = str(tmp / "run" / "ck")
+    score = dev + ["--ck", ck, "--bptt", str(T), "--num_buckets", str(buckets), "--chunks", str(size["chunks"]),
+                   "--chunk_batch", str(size["chunk_batch"])]
+    gap, _ = timed("analytic_gap", fig3a_analytic_gap.main,
+                   score + grid + ["--bucket_seq_cap", str(size["bucket_seq_cap"]), "--out", str(tmp / "agap")])
+    robust, _ = timed("robust_eval", fig3a_robust_eval.main, score + ["--out", str(tmp / "robust")])
+    launches = dict(_ext.launch_counts)
+    oracle, _ = timed("oracle_pass", fig3a_longrun.main, dev + grid + ["--out", str(tmp / "run"), "--oracle_pass"])
+    fidelity = {}
+    for method in ("fft", "chol"):
+        fidelity[method], _ = timed(f"grid_fidelity_{method}", grid_fidelity.main, dev + [
+            "--grid", str(size["grid"]), "--bptt", str(T), "--batch", "64", "--method", method,
+            "--out", str(tmp / f"grid_fidelity_{method}.json")])
+    fit, _ = timed("gp_fitting_quick", gp_fitting.main, dev + ["--quick", "--epochs", str(size["quick_epochs"]),
+                                                              "--out", str(tmp / "gp_fitting")])
+    launches_after = dict(_ext.launch_counts)
+
+    P = len([t for t in POSITIONS if t < T])
+    n_gap = size["chunks"] * size["chunk_batch"]
+    kl = np.stack([gap["kl"]["nominal"], gap["kl"]["effective"]])
+    updates = 6 * 4  # six epochs of 4 updates: 1 + 1 (resumed) + 2 (straight) + 2 (exact)
+    per_update = FIG3A_MODEL["nlayers"] * size["agg"]
+    expected = {"pfn_flash_bwd_dq": updates * per_update, "pfn_flash_bwd_dkv": updates * per_update,
+                "pfn_flash_fwd": updates * per_update + FIG3A_MODEL["nlayers"] * P * (1 + 2 * size["chunks"])}
+    stats = {name: [s["epoch_time"] for s in run["epoch_stats"]] for name, run in (
+        ("grid_run", first), ("grid_resumed", resumed), ("grid_straight", straight), ("exact", exact))}
+    oracle_pairs = 2 * size["eval_batch"] * P  # dataset-positions at two noises
+    fit_losses = [s["mean_loss"] for s in fit["epoch_stats"]]
+    checks = {
+        "resumed": "resumed from" in resume_log,
+        "resume_bitwise_equal": resume_bitwise,
+        "epochs": [len(stats[k]) for k in ("grid_run", "grid_resumed", "grid_straight", "exact")] == [1, 1, 2, 2],
+        "longrun_losses_finite": all(np.isfinite(s["mean_loss"]) for r in (first, resumed, straight, exact)
+                                     for s in r["epoch_stats"]),
+        "longrun_curves_finite": bool(np.isfinite(resumed["pfn_nll"] + resumed["oracle_nll"]
+                                                  + resumed["oracle_nll_noise1e-3"]).all()),
+        "flash_bf16_bodies_profiled": all(n > 0 for n in bf16_kernels.values()),
+        "flash_launches": all(launches[k] == v for k, v in expected.items()),
+        "no_flash_in_oracle_fidelity_and_quick": launches_after == launches,
+        "oracle_pass_repeats": oracle["oracle_nll"] == resumed["oracle_nll"],
+        "kl_shape": kl.shape == (2, P, n_gap),
+        "kl_finite": bool(np.isfinite(kl).all()),
+        "kl_nonnegative": bool(kl.min() >= -1e-6),
+        "robust_finite": bool(np.isfinite(np.asarray(robust["gap_ci95_effective"])).all()),
+        "grid_fidelity_finite": all(np.isfinite(f["effective_noise"]) and np.isfinite(f["latent_err_rms"])
+                                    for f in fidelity.values()),
+        "gp_fitting_losses_finite_and_decreasing": (len(fit_losses) == size["quick_epochs"]
+                                                    and bool(np.isfinite(fit_losses).all())
+                                                    and all(b < a for a, b in zip(fit_losses, fit_losses[1:]))),
+        "gp_fitting_curves_finite": bool(np.isfinite(fit["pfn_nll"] + fit["oracle_nll"]).all()),
+    }
+    emit({
+        "phase": "fig3a", "card": smi, "size": size, "model": FIG3A_MODEL, "dtype": "bf16",
+        "s_per_epoch": {"grid_8192": stats["grid_straight"][-1], "exact": stats["exact"][-1]},
+        "epoch_seconds": stats, "seconds": seconds, "phase_s": time.perf_counter() - t_phase,
+        "launches": launches, "expected_launches": expected, "bf16_kernels_in_profile": bf16_kernels,
+        "longrun": {k: resumed[k] for k in ("positions", "pfn_nll", "oracle_nll", "oracle_nll_noise1e-3",
+                                            "oracle_seconds", "final_train_loss")},
+        "oracle_f64": {"dataset_positions": oracle_pairs, "pass_s": seconds["oracle_pass"],
+                       "dataset_positions_per_s": oracle_pairs / seconds["oracle_pass"],
+                       "timer_s": oracle["seconds"]},
+        "analytic_gap": {k: gap[k] for k in ("kl_mean_effective", "kl_median_effective", "kl_ci95_effective",
+                                             "verdict_effective", "kl_mean_nominal")},
+        "robust_eval": {k: robust[k] for k in ("gap_mean_effective", "gap_ci95_effective")},
+        "grid_fidelity": {m: {k: f[k] for k in ("duplicate_pairs", "effective_noise", "effective_noise_ci95",
+                                                "latent_err_rms_over_noise_sd", "verdict", "prior_moments")}
+                          for m, f in fidelity.items()},
+        "gp_fitting_quick": {"epoch_losses": fit_losses, "mean_gap": fit["mean_gap"],
+                             "epoch_seconds": [s["epoch_time"] for s in fit["epoch_stats"]]},
+        "checks": checks,
+    })
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"fig3a checks failed: {failed}")
+    return launches
 
 
 def main() -> int:
@@ -1863,6 +2157,7 @@ def main() -> int:
 
     import pfn_tpu_torch
 
+    t_run = time.perf_counter()
     if Path(pfn_tpu_torch.__file__).resolve().parent.parent != ROOT:
         raise SystemExit(f"pfn_tpu_torch at {pfn_tpu_torch.__file__} is not the checkout beside this script")
     device, smi = phase_card()
@@ -1880,11 +2175,14 @@ def main() -> int:
     fused_launches, _ = phase_fused_path(device, smi)
     fused_train_launches = phase_fused_train(device, smi)
     library = phase_library_timing(device, smi)
-    tabular_launches = phase_tabular(device, smi)
-    tabular_timing = phase_tabular_kernel_timing(device, smi)
-    # The flash kernels' launches on their two paths: the train phase's and
-    # the tabular phase's.
-    flash_launches = {name: launches[name] + tabular_launches[name] for name in FLASH_F32_KERNELS}
+    phase_tabular(device, smi)
+    tabular_timing = f32_kernel_timing(device, smi, "tabular_kernel_timing", TABULAR_KERNEL_SHAPE)
+    phase_dispatch(device, smi)
+    f32_long = f32_kernel_timing(device, smi, "f32_long_timing", F32_LONG_SHAPE)
+    fig3a_launches = phase_fig3a(device, smi)
+    # The flash kernels' launches on the main path: the train phase's and the
+    # fig3a phase's (the tabular path runs dense at T = 100).
+    flash_launches = {name: launches[name] + fig3a_launches[name] for name in FLASH_F32_KERNELS}
     fwd = next(r for r in timing if r["sep"] == 1000)
     bwd = next(r for r in bwd_timing if r["sep"] == 1000)
     fused = next(r for r in fused_timing if r["sep"] == FLAGSHIP["sep"])
@@ -1898,23 +2196,24 @@ def main() -> int:
                   "held": row["dkv_ms"] <= library[key] - row["dq_ms"]}
         for variant, row, key in (("diag", bwd, "sdpa_bwd_ms"), ("prefix", bwd_prefix, "sdpa_prefix_bwd_ms"))}})
     emit({"phase": "profiler", "sessions_without_kernels": profile_misses, "pad_s": PROFILE_PAD_S})
+    emit({"phase": "run", "seconds": time.perf_counter() - t_run})
     emit({"kernels": [
         {"name": "pfn_flash_fwd", "route": "cuda", "design": SM90_DESIGN,
          "source": "pfn_tpu_torch/ops/csrc/pfn_flash_fwd.cu",
          "replaces": "pfn_tpu/ops/flash_attention.py:255", "launches": flash_launches["pfn_flash_fwd"],
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"],
          **flash_bound("fwd", 32, 2010, 128, 1000), "library_ms": library["sdpa_fwd_ms"],
-         "f32_tabular": tabular_timing["fwd"]},
+         "f32_tabular": tabular_timing["fwd"], "f32_long": f32_long["fwd"]},
         {"name": "pfn_flash_bwd_dq", "route": "cuda", "design": SM90_DESIGN, "source": bwd_source,
          "replaces": "pfn_tpu/ops/flash_attention.py:315", "launches": flash_launches["pfn_flash_bwd_dq"],
          "max_abs_err": bwd["max_abs_err"]["dq"], "ms": bwd["dq_ms"], "plain_ms": bwd["plain_ms"],
          **flash_bound("dq", 16, 2010, 128, 1000), "library_ms": library["sdpa_bwd_ms"],
-         "f32_tabular": tabular_timing["dq"]},
+         "f32_tabular": tabular_timing["dq"], "f32_long": f32_long["dq"]},
         {"name": "pfn_flash_bwd_dkv", "route": "cuda", "design": SM90_DESIGN, "source": bwd_source,
          "replaces": "pfn_tpu/ops/flash_attention.py:340", "launches": flash_launches["pfn_flash_bwd_dkv"],
          "max_abs_err": max(bwd["max_abs_err"]["dk"], bwd["max_abs_err"]["dv"]), "ms": bwd["dkv_ms"],
          "plain_ms": bwd["plain_ms"], **flash_bound("dkv", 16, 2010, 128, 1000),
-         "library_ms": library["sdpa_bwd_ms"], "f32_tabular": tabular_timing["dkv"]},
+         "library_ms": library["sdpa_bwd_ms"], "f32_tabular": tabular_timing["dkv"], "f32_long": f32_long["dkv"]},
         {"name": "pfn_fused_layer_fwd", "route": "cuda", "design": SM90_DESIGN,
          "source": "pfn_tpu_torch/ops/csrc/pfn_fused_layer_fwd.cu",
          "replaces": "pfn_tpu/ops/fused_layer.py:324", "launches": fused_launches,

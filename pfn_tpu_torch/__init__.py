@@ -15,7 +15,10 @@ through the hand-written flash-attention backward kernels → clipped Adam →
 checkpoints and resume, in ``train.train``), the fused-layer path, and the
 tabular classification slice (the MLP/BNN, GP-mix, binarized and mixture
 priors → BCE training → ``PFNClassifier`` → ``evals.tabular``'s PFN
-evaluation). See ROADMAP.md for what remains.
+evaluation), and the Fig-3a scoring path (the linear-regression oracles, the
+MSE validator, and the experiments in ``experiments``, run as
+``python -m pfn_tpu_torch.experiments.<name>``). See ROADMAP.md for what
+remains.
 """
 
 __version__ = "0.1.0"

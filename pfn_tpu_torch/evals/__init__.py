@@ -1,23 +1,36 @@
-"""Evaluation harness, exact-posterior oracles and the tabular PFN
-evaluation."""
+"""Evaluation harness and validator, exact-posterior oracles (GP and linear
+regression) and the tabular PFN evaluation."""
 
 from pfn_tpu_torch.evals.harness import (
+    draw_validation_batch,
     eval_positional_logits_per_dataset,
     eval_positional_loss,
     eval_positional_loss_per_dataset,
+    make_mean_mse_validator,
+    mean_mse,
     pfn_predict,
 )
-from pfn_tpu_torch.evals.oracles import gp_exact_evaluate, gp_exact_posterior_moments
+from pfn_tpu_torch.evals.oracles import (
+    bayes_linreg_posterior,
+    gp_exact_evaluate,
+    gp_exact_posterior_moments,
+    ridge_evaluate,
+)
 from pfn_tpu_torch.evals.tabular import build_windows, evaluate_position_pfn, roc_auc
 
 __all__ = [
+    "bayes_linreg_posterior",
     "build_windows",
+    "draw_validation_batch",
     "eval_positional_logits_per_dataset",
     "eval_positional_loss",
     "eval_positional_loss_per_dataset",
     "evaluate_position_pfn",
     "gp_exact_evaluate",
     "gp_exact_posterior_moments",
+    "make_mean_mse_validator",
+    "mean_mse",
     "pfn_predict",
+    "ridge_evaluate",
     "roc_auc",
 ]

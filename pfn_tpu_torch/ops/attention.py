@@ -11,8 +11,8 @@ kernel path.
     hand-written Hopper kernels, forward and backward.
 
 :func:`pfn_attention` dispatches between them by the JAX package's rule: the
-kernel where ``flash_supported`` holds (a CUDA tensor whose head dim the
-kernels are built for), the dense path elsewhere. The mesh branch of the JAX
+kernel where ``flash_supported`` holds (a CUDA tensor of T >= 256 whose head
+dim the kernels are built for), the dense path elsewhere. The mesh branch of the JAX
 dispatch is not ported (ROADMAP.md queue 1 item 14).
 """
 
@@ -95,7 +95,7 @@ def pfn_attention(q, k, v, single_eval_pos, impl: str = "auto", scale=None):
 
     impl:
       * "auto": the kernel where ``flash_supported(q)`` holds, the dense path
-        elsewhere (a CPU tensor, or a head dim the kernels lack).
+        elsewhere (a CPU tensor, T < 256, or a head dim the kernels lack).
       * "flash": the kernel. It raises on a CPU tensor (the kernel has no CPU
         build) and on a head dim the kernels lack.
       * "prefix": the prefix pass plus the exact self merge; the prefix pass

@@ -31,12 +31,18 @@ def flash_supported_on(device_type: str, head_dim: int) -> bool:
     return device_type == "cuda" and head_dim in _ext.FLASH_HEAD_DIMS
 
 
+# The JAX package's sequence-length threshold (pfn_tpu/ops/flash_attention.py:
+# flash_supported): below it the dense path runs.
+FLASH_MIN_SEQ = 256
+
+
 def flash_supported(q: torch.Tensor) -> bool:
     """Auto-dispatch predicate, the counterpart of the JAX package's
     ``flash_supported``: the kernel path runs where this holds, the dense path
-    elsewhere. It has no sequence-length threshold: where the kernel starts
-    to beat the dense path on Hopper is not measured yet."""
-    return flash_supported_on(q.device.type, q.shape[-1])
+    elsewhere. The JAX rule's T >= 256 (T = ``q.shape[-2]``) is kept; its
+    D % 128 == 0 becomes the head dims the kernels are built for (32, 64,
+    128), a deviation."""
+    return q.shape[-2] >= FLASH_MIN_SEQ and flash_supported_on(q.device.type, q.shape[-1])
 
 
 def _allowed(Tq: int, Tk: int, sep, valid_len, include_diag: bool, device) -> torch.Tensor:

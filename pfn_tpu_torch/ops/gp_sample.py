@@ -204,31 +204,36 @@ def grid_normals(batch_size: int, seq_len: int, grid_size: int, method: str = "f
     return idx, latent, eps
 
 
+def grid_latent_from_normals(latent, batch_size: int, grid_size: int, lengthscale: float, outputscale: float,
+                             method: str = "fft"):
+    """The latent GP fields on the fixed G-point grid over [0, 1] from the
+    normals of :func:`grid_normals`: returns (grid (G,), f (B, G)), f32 on
+    the normals' device. "fft" uses the circulant spectral factor,
+    w = ifft(sqrt(lam) * (a + i b)) * sqrt(M), whose real and imaginary parts
+    are two independent fields; "chol" multiplies by the dense f64-factored
+    Cholesky factor."""
+    if method == "fft":
+        a, b = latent
+        grid, sqrt_lam, M = _circulant_sqrt_eigs(grid_size, float(lengthscale), float(outputscale), a.device)
+        w = torch.fft.ifft(sqrt_lam.to(torch.complex64) * torch.complex(a.float(), b.float()), dim=-1)
+        w = w * math.sqrt(M)
+        return grid, torch.cat([w.real, w.imag], dim=0)[:batch_size, :grid_size]
+    if method == "chol":
+        grid, L = _grid_factor(grid_size, float(lengthscale), float(outputscale), latent.device)
+        _require_full_precision(L)
+        return grid, torch.matmul(latent.float(), L.T)
+    raise ValueError(f"unknown grid method {method!r}")
+
+
 def gp_sample_paths_grid_from_normals(idx, latent, eps, grid_size: int, lengthscale: float,
                                       outputscale: float, noise, method: str = "fft"):
     """Grid GP draws from given normals: returns (x (B, T, 1), y (B, T)).
 
-    The latent f is drawn on a fixed G-point grid over [0, 1] and each
-    dataset reads its x off the grid: x = grid[idx], y = f[idx] +
-    sqrt(noise) * eps. "fft" uses the circulant spectral factor,
-    w = ifft(sqrt(lam) * (a + i b)) * sqrt(M), whose real and imaginary parts
-    are two independent fields; "chol" multiplies by the dense f64-factored
-    Cholesky factor.
+    The latent f is drawn on a fixed G-point grid over [0, 1]
+    (:func:`grid_latent_from_normals`) and each dataset reads its x off the
+    grid: x = grid[idx], y = f[idx] + sqrt(noise) * eps.
     """
-    device = idx.device
-    B = idx.shape[0]
-    if method == "fft":
-        grid, sqrt_lam, M = _circulant_sqrt_eigs(grid_size, float(lengthscale), float(outputscale), device)
-        a, b = latent
-        w = torch.fft.ifft(sqrt_lam.to(torch.complex64) * torch.complex(a.float(), b.float()), dim=-1)
-        w = w * math.sqrt(M)
-        f_grid = torch.cat([w.real, w.imag], dim=0)[:B, :grid_size]
-    elif method == "chol":
-        grid, L = _grid_factor(grid_size, float(lengthscale), float(outputscale), device)
-        _require_full_precision(L)
-        f_grid = torch.matmul(latent.float(), L.T)
-    else:
-        raise ValueError(f"unknown grid method {method!r}")
+    grid, f_grid = grid_latent_from_normals(latent, idx.shape[0], grid_size, lengthscale, outputscale, method)
     x = grid[idx][..., None]
     f = torch.gather(f_grid, 1, idx)
     # A Python-float noise becomes a 0-dim CPU tensor, which multiplies a

@@ -2,7 +2,8 @@
 
   * Every pfn_tpu_torch module imports with jax blocked, and importing
     builds, loads or launches nothing.
-  * No source of the port, and not chip_smoke.py, imports jax or pfn_tpu.
+  * No source of the port, and not chip_smoke.py, imports jax or pfn_tpu;
+    the Fig-3a experiments run with both blocked.
   * The kernel wrappers refuse CPU tensors (they never fall back).
   * A library's build hash covers every header under csrc/, so an edited
     header rebuilds the libraries that include it.
@@ -48,6 +49,38 @@ def test_every_module_imports_with_jax_blocked():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 20
+
+
+_EXPERIMENTS = ("gp_fitting", "fig3a_longrun", "fig3a_analytic_gap", "fig3a_robust_eval", "grid_fidelity")
+
+_RUN_EXPERIMENT_HELP = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["pfn_tpu"] = None
+name = sys.argv[1]
+sys.argv = [name, "--help"]
+try:
+    runpy.run_module("pfn_tpu_torch.experiments." + name, run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(m for m, mod in sys.modules.items()
+             if mod is not None and (m == "pfn_tpu" or m.startswith(("pfn_tpu.", "jax"))))
+assert not bad, bad
+assert "pfn_tpu_torch.evals.oracles" in sys.modules
+"""
+
+
+@pytest.mark.parametrize("name", _EXPERIMENTS)
+def test_experiments_run_with_jax_and_pfn_tpu_blocked(name):
+    """Each Fig-3a experiment, as ``python -m pfn_tpu_torch.experiments.<name>``,
+    loads with jax and the JAX package blocked (its evals and experiments
+    modules import neither), and its sources are among the files
+    test_no_jax_import reads."""
+    assert PACKAGE / "experiments" / f"{name}.py" in set(PACKAGE.rglob("*.py"))
+    proc = subprocess.run([sys.executable, "-c", _RUN_EXPERIMENT_HELP, name], cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "--device" in proc.stdout
 
 
 def _imported_roots(path: Path) -> set:

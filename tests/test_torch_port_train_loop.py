@@ -7,6 +7,7 @@ on the card.
 
 import dataclasses
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -15,7 +16,7 @@ import torch
 from pfn_tpu_torch.distributions import get_bucket_limits
 from pfn_tpu_torch.inference import PFNRegressor
 from pfn_tpu_torch.ops import attention as tattn
-from pfn_tpu_torch.ops.flash_attention import flash_supported, flash_supported_on
+from pfn_tpu_torch.ops.flash_attention import FLASH_MIN_SEQ, flash_supported, flash_supported_on
 from pfn_tpu_torch.priors import GPPrior, sample_y_for_buckets
 from pfn_tpu_torch.train import TrainConfig, TrainState, bar_criterion, build_model, train
 from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step
@@ -157,17 +158,41 @@ def test_unported_options_raise_naming_their_roadmap_item(criterion, over, kwarg
         train(PRIOR, criterion, _cfg(**over), **kwargs)
 
 
+def _on_card(B, H, T, D):
+    """What flash_supported reads of a CUDA tensor (its shape and device),
+    without a card."""
+    return SimpleNamespace(shape=(B, H, T, D), device=torch.device("cuda"))
+
+
 def test_flash_supported_is_the_auto_dispatch_rule():
-    """The kernels serve CUDA tensors with head dims 32, 64 or 128. With the
-    TrainConfig defaults (emsize 200, 2 heads: head dim 100) training on the
-    card takes the dense path, as the JAX package does; the Fig-3a width
-    (emsize 512, 4 heads) takes the kernels."""
+    """The kernels serve CUDA tensors of T >= 256 with head dims 32, 64 or
+    128: the JAX package's rule (pfn_tpu/ops/flash_attention.py:
+    flash_supported, T >= 256 and D % 128 == 0), with its D rule replaced by
+    the head dims the kernels are built for (a deviation: chip_smoke.py
+    builds and holds D 32 and 64 too). With the TrainConfig defaults (emsize
+    200, 2 heads: head dim 100) training on the card takes the dense path, as
+    the JAX package does; the Fig-3a width (emsize 512, 4 heads) at T 2010
+    takes the kernels, and the bench.py flagship and the tabular path (T 100)
+    the dense path."""
     defaults = TrainConfig()
     assert not flash_supported_on("cuda", defaults.emsize // defaults.nhead)
     assert flash_supported_on("cuda", 512 // 4)
     assert all(flash_supported_on("cuda", d) for d in (32, 64, 128))
     assert not flash_supported_on("cpu", 128)
     assert not flash_supported(torch.zeros(1, 2, 8, 64))
+    assert not flash_supported(torch.zeros(1, 2, 256, 64))
+    assert flash_supported(_on_card(25, 4, 2010, 128))
+    assert not flash_supported(_on_card(64, 4, 100, 128))
+    assert not flash_supported(_on_card(64, 4, 2010, 100))
+
+
+@pytest.mark.parametrize("T,want", [(100, False), (255, False), (256, True), (257, True), (2010, True)])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_supported_holds_the_reference_seq_threshold(T, D, want):
+    """T >= 256 at every head dim the kernels take, as the JAX rule; the
+    prefix merge applies the same predicate to the full keys."""
+    assert flash_supported(_on_card(2, 4, T, D)) is want
+    assert FLASH_MIN_SEQ == 256
 
 
 def test_device_default_needs_a_card(monkeypatch, criterion):
