@@ -9,13 +9,16 @@ Phases, each printing one JSON line:
   2. build: compiles the CUDA sources of the checkout, one nvcc each, all at
      once, and reports ptxas's registers and spills of every kernel, by name,
      and nvcc's warnings; fails if a bf16 flash kernel, the fused layer's
-     GEMM or its attention kernels (the *_sm90 bodies) spills, and names the
-     kernels it checked.
+     GEMM or its attention kernels (the *_sm90 bodies), or the flash f32
+     forward or dk/dv body (fwd_f32, dkv_f32) spills, and names the kernels
+     it checked.
   3. kernel: the PFN flash-attention forward kernel, both variants, against
      its plain dense f32 version over FLASH_CASES: T in {127, 128, 129, 2010}
      with sep in {0, 1, T//2, T-1}, and T in {255, 256, 257} with sep in {0,
-     1, 127, 128, 129, T-1} (the sm_90a body's 128-row tile edges); head dim
-     in {32, 64, 128}, f32 and bf16, plus Tq != Tk for the prefix variant.
+     1, 127, 128, 129, T-1} (the sm_90a body's 128-row tile edges), and the
+     f32 bodies' edges F32_EDGES (T and sep around 64, T around 384 with sep
+     around 256); head dim in {32, 64, 128}, f32 and bf16, plus Tq != Tk for
+     the prefix variant (with Tq 255/256/257 against Tk 385).
      Then kernel_timing: its time beside the plain version's at the
      main-path shape (B*H = 32, T = 2010, D = 128, bf16), held to the bf16
      budget at every sep of TIMING_SEPS, with TFLOP/s and the share of the
@@ -23,7 +26,8 @@ Phases, each printing one JSON line:
   4. kernel_bwd: the dq and dk/dv kernels of the backward, both variants,
      against their plain dense f32 version over the same grid and the dk/dv
      kernel's own edges, DKV_EDGES (the prefix variant with a nonzero dlse,
-     and Tq 63/64/65 against Tk 257); f32 at atol = rtol = 1e-4, bf16 by
+     and Tq 63/64/65 against Tk 257), and the f32 edges with Tq 255/256/257
+     against Tk 385; f32 at atol = rtol = 1e-4, bf16 by
      experiments/flash_equivalence.py's rule against the dense bf16 path's
      own error; a repeat backward bitwise equal; then autograd through
      pfn_attention(impl="flash") and impl="prefix" on the card against the
@@ -71,7 +75,11 @@ Phases, each printing one JSON line:
      their plain versions, the unfused PFNEncoderLayer's backward (events
      and device time) and the bound; a device profile of one call of each
      (every device kernel), its host time per call and its device kernels
-     per layer.
+     per layer. Then fused_f32_timing: the three fused kernels' f32 FMA
+     bodies at the flagship shape and sep, held to their plain versions and
+     timed beside them, beside the unfused f32 PFNEncoderLayer (dense
+     attention at T 100) forward and backward, events and device time, and
+     the f32 bound (67 TFLOP/s, 3.35 TB/s).
  12. fused_path: fused_forward at the bench.py flagship model (6 layers, 100
      buckets, bf16, seeded weights, 64 GP datasets of T = 100): logits
      against the unfused forward in bf16 and f32, the kernel launched once
@@ -107,15 +115,23 @@ Phases, each printing one JSON line:
      the weights are trained a few steps). Then tabular_kernel_timing: the
      flash kernels' f32 bodies at B*H = 1024, T = 100, D = 128, sep 30,
      against their plain versions, their f32 bounds and SDPA with the PFN
-     mask.
+     mask; then in the prefix variant against SDPA with the prefix mask;
+     repeat calls of each body bitwise equal in both variants.
  16. dispatch: impl="dense" against impl="flash" at T 100 and 256, forward
      and forward + backward, bf16 at the bench.py flagship (B 64, H 4, D 128,
      sep 50) and f32 at the tabular shape (B*H 1024, sep 30), each flash
      output held to the dense f32 path; the auto rule on the card: dense at
      T 100 and 255, the kernels at T 256 and 2010.
  17. f32_long_timing: the f32 bodies at T 2010, D 128, sep 1000 (forward at
-     B*H 32, backward at B*H 16) against their plain versions, f32 bounds and
-     SDPA with the PFN mask in f32.
+     B*H 32, backward at B*H 16), both variants, as tabular_kernel_timing.
+     Then f32_path: the f32 bodies on a user's path, F32_PATH: gp_fitting's
+     full configuration at the Fig-3a width in f32 (TrainConfig's default
+     dtype) at T 2010, trained through train(...) for 2 epochs of 2 updates
+     of 4 microbatches, served through PFNRegressor at context 1000 on 8
+     datasets; each f32 body launched exactly once per layer per microbatch
+     (and the forward once per layer per request); one update against the
+     dense f32 path (relative F32_PATH_TOL); update time, datasets/s and a
+     profile of one update (its idle share; the f32 bodies in it).
  18. fig3a: the ported Fig-3a experiments (pfn_tpu_torch.experiments) at the
      full width on the round-5 recipe (FIG3A_EXPERIMENTS), seeded weights:
      fig3a_longrun 1 epoch on the grid-8192 sampler, a resume to 2 with its
@@ -132,7 +148,9 @@ Phases, each printing one JSON line:
 Then the kernels line (each kernel's launches on its path, error, time,
 plain time, bound and library time, for the fused kernels also the library
 call's device time, for the flash kernels also their f32 rows at T 100 and
-T 2010; its route, and the design of its bf16 body), the run's seconds, and
+T 2010 (and the prefix variant's at T 2010), the f32 rows at T 2010 with
+their launches on f32_path, for the fused kernels their f32 rows; its
+route, and the design of its bf16 body), the run's seconds, and
 last {"ok": true, "device": {...}}.
 
 Any failure raises, so the script exits nonzero and prints no result line.
@@ -196,14 +214,38 @@ FIG3A_EXPERIMENTS = dict(T=2010, buckets=10_000, bucket_seq_cap=128, grid=8192, 
 # The f32 bodies at the bf16 rows' shapes: T = 2010, D = 128, sep 1000, the
 # forward at B*H 32 and the backward at B*H 16.
 F32_LONG_SHAPE = dict(fwd_BH=32, bwd_BH=16, T=2010, D=128, sep=1000)
+# The f32 path at the Fig-3a width: gp_fitting's full configuration
+# (pfn_tpu_torch/experiments/gp_fitting.py:59-64: emsize 512, 4 heads of 128,
+# nhid 1024, 6 layers, bptt 2010, batch 4, lr 1e-4, warmup 20 epochs, the
+# weighted sampler capped at 2000, 1000 buckets, the exact GP prior with
+# noise 1e-4, outputscale 1, lengthscale 0.6) at TrainConfig's default dtype,
+# f32, in place of its bf16. Cut in the schedule only: 4 microbatches an
+# update in place of 25, 2 epochs of 2 updates; served through PFNRegressor
+# at context 1000 on 8 datasets.
+F32_PATH = dict(T=2010, emsize=512, nhead=4, nhid=1024, nlayers=6, batch_size=4, agg=4, updates=2, buckets=1000,
+                lr=1e-4, warmup_epochs=20, timed_updates=4, n_ctx=1000, datasets=8)
+# One f32 update on the kernel path against the dense f32 path: loss and
+# gradient norm, relative (f32 summation-order differences through 6 layers
+# and back, as FUSED_TRAIN_F32_TOL).
+F32_PATH_TOL = 1e-4
 # Device kernels of the flash f32 bodies, as the profiler names them.
 FLASH_F32_KERNELS = {"pfn_flash_fwd": "fwd_f32", "pfn_flash_bwd_dq": "dq_f32", "pfn_flash_bwd_dkv": "dkv_f32"}
 TIMING_SEPS = [400, 1000, 2000]
-# The flash kernels' agreement grid: (T, sep) over the edges of the first
-# port's 64-row tiles at T in {127, 128, 129, 2010}, and of the 128-row query
-# and 128-key tiles of the sm_90a bodies at T in {255, 256, 257}.
+# The flash kernels' agreement grid: (T, sep) over the edges of the 64-row
+# tiles at T in {127, 128, 129, 2010}, of the 128-row query and 128-key tiles
+# of the sm_90a bodies at T in {255, 256, 257}, and F32_EDGES.
+# Edges of the f32 bodies (fwd_f32: 64-row query tiles below T 256, 128-row
+# ones from there on, 64-key KV tiles; dkv_f32: 64-key units, 64-row query
+# steps) that the rest of the grid does not straddle: T and sep one short
+# of, at and one past 64, and T around three 128-row tiles with sep around
+# four 64-key tiles; in the prefix variant also Tq across 256, where the
+# forward's tile height changes, against F32_PREFIX_EDGE
+# (tests/test_torch_port_flash_f32_edges.py holds the plain versions to the
+# JAX package at these edges).
+F32_EDGES = [(63, 62), (64, 63), (65, 64), (383, 255), (384, 256), (385, 257)]
+F32_PREFIX_EDGE, F32_PREFIX_TQ = (385, 257), [255, 256, 257]
 FLASH_CASES = ([(T, sep) for T in (127, 128, 129, 2010) for sep in sorted({0, 1, T // 2, T - 1})]
-               + [(T, sep) for T in (255, 256, 257) for sep in sorted({0, 1, 127, 128, 129, T - 1})])
+               + [(T, sep) for T in (255, 256, 257) for sep in sorted({0, 1, 127, 128, 129, T - 1})] + F32_EDGES)
 # Edges of the bf16 dk/dv kernel that FLASH_CASES does not straddle, added to
 # the backward's grid: sep one past the first 64-key half of its 128-key
 # tile, and at the second tile's halves; in the prefix variant also Tq one
@@ -247,6 +289,10 @@ FUSED_TRAIN_F32_TOL = 1e-4
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
+# Name fragments of the kernels whose registers must not spill: the Hopper
+# bodies (bf16 flash, fused GEMM and attention) and the flash kernels' f32
+# forward and dk/dv bodies.
+SPILL_CHECKED = ("_sm90<", "fwd_f32<", "dkv_f32<")
 # The design of each kernel's bf16 body, beside its route in the kernels line.
 SM90_DESIGN = "sm90-wgmma-tma"  # wgmma fed by TMA through an mbarrier ring (pfn_flash_sm90.cuh, pfn_gemm_sm90.cuh)
 # The device kernels a bf16 call of the fused forward may launch (name
@@ -380,32 +426,36 @@ def rate(kind: str, BH: int, T: int, D: int, sep: int, ms: float, include_diag: 
             "pct_of_bound": 100.0 * flash_bound(kind, BH, T, D, sep, include_diag)["bound_ms"] / ms}
 
 
-def fused_layer_bound(B: int, T: int, D: int, H: int, F: int, sep: int) -> dict:
-    """Bound of the fused layer forward in bf16: the four GEMMs and the
-    attention's allowed pairs; x read and y, r, lse written in f32, the
-    weights in bf16, the biases and LayerNorm parameters in f32."""
-    M = B * T
+def fused_layer_bound(B: int, T: int, D: int, H: int, F: int, sep: int, dtype: str = "bf16") -> dict:
+    """Bound of the fused layer forward in ``dtype`` ("bf16": the tensor
+    cores; "f32": the FMA units): the four GEMMs and the attention's allowed
+    pairs; x read and y, r, lse written in f32, the weights in the compute
+    dtype, the biases and LayerNorm parameters in f32."""
+    M, c = B * T, 2 if dtype == "bf16" else 4
     flops = 2 * M * D * 3 * D + 2 * M * D * D + 4 * M * D * F + 4 * (D // H) * B * H * pfn_pairs(T, sep)
-    nbytes = 3 * M * D * 4 + M * H * 4 + 2 * (4 * D * D + 2 * D * F) + 4 * (9 * D + F)
-    return {"gflop": flops / 1e9, "mbytes": nbytes / 1e6, **bound(flops, nbytes)}
+    nbytes = 3 * M * D * 4 + M * H * 4 + c * (4 * D * D + 2 * D * F) + 4 * (9 * D + F)
+    peak = PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_F32_FLOPS
+    return {"gflop": flops / 1e9, "mbytes": nbytes / 1e6, **bound(flops, nbytes, peak)}
 
 
-def fused_layer_bwd_bound(kind: str, B: int, T: int, D: int, H: int, F: int, sep: int) -> dict:
-    """Bound of one of the fused layer's backward kernels in bf16, counting
-    the products of the TPU kernel's body with its recompute. ffn: h1, f and
-    their three gradients' products, six of 2 M D F; reads r and dy, writes
-    dr (f32), the FFN weights in bf16 and their gradients in f32. attn: qkv,
-    ao, dWout, dO, dWqkv, dx, 24 M D^2 in all, and six products (s, o, dp,
-    dq, dk, dv) over the allowed pairs; reads x, dr, lse, writes dx, the
-    attention weights in bf16 and their gradients in f32."""
-    M = B * T
+def fused_layer_bwd_bound(kind: str, B: int, T: int, D: int, H: int, F: int, sep: int, dtype: str = "bf16") -> dict:
+    """Bound of one of the fused layer's backward kernels in ``dtype`` (as
+    :func:`fused_layer_bound`), counting the products of the TPU kernel's
+    body with its recompute. ffn: h1, f and their three gradients' products,
+    six of 2 M D F; reads r and dy, writes dr (f32), the FFN weights in the
+    compute dtype and their gradients in f32. attn: qkv, ao, dWout, dO,
+    dWqkv, dx, 24 M D^2 in all, and six products (s, o, dp, dq, dk, dv) over
+    the allowed pairs; reads x, dr, lse, writes dx, the attention weights in
+    the compute dtype and their gradients in f32."""
+    M, c = B * T, 2 if dtype == "bf16" else 4
     if kind == "ffn":
         flops = 12 * M * D * F
-        nbytes = 3 * M * D * 4 + 2 * D * F * 2 + 2 * D * F * 4 + 4 * (2 * F + 5 * D)
+        nbytes = 3 * M * D * 4 + 2 * D * F * c + 2 * D * F * 4 + 4 * (2 * F + 5 * D)
     else:
         flops = 24 * M * D * D + 12 * (D // H) * B * H * pfn_pairs(T, sep)
-        nbytes = 3 * M * D * 4 + M * H * 4 + 4 * D * D * 2 + 4 * D * D * 4 + 4 * (11 * D)
-    return {"gflop": flops / 1e9, "mbytes": nbytes / 1e6, **bound(flops, nbytes)}
+        nbytes = 3 * M * D * 4 + M * H * 4 + 4 * D * D * c + 4 * D * D * 4 + 4 * (11 * D)
+    peak = PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_F32_FLOPS
+    return {"gflop": flops / 1e9, "mbytes": nbytes / 1e6, **bound(flops, nbytes, peak)}
 
 
 def device_profile(fn, top: int = 8) -> dict:
@@ -500,6 +550,13 @@ def ptxas_report(log: str) -> list:
     return kernels
 
 
+def _spill_checked(kernel: str) -> bool:
+    """Whether phase_build refuses a spill in ``kernel`` (a demangled name):
+    the bf16 bodies and the fused layer's Hopper kernels (*_sm90), and the
+    flash kernels' f32 forward and dk/dv bodies."""
+    return any(tag in kernel for tag in SPILL_CHECKED)
+
+
 def phase_build():
     import re
 
@@ -512,17 +569,17 @@ def phase_build():
                      "library": str(Path(info["path"]).relative_to(ROOT)), "ptxas": ptxas_report(info["log"]),
                      "warnings": [line.strip() for line in info["log"].splitlines() if "warning" in line.lower()]}
               for name, info in libraries.items()}
-    # The bf16 Hopper bodies keep their accumulators in registers: a spill
-    # there is a regression. (Only a fresh build carries ptxas's report.)
+    # The Hopper bodies keep their accumulators in registers: a spill there is
+    # a regression. (Only a fresh build carries ptxas's report.)
     checked = {name: sorted({k["kernel"].split("(")[0].removeprefix("void ") for k in lib["ptxas"]
-                             if "_sm90<" in k["kernel"]}) for name, lib in report.items()}
+                             if _spill_checked(k["kernel"])}) for name, lib in report.items()}
     # No fallback in the fused forward: every kernel of its library that
     # takes bf16 is one of the Hopper chain's.
     fwd_bf16 = sorted({k["kernel"] for k in report["pfn_fused_layer_fwd"]["ptxas"]
                        if "bfloat16" in k["kernel"] or "_sm90" in k["kernel"]})
     emit({"phase": "build", "seconds": seconds, "libraries": report, "spill_checked": checked,
           "fused_fwd_bf16_kernels": fwd_bf16})
-    for k in (k for lib in report.values() for k in lib["ptxas"] if "_sm90<" in k["kernel"]):
+    for k in (k for lib in report.values() for k in lib["ptxas"] if _spill_checked(k["kernel"])):
         spilled = [int(n) for n in re.findall(r"(\d+) bytes spill", k.get("spills", ""))]
         if any(spilled):
             raise AssertionError(f"{k['kernel']} spills: {k['spills']}")
@@ -549,7 +606,8 @@ def phase_kernel_cases(device):
     for include_diag in (True, False):
         variant = "diag" if include_diag else "prefix"
         for T, sep in FLASH_CASES:
-            for Tq in ([T] if include_diag else [T, T // 2 + 1]):
+            tqs = [T] if include_diag else [T, T // 2 + 1] + (F32_PREFIX_TQ if (T, sep) == F32_PREFIX_EDGE else [])
+            for Tq in tqs:
                 for D in (32, 64, 128):
                     for dtype in (torch.float32, torch.bfloat16):
                         q = torch.randn(B, H, Tq, D, generator=g, device=device).to(dtype)
@@ -695,7 +753,8 @@ def phase_kernel_bwd_cases(device):
     for include_diag in (True, False):
         variant = "diag" if include_diag else "prefix"
         for T, sep in FLASH_CASES + DKV_EDGES:
-            tqs = [T] if include_diag else [T, T // 2 + 1] + (DKV_PREFIX_TQ if (T, sep) in DKV_EDGES else [])
+            tqs = [T] if include_diag else [T, T // 2 + 1] + (DKV_PREFIX_TQ if (T, sep) in DKV_EDGES else []) + (
+                F32_PREFIX_TQ if (T, sep) == F32_PREFIX_EDGE else [])
             for Tq in tqs:
                 for D in (32, 64, 128):
                     for dtype in (torch.float32, torch.bfloat16):
@@ -777,19 +836,20 @@ def phase_kernel_bwd_cases(device):
 
 
 def _repeat_bitwise(qs, k, v, do, lse, delta, sep_t, include_diag: bool, where: str):
-    """(dq, dk, dv) from the two backward kernels, each called twice: a repeat
-    call must give the same bits (no atomics; resume stays bitwise)."""
+    """(dq, dk, dv) from the two backward kernels, bf16 or f32, each called
+    twice: a repeat call must give the same bits (no atomics; resume stays
+    bitwise). ``where`` names the phase and case in the error."""
     import torch
 
     from pfn_tpu_torch.ops import _ext
 
     dq = _ext.flash_bwd_dq(qs, k, v, do, lse, delta, sep_t, include_diag)
     if not torch.equal(dq, _ext.flash_bwd_dq(qs, k, v, do, lse, delta, sep_t, include_diag)):
-        raise AssertionError(f"kernel_bwd_timing: a repeat dq call differs at {where}")
+        raise AssertionError(f"{where}: a repeat dq call differs")
     dk, dv = _ext.flash_bwd_dkv(qs, k, v, do, lse, delta, sep_t, include_diag)
     dk2, dv2 = _ext.flash_bwd_dkv(qs, k, v, do, lse, delta, sep_t, include_diag)
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
-        raise AssertionError(f"kernel_bwd_timing: a repeat dk/dv call differs at {where}")
+        raise AssertionError(f"{where}: a repeat dk/dv call differs")
     return dq, dk, dv
 
 
@@ -816,7 +876,7 @@ def phase_kernel_bwd_timing(device, smi: str):
         sep_t = torch.full((1,), sep, dtype=torch.int32, device=device)
         o, lse = _flash_fwd(qs, kf, vf, sep_t, True)
         delta = (do.float() * o.float()).sum(-1)
-        dq, dk, dv = _repeat_bitwise(qs, kf, vf, do, lse, delta, sep_t, True, f"sep {sep}")
+        dq, dk, dv = _repeat_bitwise(qs, kf, vf, do, lse, delta, sep_t, True, f"kernel_bwd_timing, sep {sep}")
         plain = _flash_bwd_plain(qs, kf, vf, o, lse, do, None, sep_t, T, True)
         o32, lse32 = _flash_fwd_plain(*f32, sep, T, True)
         gold = _flash_bwd_plain(*f32, o32, lse32, do.float(), None, sep, T, True)
@@ -849,7 +909,7 @@ def phase_kernel_bwd_timing(device, smi: str):
     dlse = torch.randn(B * H, T, generator=g, device=device)
     o, lse = _flash_fwd(qs, kf, vf, sep_t, False)
     delta = (do.float() * o.float()).sum(-1) - dlse
-    dq, dk, dv = _repeat_bitwise(qs, kf, vf, do, lse, delta, sep_t, False, "the prefix variant")
+    dq, dk, dv = _repeat_bitwise(qs, kf, vf, do, lse, delta, sep_t, False, "kernel_bwd_timing, the prefix variant")
     plain = _flash_bwd_plain(qs, kf, vf, o, lse, do, dlse, sep_t, T, False)
     dq_ms = cuda_ms(lambda: _ext.flash_bwd_dq(qs, kf, vf, do, lse, delta, sep_t, False))
     dkv_ms = cuda_ms(lambda: _ext.flash_bwd_dkv(qs, kf, vf, do, lse, delta, sep_t, False))
@@ -1411,6 +1471,77 @@ def phase_fused_bwd_timing(device, smi: str, size: dict = FLAGSHIP):
     return rows
 
 
+def phase_fused_f32_timing(device, smi: str, size: dict = FLAGSHIP):
+    """The fused layer's f32 FMA bodies (forward, FFN backward, attention
+    backward) at the flagship shape and sep, each held to its plain version
+    (FUSED_F32_TOL, FUSED_BWD_F32_TOL) and timed beside it, beside the
+    unfused f32 PFNEncoderLayer (dense attention at T 100) forward and
+    backward, by CUDA events and by device time, and beside the bound at 67
+    TFLOP/s and 3.35 TB/s."""
+    import torch
+
+    from pfn_tpu_torch.models import PFNEncoderLayer
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.ops.fused_layer import _bwd_attn_plain, _bwd_ffn_plain, _kernel_params, \
+        fused_layer_bwd_plain, fused_layer_fwd_plain
+
+    B, T, D, H, F, sep = size["B"], size["T"], size["emsize"], size["nhead"], size["nhid"], size["sep"]
+    g = torch.Generator(device=device).manual_seed(12)
+    p = _fused_params(D, F, g, device)
+    kp = _kernel_params(p, torch.float32)
+    x = torch.randn(B, T, D, generator=g, device=device)
+    dy = torch.randn(B, T, D, generator=g, device=device)
+    layer = PFNEncoderLayer(D, H, F, dtype=torch.float32).to(device)
+    _load_layer(layer, p)
+    sep_t = torch.full((1,), sep, dtype=torch.int32, device=device)
+
+    y, r, lse = _ext.fused_layer_fwd(x, kp, sep_t, H)
+    y_plain, r_plain, lse_plain = fused_layer_fwd_plain(x, p, sep_t, H, torch.float32)
+    dr, dp_ffn = _ext.fused_layer_bwd_ffn(r, kp, dy)
+    dx, dp_attn = _ext.fused_layer_bwd_attn(x, kp, lse, dr, sep_t, H)
+    dx_plain, dp_plain = fused_layer_bwd_plain(x, p, sep_t, r, lse, dy, H, torch.float32)
+    dr_plain, _ = _bwd_ffn_plain(r, p, dy, torch.float32)
+    pairs = {"fwd": [(y, y_plain), (r, r_plain), (lse, lse_plain)],
+             "ffn": [(dr, dr_plain)] + [(v, dp_plain[k]) for k, v in dp_ffn.items()],
+             "attn": [(dx, dx_plain)] + [(v, dp_plain[k]) for k, v in dp_attn.items()]}
+    errs = {part: max(max_abs(a, b) for a, b in ab) for part, ab in pairs.items()}
+    for part, ab in pairs.items():
+        tol = FUSED_F32_TOL if part == "fwd" else FUSED_BWD_F32_TOL
+        if not all(torch.allclose(a, b, atol=tol, rtol=tol) for a, b in ab):
+            raise AssertionError(f"fused_f32_timing: the f32 {part} body disagrees with its plain version: {errs}")
+
+    leaves = [x.detach().requires_grad_(), *layer.parameters()]
+    out = layer(leaves[0], sep_t)
+    with torch.no_grad():
+        unfused_fwd = (cuda_ms(lambda: layer(x, sep_t)), device_ms(lambda: layer(x, sep_t)))
+    unfused_bwd = (cuda_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)),
+                   device_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)))
+    calls = {"fwd": (lambda: _ext.fused_layer_fwd(x, kp, sep_t, H),
+                     lambda: fused_layer_fwd_plain(x, p, sep_t, H, torch.float32), unfused_fwd,
+                     fused_layer_bound(B, T, D, H, F, sep, "f32")),
+             "ffn": (lambda: _ext.fused_layer_bwd_ffn(r, kp, dy),
+                     lambda: _bwd_ffn_plain(r, p, dy, torch.float32), unfused_bwd,
+                     fused_layer_bwd_bound("ffn", B, T, D, H, F, sep, "f32")),
+             "attn": (lambda: _ext.fused_layer_bwd_attn(x, kp, lse, dr, sep_t, H),
+                      lambda: _bwd_attn_plain(x, p, sep_t, lse, dr, H, torch.float32), unfused_bwd,
+                      fused_layer_bwd_bound("attn", B, T, D, H, F, sep, "f32"))}
+    rows = {}
+    for part, (kernel, plain, (lib_ms, lib_dev_ms), b) in calls.items():
+        ms, dev = cuda_ms(kernel), device_ms(kernel)
+        rows[part] = {"ms": ms, "dev_ms": dev, "plain_ms": cuda_ms(plain), "library_ms": lib_ms,
+                      "library_dev_ms": lib_dev_ms, "max_abs_err": errs[part], **b,
+                      "pct_of_bound": 100.0 * b["bound_ms"] / ms,
+                      "against_library": ms / lib_ms}
+    # The backward's two kernels together against the unfused backward.
+    both = rows["ffn"]["ms"] + rows["attn"]["ms"]
+    emit({"phase": "fused_f32_timing", "card": smi,
+          "shape": {"B": B, "T": T, "D": D, "H": H, "F": F, "sep": sep, "dtype": "f32"}, "rows": rows,
+          "bwd_both_against_library": both / unfused_bwd[0],
+          "library_note": "the unfused f32 PFNEncoderLayer (dense attention at T 100); the backward's yardstick is "
+                          "its whole backward, against both fused backward kernels"})
+    return rows
+
+
 def phase_fused_path(device, smi: str, size: dict = FLAGSHIP):
     """fused_forward at the bench.py flagship model against the unfused
     forward; the kernel's launches on the fused path; one backward through
@@ -1867,10 +1998,12 @@ def f32_kernel_timing(device, smi: str, phase: str, shape: dict):
     """The f32 bodies of the flash kernels, each against its plain version,
     its f32 bound and SDPA with the boolean PFN mask (forward; backward with
     dq, dk and dv together): the forward at B*H = shape["fwd_BH"], the
-    backward at shape["bwd_BH"] (the leading rows of the same inputs). The
-    phases tabular_kernel_timing (TABULAR_KERNEL_SHAPE, where the tabular
-    path ran them before the T >= 256 rule) and f32_long_timing
-    (F32_LONG_SHAPE: whether an f32 path at T >= 256 loses to SDPA)."""
+    backward at shape["bwd_BH"] (the leading rows of the same inputs); then
+    the prefix variant (include_diag=False, a nonzero dlse) against SDPA with
+    the prefix rule's mask. Repeat calls of each body are bitwise equal in
+    both variants. The phases tabular_kernel_timing (TABULAR_KERNEL_SHAPE,
+    where the tabular path ran them before the T >= 256 rule) and
+    f32_long_timing (F32_LONG_SHAPE: the f32 path's attention shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -1883,56 +2016,205 @@ def f32_kernel_timing(device, smi: str, phase: str, shape: dict):
     g = torch.Generator(device=device).manual_seed(9)
     BH = max(shape["fwd_BH"], shape["bwd_BH"])
     q, k, v, do = (torch.randn(BH, T, D, generator=g, device=device) for _ in range(4))
+    dlse_all = torch.randn(BH, T, generator=g, device=device)
     sep_t = torch.full((1,), sep, dtype=torch.int32, device=device)
-    mask = pfn_mask(T, sep, device=device)
+    masks = {True: pfn_mask(T, sep, device=device),
+             False: (torch.arange(T, device=device) < sep)[None, :].expand(T, T)}
 
-    # The forward at fwd_BH.
-    n = shape["fwd_BH"]
-    qs, kn, vn = q[:n] * D**-0.5, k[:n], v[:n]
-    o, lse = _flash_fwd(qs, kn, vn, sep_t, True)
-    o_plain, lse_plain = _flash_fwd_plain(qs, kn, vn, sep, T, True)
-    errs = {"fwd": max(max_abs(o, o_plain), max_abs(lse, lse_plain))}
-    if not torch.allclose(o, o_plain, atol=F32_TOL, rtol=F32_TOL):
-        raise AssertionError(f"{phase}: the f32 forward disagrees with its plain version: {errs}")
-    q4, k4, v4 = (t[:n].reshape(n // H, H, T, D) for t in (q, k, v))
-    with torch.no_grad():
-        sdpa_err = max_abs(F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask).reshape(n, T, D), o)
-        sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask))
-    times = {"fwd": (n, cuda_ms(lambda: _flash_fwd(qs, kn, vn, sep_t, True)),
-                     cuda_ms(lambda: _flash_fwd_plain(qs, kn, vn, sep_t, T, True)), sdpa_fwd_ms)}
+    rows, sdpa_errs = {}, {}
+    for include_diag in (True, False):
+        mask, tag = masks[include_diag], "" if include_diag else "_prefix"
+        where = f"{phase}, {'diag' if include_diag else 'prefix'}"
+        # The forward at fwd_BH.
+        n = shape["fwd_BH"]
+        qs, kn, vn = q[:n] * D**-0.5, k[:n], v[:n]
+        o, lse = _flash_fwd(qs, kn, vn, sep_t, include_diag)
+        o_plain, lse_plain = _flash_fwd_plain(qs, kn, vn, sep, T, include_diag)
+        errs = {"fwd": max(max_abs(o, o_plain), max_abs(lse, lse_plain))}
+        if not (torch.allclose(o, o_plain, atol=F32_TOL, rtol=F32_TOL)
+                and torch.allclose(lse, lse_plain, atol=F32_TOL, rtol=F32_TOL)):
+            raise AssertionError(f"{where}: the f32 forward disagrees with its plain version: {errs}")
+        o2, lse2 = _flash_fwd(qs, kn, vn, sep_t, include_diag)
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"{where}: a repeat f32 forward call differs")
+        q4, k4, v4 = (t[:n].reshape(n // H, H, T, D) for t in (q, k, v))
+        with torch.no_grad():
+            sdpa = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask).reshape(n, T, D)
+            # SDPA gives a row with no allowed key NaN; the kernel gives 0.
+            sdpa_errs["fwd" + tag] = max_abs(torch.nan_to_num(sdpa), o)
+            sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask))
+        times = {"fwd": (n, cuda_ms(lambda: _flash_fwd(qs, kn, vn, sep_t, include_diag)),
+                         cuda_ms(lambda: _flash_fwd_plain(qs, kn, vn, sep_t, T, include_diag)), sdpa_fwd_ms)}
 
-    # The backward at bwd_BH.
-    n = shape["bwd_BH"]
-    qs, kn, vn, don = q[:n] * D**-0.5, k[:n], v[:n], do[:n]
-    o, lse = _flash_fwd(qs, kn, vn, sep_t, True)
-    delta = (don * o).sum(-1)
-    dq = _ext.flash_bwd_dq(qs, kn, vn, don, lse, delta, sep_t, True)
-    dk, dv = _ext.flash_bwd_dkv(qs, kn, vn, don, lse, delta, sep_t, True)
-    plain = _flash_bwd_plain(qs, kn, vn, o, lse, don, None, sep_t, T, True)
-    errs.update({"dq": max_abs(dq, plain[0]), "dkv": max(max_abs(dk, plain[1]), max_abs(dv, plain[2]))})
-    if not all(torch.allclose(a, b, atol=F32_GRAD_TOL, rtol=F32_GRAD_TOL) for a, b in zip((dq, dk, dv), plain)):
-        raise AssertionError(f"{phase}: the f32 backward kernels disagree with their plain version: {errs}")
-    leaves = [t[:n].reshape(n // H, H, T, D).detach().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
-    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do[:n].reshape(n // H, H, T, D),
-                                                      retain_graph=True))
-    bwd_plain_ms = cuda_ms(lambda: _flash_bwd_plain(qs, kn, vn, o, lse, don, None, sep_t, T, True))
-    times["dq"] = (n, cuda_ms(lambda: _ext.flash_bwd_dq(qs, kn, vn, don, lse, delta, sep_t, True)), bwd_plain_ms,
-                   sdpa_bwd_ms)
-    times["dkv"] = (n, cuda_ms(lambda: _ext.flash_bwd_dkv(qs, kn, vn, don, lse, delta, sep_t, True)), bwd_plain_ms,
-                    sdpa_bwd_ms)
+        # The backward at bwd_BH.
+        n = shape["bwd_BH"]
+        qs, kn, vn, don = q[:n] * D**-0.5, k[:n], v[:n], do[:n]
+        dlse = None if include_diag else dlse_all[:n]
+        o, lse = _flash_fwd(qs, kn, vn, sep_t, include_diag)
+        delta = (don * o).sum(-1) - (0.0 if dlse is None else dlse)
+        dq, dk, dv = _repeat_bitwise(qs, kn, vn, don, lse, delta, sep_t, include_diag, where)
+        plain = _flash_bwd_plain(qs, kn, vn, o, lse, don, dlse, sep_t, T, include_diag)
+        errs.update({"dq": max_abs(dq, plain[0]), "dkv": max(max_abs(dk, plain[1]), max_abs(dv, plain[2]))})
+        if not all(torch.allclose(a, b, atol=F32_GRAD_TOL, rtol=F32_GRAD_TOL) for a, b in zip((dq, dk, dv), plain)):
+            raise AssertionError(f"{where}: the f32 backward kernels disagree with their plain version: {errs}")
+        leaves = [t[:n].reshape(n // H, H, T, D).detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do[:n].reshape(n // H, H, T, D),
+                                                          retain_graph=True))
+        bwd_plain_ms = cuda_ms(lambda: _flash_bwd_plain(qs, kn, vn, o, lse, don, dlse, sep_t, T, include_diag))
+        times["dq"] = (n, cuda_ms(lambda: _ext.flash_bwd_dq(qs, kn, vn, don, lse, delta, sep_t, include_diag)),
+                       bwd_plain_ms, sdpa_bwd_ms)
+        times["dkv"] = (n, cuda_ms(lambda: _ext.flash_bwd_dkv(qs, kn, vn, don, lse, delta, sep_t, include_diag)),
+                        bwd_plain_ms, sdpa_bwd_ms)
 
-    rows = {}
-    for kind, (n, ms, plain_ms, lib_ms) in times.items():
-        b = flash_bound(kind, n, T, D, sep, dtype="f32")
-        rows[kind] = {"BH": n, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "max_abs_err": errs[kind], **b,
-                      "pct_of_bound": 100.0 * b["bound_ms"] / ms, "gflop": flash_flops(kind, n, T, D, sep) / 1e9}
+        for kind, (n, ms, plain_ms, lib_ms) in times.items():
+            b = flash_bound(kind, n, T, D, sep, include_diag, dtype="f32")
+            rows[kind + tag] = {"BH": n, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                "max_abs_err": errs[kind], **b, "pct_of_bound": 100.0 * b["bound_ms"] / ms,
+                                "gflop": flash_flops(kind, n, T, D, sep, include_diag) / 1e9}
     emit({"phase": phase, "card": smi, "shape": {**shape, "dtype": "f32", "H": H}, "rows": rows,
-          "against_library": {"fwd": rows["fwd"]["ms"] / sdpa_fwd_ms,
-                              "dq_plus_dkv": (rows["dq"]["ms"] + rows["dkv"]["ms"]) / sdpa_bwd_ms},
-          "plain_note": "the bwd plain time is dq, dk and dv together", "sdpa_vs_kernel_max_abs": sdpa_err,
-          "library_note": "SDPA with the boolean PFN mask in f32; its backward computes dq, dk and dv together"})
+          "against_library": {f"{kind}{tag}": rows[f"{kind}{tag}"]["ms"] / rows[f"{kind}{tag}"]["library_ms"]
+                              for kind in ("fwd", "dq", "dkv") for tag in ("", "_prefix")}
+          | {f"dq_plus_dkv{tag}": (rows[f"dq{tag}"]["ms"] + rows[f"dkv{tag}"]["ms"]) / rows[f"dq{tag}"]["library_ms"]
+             for tag in ("", "_prefix")},
+          "sdpa_vs_kernel_max_abs": sdpa_errs, "repeat_bitwise_equal": True,
+          "plain_note": "the bwd plain time is dq, dk and dv together",
+          "library_note": "SDPA in f32 with the boolean PFN mask (_prefix: the prefix rule's mask); its backward "
+                          "computes dq, dk and dv together"})
     return rows
+
+
+def phase_f32_path(device, smi: str, size: dict = F32_PATH):
+    """The flash kernels' f32 bodies on a path a user runs: train(...) at the
+    Fig-3a width in f32 (F32_PATH) for 2 epochs of 2 updates, then
+    PFNRegressor serving held-out datasets at context 1000. Every f32 body
+    must launch on it, once per layer per microbatch (dq, dk/dv) and once per
+    layer per forward (the forward); one update on the kernel path against
+    the dense f32 path; update time, datasets/s and the idle share of one
+    profiled update. Returns the launches of each kernel."""
+    import numpy as np
+    import torch
+
+    from pfn_tpu_torch.experiments.common import GP_HP, bucket_criterion
+    from pfn_tpu_torch.inference import PFNRegressor
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.priors import GPPrior
+    from pfn_tpu_torch.train import (
+        TrainConfig,
+        TrainState,
+        build_model,
+        seeded_flax_params,
+        state_dict_from_flax_params,
+        train,
+    )
+    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step, make_train_step_from_batch
+
+    T, k, B = size["T"], size["agg"], size["batch_size"]
+    prior = GPPrior(num_features=1, **GP_HP)
+    criterion = bucket_criterion(prior, size["buckets"], T, device)
+    cfg = TrainConfig(emsize=size["emsize"], nhid=size["nhid"], nlayers=size["nlayers"], nhead=size["nhead"],
+                      bptt=T, batch_size=B, aggregate_k_gradients=k, epochs=2, steps_per_epoch=size["updates"] * k,
+                      lr=size["lr"], warmup_epochs=size["warmup_epochs"], eval_pos_sampler="weighted",
+                      eval_pos_max=min(2000, T), device=device, seed=0)
+    if cfg.dtype != torch.float32:
+        raise AssertionError(f"TrainConfig's default dtype is {cfg.dtype}, not float32")
+    # Seeded random weights through the weight bridge (nonzero out_proj and
+    # linear2), as the train phase starts.
+    init = state_dict_from_flax_params(
+        seeded_flax_params(1, cfg.emsize, cfg.nhid, cfg.nlayers, size["buckets"], seed=0), cfg.nlayers)
+    names = list(FLASH_F32_KERNELS)
+    torch.cuda.reset_peak_memory_stats(device)
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    result, _ = _quietly(lambda: train(prior, criterion, cfg, init_params=init))
+    train_s = time.perf_counter() - t0
+    train_launches = {name: _ext.launch_counts[name] for name in names}
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    # Serving: held-out datasets, 1000 context points and 1010 queries each.
+    x, y, _ = prior.sample(size["datasets"], T, generator=torch.Generator(device=device).manual_seed(17),
+                           device=device)
+    x_np, y_np = x.cpu().numpy(), y.cpu().numpy()
+    regressor = PFNRegressor.from_train_result(result)
+    n_ctx = size["n_ctx"]
+    _ext.reset_launch_counts()
+    served, serve_ms = [], []
+    for i in range(size["datasets"]):
+        regressor.fit(x_np[i, :n_ctx], y_np[i, :n_ctx])
+        ms, _, out = timed_request(lambda: regressor.predict(x_np[i, n_ctx:], return_std=True))
+        served.append(out)
+        serve_ms.append(ms)
+    serve_launches = {name: _ext.launch_counts[name] for name in names}
+    launches = {name: train_launches[name] + serve_launches[name] for name in names}
+
+    # One update on the kernel path and on the dense f32 path, from the same
+    # trained weights, batch (2 microbatches) and sep.
+    g = torch.Generator(device=device).manual_seed(5)
+    batch = [prior.sample(B, T, generator=g, device=device) for _ in range(2)]
+    xs, ys, tys = (torch.stack([b[i] for b in batch]) for i in range(3))
+    one = {}
+    for name, impl in (("kernel_f32", "auto"), ("dense_f32", "dense")):
+        pcfg = dataclasses.replace(cfg, aggregate_k_gradients=2, steps_per_epoch=2, eval_pos_sampler="fixed",
+                                   fixed_eval_pos=T // 2, attention_impl=impl)
+        model = build_model(prior, criterion, pcfg)
+        model.load_state_dict(result.model.state_dict())
+        optimizer, _, schedule = _make_optimizer(pcfg, model)
+        state = TrainState(model, optimizer, torch.Generator(device=device).manual_seed(0))
+        m = make_train_step_from_batch(criterion, pcfg, schedule)(state, xs, ys, tys)
+        one[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    rel = {key: abs(one["kernel_f32"][key] - one["dense_f32"][key]) / abs(one["dense_f32"][key])
+           for key in ("loss", "grad_norm")}
+
+    # Update time from the trained weights: the first update of a new
+    # optimizer state, then the median of the rest; a profile of one more.
+    optimizer, _, schedule = _make_optimizer(cfg, result.model)
+    state = TrainState(result.model, optimizer, torch.Generator(device=device).manual_seed(1))
+    step = make_train_step(prior, criterion, cfg, schedule)
+    update_ms = []
+    for _ in range(1 + size["timed_updates"]):
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        float(step(state)["loss"])
+        torch.cuda.synchronize(device)
+        update_ms.append((time.perf_counter() - t1) * 1e3)
+    median_ms = float(np.median(update_ms[1:]))
+    kernels, wall_ms = profiled_kernels(lambda: float(step(state)["loss"]), cpu=True)
+    update_dev_ms = sum(kn[1] for kn in kernels)
+    profiled = _kernel_launches(kernels)
+    kernels.sort(key=lambda kn: -kn[1])
+    profile = {"wall_ms": wall_ms, "device_ms": update_dev_ms if kernels else "not measured",
+               "idle_share": 1.0 - update_dev_ms / wall_ms if kernels else "not measured",
+               "kernels": kernels[:10], "flash_f32_launches": profiled}
+
+    per_update = cfg.nlayers * k
+    expected = {"pfn_flash_fwd": 2 * size["updates"] * per_update + cfg.nlayers * size["datasets"],
+                "pfn_flash_bwd_dq": 2 * size["updates"] * per_update,
+                "pfn_flash_bwd_dkv": 2 * size["updates"] * per_update}
+    stats = result.epoch_stats
+    checks = {
+        "epochs": [st["epoch"] for st in stats] == [1, 2],
+        "losses_finite": all(np.isfinite(st["mean_loss"]) and np.isfinite(st["grad_norm"]) for st in stats),
+        "launches": launches == expected,
+        "every_f32_body_launched": all(n > 0 for n in launches.values()),
+        # Where the profiler saw kernels, the f32 bodies are among them.
+        "profile_f32_bodies": not kernels or all(n == per_update for n in profiled.values()),
+        "predict_finite": all(np.isfinite(mu).all() and np.isfinite(sd).all() and (sd > 0).all()
+                              for mu, sd in served),
+        "kernel_vs_dense_f32_update": all(r <= F32_PATH_TOL for r in rel.values()),
+    }
+    emit({
+        "phase": "f32_path", "card": smi, "size": size, "dtype": "f32", "epoch_stats": stats,
+        "train_s": train_s, "launches": launches, "expected_launches": expected, "train_launches": train_launches,
+        "serve_launches": serve_launches,
+        "serve_ms": {"first": serve_ms[0], f"median_of_{len(serve_ms) - 1}": float(np.median(serve_ms[1:]))},
+        "update_ms": {"first": update_ms[0], f"median_of_{size['timed_updates']}": median_ms},
+        "datasets_per_s": B * k / (median_ms / 1e3), "peak_memory_gb": peak_gb, "one_update": one,
+        "one_update_rel_diff": rel, "tol": F32_PATH_TOL, "update_profile": profile, "checks": checks,
+    })
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"f32_path checks failed: {failed}")
+    return launches
 
 
 def phase_dispatch(device, smi: str):
@@ -2172,6 +2454,7 @@ def main() -> int:
     fused_timing = phase_fused_timing(device, smi)
     phase_fused_bwd_kernel(device)
     fused_bwd_timing = phase_fused_bwd_timing(device, smi)
+    fused_f32 = phase_fused_f32_timing(device, smi)
     fused_launches, _ = phase_fused_path(device, smi)
     fused_train_launches = phase_fused_train(device, smi)
     library = phase_library_timing(device, smi)
@@ -2179,6 +2462,10 @@ def main() -> int:
     tabular_timing = f32_kernel_timing(device, smi, "tabular_kernel_timing", TABULAR_KERNEL_SHAPE)
     phase_dispatch(device, smi)
     f32_long = f32_kernel_timing(device, smi, "f32_long_timing", F32_LONG_SHAPE)
+    # The f32 bodies' launches on their path: the f32 rows of the kernels line.
+    f32_launches = phase_f32_path(device, smi)
+    for name, kind in zip(FLASH_F32_KERNELS, ("fwd", "dq", "dkv")):
+        f32_long[kind]["launches"] = f32_launches[name]
     fig3a_launches = phase_fig3a(device, smi)
     # The flash kernels' launches on the main path: the train phase's and the
     # fig3a phase's (the tabular path runs dense at T = 100).
@@ -2203,23 +2490,25 @@ def main() -> int:
          "replaces": "pfn_tpu/ops/flash_attention.py:255", "launches": flash_launches["pfn_flash_fwd"],
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"],
          **flash_bound("fwd", 32, 2010, 128, 1000), "library_ms": library["sdpa_fwd_ms"],
-         "f32_tabular": tabular_timing["fwd"], "f32_long": f32_long["fwd"]},
+         "f32_tabular": tabular_timing["fwd"], "f32_long": f32_long["fwd"], "f32_long_prefix": f32_long["fwd_prefix"]},
         {"name": "pfn_flash_bwd_dq", "route": "cuda", "design": SM90_DESIGN, "source": bwd_source,
          "replaces": "pfn_tpu/ops/flash_attention.py:315", "launches": flash_launches["pfn_flash_bwd_dq"],
          "max_abs_err": bwd["max_abs_err"]["dq"], "ms": bwd["dq_ms"], "plain_ms": bwd["plain_ms"],
          **flash_bound("dq", 16, 2010, 128, 1000), "library_ms": library["sdpa_bwd_ms"],
-         "f32_tabular": tabular_timing["dq"], "f32_long": f32_long["dq"]},
+         "f32_tabular": tabular_timing["dq"], "f32_long": f32_long["dq"], "f32_long_prefix": f32_long["dq_prefix"]},
         {"name": "pfn_flash_bwd_dkv", "route": "cuda", "design": SM90_DESIGN, "source": bwd_source,
          "replaces": "pfn_tpu/ops/flash_attention.py:340", "launches": flash_launches["pfn_flash_bwd_dkv"],
          "max_abs_err": max(bwd["max_abs_err"]["dk"], bwd["max_abs_err"]["dv"]), "ms": bwd["dkv_ms"],
          "plain_ms": bwd["plain_ms"], **flash_bound("dkv", 16, 2010, 128, 1000),
-         "library_ms": library["sdpa_bwd_ms"], "f32_tabular": tabular_timing["dkv"], "f32_long": f32_long["dkv"]},
+         "library_ms": library["sdpa_bwd_ms"], "f32_tabular": tabular_timing["dkv"], "f32_long": f32_long["dkv"],
+         "f32_long_prefix": f32_long["dkv_prefix"]},
         {"name": "pfn_fused_layer_fwd", "route": "cuda", "design": SM90_DESIGN,
          "source": "pfn_tpu_torch/ops/csrc/pfn_fused_layer_fwd.cu",
          "replaces": "pfn_tpu/ops/fused_layer.py:324", "launches": fused_launches,
          "max_abs_err": fused["max_abs_err"], "ms": fused["kernel_ms"], "dev_ms": fused["kernel_dev_ms"],
          "plain_ms": fused["plain_ms"], "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
-         "library_ms": fused["unfused_layer_ms"], "library_dev_ms": fused["unfused_layer_dev_ms"]},
+         "library_ms": fused["unfused_layer_ms"], "library_dev_ms": fused["unfused_layer_dev_ms"],
+         "f32": fused_f32["fwd"]},
         *({"name": f"pfn_fused_layer_bwd_{part}", "route": "cuda", "design": SM90_DESIGN, "source": fused_bwd_source,
            "replaces": f"pfn_tpu/ops/fused_layer.py:{line}",
            "launches": fused_train_launches[f"pfn_fused_layer_bwd_{part}"],
@@ -2227,7 +2516,7 @@ def main() -> int:
            "dev_ms": fused_bwd[f"{part}_kernel_dev_ms"],
            "plain_ms": fused_bwd[f"{part}_plain_ms"], "bound_ms": fused_bwd[f"{part}_bound"]["bound_ms"],
            "bound_by": fused_bwd[f"{part}_bound"]["bound_by"], "library_ms": fused_bwd["unfused_layer_bwd_ms"],
-           "library_dev_ms": fused_bwd["unfused_layer_bwd_dev_ms"]}
+           "library_dev_ms": fused_bwd["unfused_layer_bwd_dev_ms"], "f32": fused_f32[part]}
           for part, line in (("ffn", 358), ("attn", 387))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(device),

@@ -40,8 +40,8 @@ SOURCES = {
     "pfn_fused_layer_bwd": _CSRC / "pfn_fused_layer_bwd.cu",
 }
 # Headers the sources include; each library's hash covers them too.
-HEADERS = (_CSRC / "pfn_fused_common.cuh", _CSRC / "pfn_flash_sm90.cuh", _CSRC / "pfn_gemm_sm90.cuh",
-           _CSRC / "pfn_fused_layer.cuh")
+HEADERS = (_CSRC / "pfn_fused_common.cuh", _CSRC / "pfn_flash_sm90.cuh", _CSRC / "pfn_flash_f32.cuh",
+           _CSRC / "pfn_gemm_sm90.cuh", _CSRC / "pfn_fused_layer.cuh")
 # Head dims the forward and both backward kernels are instantiated for.
 FLASH_HEAD_DIMS = (32, 64, 128)
 # Head dims the fused layer's attention is instantiated for, and its longest

@@ -48,7 +48,7 @@
 //     forward's tiles: below sep, then the diagonal tiles.
 //   * dq, f32: the FMA body of the first port (64-row query tiles, four
 //     warps, every tile and the accumulator in shared memory), so f32 stays
-//     f32 (no TF32).
+//     f32 (no TF32); its Hopper redesign on pfn_flash_f32.cuh is still to come.
 //   * dk/dv, bf16 (the main path), `dkv_sm90`: the same block with the
 //     roles swapped. A unit is (128-key tile, b*h): its K and V are resident
 //     (TMA, once a unit, 64 keys per consumer warpgroup), and the Q and dO
@@ -75,9 +75,21 @@
 //     the consumers take 232 by setmaxnreg), 0 bytes of spill at every head
 //     dim and variant. On an H100 80GB HBM3 at 700 W: 0.102-0.104 ms at the
 //     shape above (32 % of the bound), 0.901 ms for the first port's body.
-//   * dk/dv, f32: the first port's FMA body (one block per (64-key tile,
-//     b*h), four warps, every tile and both accumulators in shared memory);
-//     at D = 128 it walks 32-row query tiles to fit (186 KB).
+//   * dk/dv, f32, `dkv_f32` (FMA, no TF32; pfn_flash_f32.cuh): bound by
+//     operations at the 67 TFLOP/s f32 peak (0.49 ms at B*H 16, T 2010, sep
+//     1000) and by shared memory feeding the FMA units. A unit is (64-key
+//     tile, b*h): its K and V are resident (cp.async, once a unit), and the
+//     64-row query steps it visits, Q and dO with their lse and delta, stream
+//     through a 2-stage cp.async ring. Per step a thread forms S^T = K Q^T
+//     and dP^T = V dO^T for 4 keys x 4 queries in registers, then p (0 off
+//     the allowed entries) and ds; one shared score tile stages P^T for dV
+//     += P^T dO, then dS^T for dK += dS^T Q, and dK and dV accumulate in
+//     registers (64 floats a thread at D = 128; 216-218 registers, no
+//     spill; 219 KB of shared memory, one block an SM). The grid is
+//     persistent and heavy-first as dkv_sm90's: as many blocks as fit, units
+//     in key-tile-major order; each key tile is written once, no atomics. On
+//     an H100 80GB HBM3 at 700 W: 1.03 ms at the shape above (48 % of the
+//     bound; the first port's body 2.15 ms).
 //
 // Left for later: for both bf16 kernels, overlapping one tile's softmax with
 // the next tile's products (two S buffers, or the two consumer warpgroups
@@ -89,11 +101,13 @@
 
 #include <type_traits>
 
+#include "pfn_flash_f32.cuh"
 #include "pfn_flash_sm90.cuh"
 
 namespace {
 
 namespace sm90 = pfn_flash_sm90;
+namespace f32 = pfn_flash_f32;
 
 constexpr int BQ = 64;  // query rows per f32 dq block
 constexpr int BK = 64;  // keys per KV tile of the f32 kernels
@@ -126,12 +140,12 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
   for (int r = threadIdx.x; r < ROWS; r += NTHREADS) dst[r] = row0 + r < nrows ? src[row0 + r] : 0.0f;
 }
 
-// C (M x N, f32, row stride ldc) = [C +] op(A) op(B) on FMA, every operand
-// in shared memory, computed by the whole block:
-//   op(A)(i, k) = TA ? A[k * lda + i] : A[i * lda + k]    (M x K)
+// C (M x N, f32, row stride ldc) = [C +] A op(B) on FMA, every operand in
+// shared memory, computed by the whole block (the f32 dq body's products):
+//   A(i, k) = A[i * lda + k]                             (M x K)
 //   op(B)(k, j) = TB ? B[j * ldb + k] : B[k * ldb + j]    (K x N)
 // Thread (ty, tx) owns rows ty*RM .. ty*RM+RM-1 and columns tx + 16*j.
-template <int M, int N, int K, bool TA, bool TB, bool ACC>
+template <int M, int N, int K, bool TB, bool ACC>
 __device__ __forceinline__ void mm(float* C, int ldc, const float* A, int lda, const float* B, int ldb) {
   constexpr int RM = M / 8, CN = N / 16;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -146,7 +160,7 @@ __device__ __forceinline__ void mm(float* C, int ldc, const float* A, int lda, c
     for (int j = 0; j < CN; ++j) b[j] = TB ? B[(tx + 16 * j) * ldb + k] : B[k * ldb + tx + 16 * j];
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
-      const float a = TA ? A[k * lda + ty * RM + i] : A[(ty * RM + i) * lda + k];
+      const float a = A[(ty * RM + i) * lda + k];
 #pragma unroll
       for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
     }
@@ -158,21 +172,17 @@ __device__ __forceinline__ void mm(float* C, int ldc, const float* A, int lda, c
 }
 
 // From S and dP (ROWS x BK, f32, row stride lds) of query rows q0.. and keys
-// key0..: p = exp(s - lse) on allowed entries and 0 elsewhere, ds = p (dp -
-// delta). Writes ds, and with WRITE_P also p (row stride ldp). The outputs
-// may overwrite S and dP: each entry is read and written by one thread.
-template <bool DIAG, bool WRITE_P, int ROWS>
-__device__ __forceinline__ void tile_ds(const float* ss, const float* dps, int lds, float* ps, float* dss, int ldp,
-                                        const float* lse_s, const float* delta_s, int q0, int key0, int sep, int Tq,
-                                        int Tk) {
+// key0..: p = exp(s - lse) on allowed entries and 0 elsewhere; writes ds =
+// p (dp - delta) over S (each entry is read and written by one thread).
+template <bool DIAG, int ROWS>
+__device__ __forceinline__ void tile_ds(float* ss, const float* dps, int lds, const float* lse_s,
+                                        const float* delta_s, int q0, int key0, int sep, int Tq, int Tk) {
   for (int i = threadIdx.x; i < ROWS * BK; i += NTHREADS) {
     const int r = i / BK, c = i % BK;
     const int query = q0 + r, key = key0 + c;
     const bool allowed = query < Tq && key < Tk && (key < sep || (DIAG && key == query));
     const float p = allowed ? expf(ss[r * lds + c] - lse_s[r]) : 0.0f;
-    const float ds = p * (dps[r * lds + c] - delta_s[r]);
-    if (WRITE_P) ps[r * ldp + c] = p;
-    dss[r * ldp + c] = ds;
+    ss[r * lds + c] = p * (dps[r * lds + c] - delta_s[r]);
   }
 }
 
@@ -234,12 +244,12 @@ __global__ void __launch_bounds__(NTHREADS)
     load_tile<D, BK, L::LDX>(ks, kb, key0, Tk);
     load_tile<D, BK, L::LDX>(vs, vb, key0, Tk);
     __syncthreads();
-    mm<BQ, BK, D, false, true, false>(ss, L::LDS, qs, L::LDX, ks, L::LDX);    // S = Q K^T
-    mm<BQ, BK, D, false, true, false>(dps, L::LDS, dos, L::LDX, vs, L::LDX);  // dP = dO V^T
+    mm<BQ, BK, D, true, false>(ss, L::LDS, qs, L::LDX, ks, L::LDX);    // S = Q K^T
+    mm<BQ, BK, D, true, false>(dps, L::LDS, dos, L::LDX, vs, L::LDX);  // dP = dO V^T
     __syncthreads();
-    tile_ds<DIAG, false, BQ>(ss, dps, L::LDS, nullptr, ss, L::LDS, lse_s, delta_s, q0, key0, sep, Tq, Tk);
+    tile_ds<DIAG, BQ>(ss, dps, L::LDS, lse_s, delta_s, q0, key0, sep, Tq, Tk);
     __syncthreads();
-    mm<BQ, D, BK, false, false, true>(acc, L::LDA, ss, L::LDS, ks, L::LDX);  // dQ += dS K
+    mm<BQ, D, BK, false, true>(acc, L::LDA, ss, L::LDS, ks, L::LDX);  // dQ += dS K
     __syncthreads();  // the next tile overwrites ks, vs, ss and dps
   }
 
@@ -360,99 +370,131 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
   }
 }
 
-// Shared-memory layout of an f32 dk/dv block. At D = 128 a 64-row query
-// tile would put the block at ~235 KB, over the limit, so that instantiation
-// walks 32-row query tiles; p and ds are written over S and dP.
+constexpr int FKT = 64;  // keys per f32 dk/dv unit
+
+// Shared memory of an f32 dk/dv block, in floats: the unit's K and V
+// (resident), a ring of two query steps of 64 rows (Q, dO, lse, delta), and
+// one score tile that stages P^T, then dS^T, for the product that reads it
+// (two staging tiles would put the block at 245 KB at D = 128; 219 KB here).
 template <int D>
-struct DkvSmem {
-  static constexpr int BQ2 = D == 128 ? 32 : 64;  // query rows per step
-  static constexpr int LDX = D + 4;
-  static constexpr int LDS = BK + 4;  // S, dP, and P and dS over them
-  static constexpr int LDA = D + 4;   // dk and dv accumulators
+struct DkvF32Smem {
+  static constexpr int QS = 64;  // query rows per step
+  static constexpr int LDX = f32::ld_tile(D);
+  static constexpr int LDP = f32::ld_scores(QS);
+  static constexpr int STAGE = 2 * QS * LDX + 2 * QS;  // Q, dO, lse, delta
   static constexpr int k_off = 0;
-  static constexpr int v_off = k_off + round128(BK * LDX * 4);
-  static constexpr int q_off = v_off + round128(BK * LDX * 4);
-  static constexpr int do_off = q_off + round128(BQ2 * LDX * 4);
-  static constexpr int s_off = do_off + round128(BQ2 * LDX * 4);
-  static constexpr int dp_off = s_off + round128(BQ2 * LDS * 4);
-  static constexpr int dk_off = dp_off + round128(BQ2 * LDS * 4);
-  static constexpr int dv_off = dk_off + round128(BK * LDA * 4);
-  static constexpr int lse_off = dv_off + round128(BK * LDA * 4);
-  static constexpr int delta_off = lse_off + round128(BQ2 * 4);
-  static constexpr int bytes = delta_off + round128(BQ2 * 4);
-  static_assert(bytes <= SMEM_LIMIT, "dk/dv block over the shared-memory limit");
+  static constexpr int v_off = k_off + FKT * LDX;
+  static constexpr int ring_off = v_off + FKT * LDX;
+  static constexpr int sc_off = ring_off + 2 * STAGE;
+  static constexpr int bytes = (sc_off + FKT * LDP) * 4;
+  static_assert(bytes <= SMEM_LIMIT, "f32 dk/dv block over the shared-memory limit");
+  static_assert(STAGE % 4 == 0 && (2 * QS * LDX) % 4 == 0, "ring slots must stay 16-byte aligned");
 };
 
+// Q, dO, lse and delta of the query step at q0 into a ring stage.
+template <int D>
+__device__ __forceinline__ void load_step(float* stage, const float* qb, const float* dob, const float* lseb,
+                                          const float* deltab, int q0, int Tq) {
+  constexpr int QS = DkvF32Smem<D>::QS, LDX = DkvF32Smem<D>::LDX;
+  f32::load_tile_async<D, QS>(stage, qb, q0, Tq);
+  f32::load_tile_async<D, QS>(stage + QS * LDX, dob, q0, Tq);
+  f32::load_vec_async<QS>(stage + 2 * QS * LDX, lseb, q0, Tq);
+  f32::load_vec_async<QS>(stage + 2 * QS * LDX + QS, deltab, q0, Tq);
+}
+
+// Units u = key tile * BH + b*h, key-tile major as in dkv_sm90: every heavy
+// unit (below sep) first, for any sep; block b takes units b, b + gridDim.x.
+// At D = 32 two blocks fit an SM's shared memory, so ptxas keeps to 128
+// registers there.
 template <int D, bool DIAG>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(f32::kThreads, D == 32 ? 2 : 1)
     dkv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
             const float* __restrict__ dO, const float* __restrict__ lse, const float* __restrict__ delta,
-            float* __restrict__ dk, float* __restrict__ dv, const int* __restrict__ sep_ptr, int Tq, int Tk) {
-  using L = DkvSmem<D>;
-  constexpr int BQ2 = L::BQ2;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* ks = reinterpret_cast<float*>(smem + L::k_off);
-  float* vs = reinterpret_cast<float*>(smem + L::v_off);
-  float* qs = reinterpret_cast<float*>(smem + L::q_off);
-  float* dos = reinterpret_cast<float*>(smem + L::do_off);
-  float* ss = reinterpret_cast<float*>(smem + L::s_off);
-  float* dps = reinterpret_cast<float*>(smem + L::dp_off);
-  float* dk_acc = reinterpret_cast<float*>(smem + L::dk_off);
-  float* dv_acc = reinterpret_cast<float*>(smem + L::dv_off);
-  float* lse_s = reinterpret_cast<float*>(smem + L::lse_off);
-  float* delta_s = reinterpret_cast<float*>(smem + L::delta_off);
-
-  const int bh = blockIdx.y;
-  const int key0 = blockIdx.x * BK;
-  const float* qb = q + (size_t)bh * Tq * D;
-  const float* dob = dO + (size_t)bh * Tq * D;
-  const float* lseb = lse + (size_t)bh * Tq;
-  const float* deltab = delta + (size_t)bh * Tq;
+            float* __restrict__ dk, float* __restrict__ dv, const int* __restrict__ sep_ptr, int BH, int Tq,
+            int Tk) {
+  using L = DkvF32Smem<D>;
+  using C = f32::Cols<D>;
+  constexpr int QS = L::QS;
+  extern __shared__ __align__(16) float fsm[];
+  float* ks = fsm + L::k_off;
+  float* vs = fsm + L::v_off;
+  float* sc = fsm + L::sc_off;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int sep = min(max(*sep_ptr, 0), Tk);
+  const int units = (Tk + FKT - 1) / FKT * BH;
 
-  load_tile<D, BK, L::LDX>(ks, k + (size_t)bh * Tk * D, key0, Tk);
-  load_tile<D, BK, L::LDX>(vs, v + (size_t)bh * Tk * D, key0, Tk);
-  for (int i = threadIdx.x; i < BK * L::LDA; i += NTHREADS) {
-    dk_acc[i] = 0.0f;
-    dv_acc[i] = 0.0f;
-  }
-
-  auto step = [&](int qt) {
-    const int q0 = qt * BQ2;
-    load_tile<D, BQ2, L::LDX>(qs, qb, q0, Tq);
-    load_tile<D, BQ2, L::LDX>(dos, dob, q0, Tq);
-    load_rows<BQ2>(lse_s, lseb, q0, Tq);
-    load_rows<BQ2>(delta_s, deltab, q0, Tq);
-    __syncthreads();
-    mm<BQ2, BK, D, false, true, false>(ss, L::LDS, qs, L::LDX, ks, L::LDX);    // S = Q K^T
-    mm<BQ2, BK, D, false, true, false>(dps, L::LDS, dos, L::LDX, vs, L::LDX);  // dP = dO V^T
-    __syncthreads();
-    tile_ds<DIAG, true, BQ2>(ss, dps, L::LDS, ss, dps, L::LDS, lse_s, delta_s, q0, key0, sep, Tq, Tk);
-    __syncthreads();
-    mm<BK, D, BQ2, true, false, true>(dv_acc, L::LDA, ss, L::LDS, dos, L::LDX);  // dV += P^T dO
-    mm<BK, D, BQ2, true, false, true>(dk_acc, L::LDA, dps, L::LDS, qs, L::LDX);  // dK += dS^T Q
-    __syncthreads();  // the next query tile overwrites qs, dos and the score tiles
-  };
-
-  if (key0 < sep) {
-    // Every query attends to the keys below sep.
-    const int nq = (Tq + BQ2 - 1) / BQ2;
-    for (int qt = 0; qt < nq; ++qt) step(qt);
-  } else if (DIAG) {
-    // Past sep only the diagonal: the query tiles that hold [key0, key0 + BK).
-    const int last = (min(key0 + BK, Tq) - 1) / BQ2;
-    for (int qt = key0 / BQ2; qt <= last; ++qt) step(qt);
-  }
-  __syncthreads();
-
-  // A key no query attends to keeps dk = dv = 0.
-  for (int i = threadIdx.x; i < BK * D; i += NTHREADS) {
-    const int r = i / D, c = i % D;
-    if (key0 + r < Tk) {
-      const size_t at = ((size_t)bh * Tk + key0 + r) * D + c;
-      dk[at] = dk_acc[r * L::LDA + c];
-      dv[at] = dv_acc[r * L::LDA + c];
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int k0 = u / BH * FKT, bh = u % BH;
+    const sm90::QueryTiles<QS, FKT, DIAG> tiles(sep, k0, Tq);
+    const float* qb = q + (size_t)bh * Tq * D;
+    const float* dob = dO + (size_t)bh * Tq * D;
+    const float* lseb = lse + (size_t)bh * Tq;
+    const float* deltab = delta + (size_t)bh * Tq;
+    __syncthreads();  // every thread is done with the last unit's K, V and ring
+    if (tiles.n > 0) {
+      f32::load_tile_async<D, FKT>(ks, k + (size_t)bh * Tk * D, k0, Tk);
+      f32::load_tile_async<D, FKT>(vs, v + (size_t)bh * Tk * D, k0, Tk);
+      load_step<D>(fsm + L::ring_off, qb, dob, lseb, deltab, tiles.row0(0), Tq);
     }
+    f32::cp_async_commit();
+
+    // dK and dV of keys k0 + ty + 16 r, in registers.
+    float dka[4][C::PER_THREAD], dva[4][C::PER_THREAD];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < C::PER_THREAD; ++c) dka[r][c] = dva[r][c] = 0.0f;
+    const bool key_edge = k0 + FKT > sep;  // keys at or past sep in this unit
+
+    for (int i = 0; i < tiles.n; ++i) {
+      f32::cp_async_wait<0>();
+      __syncthreads();  // step i is in; every thread is done with step i - 1 and the score tile
+      if (i + 1 < tiles.n)
+        load_step<D>(fsm + L::ring_off + ((i + 1) & 1) * L::STAGE, qb, dob, lseb, deltab, tiles.row0(i + 1), Tq);
+      f32::cp_async_commit();
+      const float* qs = fsm + L::ring_off + (i & 1) * L::STAGE;
+      const float* dos = qs + QS * L::LDX;
+      const float* lse_s = qs + 2 * QS * L::LDX;
+      const float* delta_s = lse_s + QS;
+      const int q0 = tiles.row0(i);
+
+      // S^T = K Q^T and dP^T = V dO^T: keys k0 + ty + 16 r as rows, queries
+      // q0 + tx + 16 j as columns; then p (in st) and ds (in dpt).
+      float st[4][4], dpt[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) st[r][j] = dpt[r][j] = 0.0f;
+      f32::mma_nt<4, 4, D>(st, ks + ty * L::LDX, 16 * L::LDX, qs + tx * L::LDX, 16 * L::LDX);
+      f32::mma_nt<4, 4, D>(dpt, vs + ty * L::LDX, 16 * L::LDX, dos + tx * L::LDX, 16 * L::LDX);
+      const bool masked = key_edge || q0 + QS > Tq;  // a step not wholly inside the allowed region
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const float lse2 = lse_s[c] * f32::kLog2e, dl = delta_s[c];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float p = exp2f(fmaf(st[r][j], f32::kLog2e, -lse2));
+          if (masked && !(q0 + c < Tq && sm90::allowed<DIAG>(q0 + c, k0 + ty + 16 * r, sep, Tk))) p = 0.0f;
+          dpt[r][j] = p * (dpt[r][j] - dl);
+          sc[(ty + 16 * r) * L::LDP + c] = p;
+        }
+      }
+      __syncthreads();  // P^T is in
+      f32::mma_nn<4, D, QS>(dva, sc + ty * L::LDP, 16 * L::LDP, dos, L::LDX, tx);  // dV += P^T dO
+      __syncthreads();  // every thread is done with P^T
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sc[(ty + 16 * r) * L::LDP + tx + 16 * j] = dpt[r][j];
+      __syncthreads();  // dS^T is in
+      f32::mma_nn<4, D, QS>(dka, sc + ty * L::LDP, 16 * L::LDP, qs, L::LDX, tx);  // dK += dS^T Q
+    }
+
+    // A key no query attends to keeps dk = dv = 0.
+    const float one[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+    f32::store_rows<4, D>(dk + (size_t)bh * Tk * D, dka, one, k0, Tk, tx, ty);
+    f32::store_rows<4, D>(dv + (size_t)bh * Tk * D, dva, one, k0, Tk, tx, ty);
   }
 }
 
@@ -678,15 +720,24 @@ cudaError_t launch_dkv(const Args& a) {
         static_cast<__nv_bfloat16*>(a.out0), static_cast<__nv_bfloat16*>(a.out1), static_cast<const int*>(a.sep),
         a.BH, a.Tq, a.Tk);
   } else {
-    using L = DkvSmem<D>;
+    using L = DkvF32Smem<D>;
     auto kernel = dkv_f32<D, DIAG>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.Tk + BK - 1) / BK, a.BH);
-    kernel<<<grid, NTHREADS, L::bytes, a.stream>>>(
+    // Persistent: as many blocks as fit on the card at once, at most one a
+    // unit, set from the shapes and the card only.
+    int device = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, f32::kThreads, L::bytes)) !=
+        cudaSuccess)
+      return err;
+    const int units = (a.Tk + FKT - 1) / FKT * a.BH;
+    const int blocks = sms * (per_sm > 0 ? per_sm : 1);
+    kernel<<<units < blocks ? units : blocks, f32::kThreads, L::bytes, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
         static_cast<const float*>(a.dO), static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<float*>(a.out0), static_cast<float*>(a.out1), static_cast<const int*>(a.sep), a.Tq, a.Tk);
+        static_cast<float*>(a.out0), static_cast<float*>(a.out1), static_cast<const int*>(a.sep), a.BH, a.Tq, a.Tk);
   }
   return cudaGetLastError();
 }

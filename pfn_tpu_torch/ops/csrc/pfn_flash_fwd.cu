@@ -34,9 +34,22 @@
 // the whole loop; no S or P tile goes through shared memory, and the next
 // tiles' loads are in flight while a tile is computed.
 //
-// f32: the FMA body of the first port (one block per 64-row query tile, four
-// warps, S, P and the O accumulator in shared memory), so f32 stays f32 (no
-// TF32).
+// f32, `fwd_f32` (FMA on the CUDA cores, so f32 stays f32: no TF32, whose
+// three decimal digits miss the 2e-5 tolerance; pfn_flash_f32.cuh): bound by
+// operations at the 67 TFLOP/s f32 peak (0.49 ms at the shape above) and, in
+// practice, by shared memory's 128 bytes a clock feeding 128 FMAs a clock.
+// One block of 256 threads per (query tile, b*h): 128 rows from T = 256 on,
+// 64 below. A thread owns 8 (or 4) query rows, 16 threads a row in one half
+// of a warp: S (8 x 4 a thread), the running max m, its partial row sum l
+// and O (8 x D / 16) stay in registers for the whole KV loop; only P passes
+// through shared memory, once a tile, as the A operand of O += P V. K and V
+// tiles of 64 keys are loaded by cp.async and take turns in flight: V(i)
+// while S = Q K(i)^T is computed, K(i + 1) while O += P V(i) is. Two
+// barriers a tile; 176 KB of shared memory at D = 128 (one block, 8 warps,
+// an SM), 216-222 registers, no spill. On an H100 80GB HBM3 at 700 W: 0.98
+// ms at B*H 32, T 2010, D 128, sep 1000 (50 % of the bound; SDPA f32 1.77
+// ms, the first port's body 3.60 ms), 0.25 ms at B*H 1024, T 100, sep 30
+// (SDPA f32 0.265 ms).
 //
 // Left for later: overlapping one tile's softmax with the next tile's Q K^T
 // (two S buffers, or the two warpgroups taking turns), a persistent schedule
@@ -44,225 +57,136 @@
 // ceil(sep/128) tiles, one past sep one more), and storing O through shared
 // memory by TMA instead of 4-byte stores from the fragments.
 
+#include "pfn_flash_f32.cuh"
 #include "pfn_flash_sm90.cuh"
 
 namespace {
 
 namespace sm90 = pfn_flash_sm90;
+namespace f32 = pfn_flash_f32;
 
 // ------------------------------------------------------------ f32, FMA
 
-constexpr int BQ = 64;  // query rows per block
-constexpr int BK = 64;  // keys per KV tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int ROWS_PER_WARP = BQ / NWARPS;  // 16
+constexpr int FK = 64;  // keys per f32 KV tile
+// Query rows per f32 block: 128 from T = 256 on (a thread then owns 8 rows,
+// and reads 0.375 floats from shared memory per FMA in S = Q K^T and 0.25 in
+// O += P V, against 0.5 and 0.375 at 64 rows); 64 below, where a 128-row
+// tile's masked diagonal work outweighs that and twice the blocks fill the
+// card better.
+constexpr int kLongSeq = 256;
 
-constexpr int round128(int bytes) { return (bytes + 127) / 128 * 128; }
-
-// Shared-memory layout of one block. Every region starts on a 128-byte
-// boundary; rows are padded by 4 floats to spread them over the banks.
-template <int D>
-struct Smem {
-  static constexpr int LDX = D + 4;   // q, k, v tiles
-  static constexpr int LDS = BK + 4;  // scores
-  static constexpr int LDP = BK + 4;  // probabilities
-  static constexpr int LDO = D + 4;   // output accumulator
+// Shared memory of an f32 block, in floats: the query tile, one K and one V
+// tile, and P, the one tile that passes through shared memory. K and V take
+// turns in flight: V(i) loads while S = Q K(i)^T is computed, K(i + 1) while
+// O += P V(i) is (176 KB at D = 128 and 128 rows; a ring of two (K, V) pairs
+// would not fit beside a 128-row Q and P).
+template <int D, int FQ>
+struct FwdF32Smem {
+  static constexpr int LDX = f32::ld_tile(D);
+  static constexpr int LDP = f32::ld_scores(FK);
   static constexpr int q_off = 0;
-  static constexpr int k_off = q_off + round128(BQ * LDX * 4);
-  static constexpr int v_off = k_off + round128(BK * LDX * 4);
-  static constexpr int s_off = v_off + round128(BK * LDX * 4);
-  static constexpr int p_off = s_off + round128(BQ * LDS * 4);
-  static constexpr int o_off = p_off + round128(BQ * LDP * 4);
-  static constexpr int m_off = o_off + round128(BQ * LDO * 4);
-  static constexpr int l_off = m_off + round128(BQ * 4);
-  static constexpr int a_off = l_off + round128(BQ * 4);
-  static constexpr int bytes = a_off + round128(BQ * 4);
+  static constexpr int k_off = q_off + FQ * LDX;
+  static constexpr int v_off = k_off + FK * LDX;
+  static constexpr int p_off = v_off + FK * LDX;
+  static constexpr int bytes = (p_off + FQ * LDP) * 4;
+  static_assert(bytes <= 232448, "f32 forward block over the shared-memory limit");
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Copy rows [row0, row0 + ROWS) of a (nrows, D) matrix into shared memory
-// with 16-byte loads; rows past nrows are zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0, int nrows) {
-  constexpr int CHUNKS = D / 4;
-  constexpr int LDX = Smem<D>::LDX;
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 4;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LDX + c) = val;
-  }
-}
-
-// S (BQ x BK) = Q K^T for the current KV tile. Thread (ty, tx) owns rows
-// ty*8 .. ty*8+7 and columns tx + 16*j.
-template <int D>
-__device__ __forceinline__ void tile_scores(const float* qs, const float* ks, float* ss) {
-  using L = Smem<D>;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[8][BK / 16];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) acc[i][j] = 0.0f;
-  for (int d = 0; d < D; ++d) {
-    float kv[BK / 16];
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) kv[j] = ks[(tx + 16 * j) * L::LDX + d];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float qv = qs[(ty * 8 + i) * L::LDX + d];
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) acc[i][j] = fmaf(qv, kv[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) ss[(ty * 8 + i) * L::LDS + tx + 16 * j] = acc[i][j];
-}
-
-// Online-softmax update for one KV tile. Warp w owns rows 16w .. 16w+15.
-// Masked entries are -inf; a row that has seen no allowed key yet keeps
-// m = -inf, so its probabilities are 0 and its rescale factor is irrelevant
-// (l and O are still 0).
-template <int D, bool DIAG>
-__device__ __forceinline__ void tile_softmax(const float* ss, float* ps, float* m_s, float* l_s, float* a_s, int q0,
-                                             int key0, int sep, int Tk) {
-  using L = Smem<D>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    const int r = warp * ROWS_PER_WARP + i;
-    const int query = q0 + r;
-    float sv[BK / 32];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BK / 32; ++j) {
-      const int c = lane + 32 * j;
-      sv[j] = sm90::allowed<DIAG>(query, key0 + c, sep, Tk) ? ss[r * L::LDS + c] : -INFINITY;
-      mx = fmaxf(mx, sv[j]);
-    }
-    mx = warp_max(mx);
-    const float m_prev = m_s[r];
-    const float m_new = fmaxf(m_prev, mx);
-    const float m_ref = (m_new == -INFINITY) ? 0.0f : m_new;
-    float sum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < BK / 32; ++j) {
-      const float p = expf(sv[j] - m_ref);
-      ps[r * L::LDP + lane + 32 * j] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      const float alpha = expf(m_prev - m_ref);
-      l_s[r] = l_s[r] * alpha + sum;
-      m_s[r] = m_new;
-      a_s[r] = alpha;
-    }
-  }
-}
-
-// O = O * alpha + P V for the current KV tile. Thread (ty, tx) owns rows
-// ty*8 .. ty*8+7 and columns tx + 16*j.
-template <int D>
-__device__ __forceinline__ void tile_accumulate(float* os, const float* ps, const float* vs, const float* a_s) {
-  using L = Smem<D>;
-  for (int i = threadIdx.x; i < BQ * D; i += NTHREADS) {
-    const int r = i / D, c = i % D;
-    os[r * L::LDO + c] *= a_s[r];
-  }
-  __syncthreads();
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[8][D / 16];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = os[(ty * 8 + i) * L::LDO + tx + 16 * j];
-  for (int kk = 0; kk < BK; ++kk) {
-    float vv[D / 16];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) vv[j] = vs[kk * L::LDX + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float p = ps[(ty * 8 + i) * L::LDP + kk];
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) os[(ty * 8 + i) * L::LDO + tx + 16 * j] = acc[i][j];
-}
-
-template <int D, bool DIAG>
-__global__ void __launch_bounds__(NTHREADS)
+template <int D, int FQ, bool DIAG>
+__global__ void __launch_bounds__(f32::kThreads, 1)
     fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
             float* __restrict__ o, float* __restrict__ lse, const int* __restrict__ sep_ptr, int Tq, int Tk) {
-  using L = Smem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem + L::q_off);
-  float* ks = reinterpret_cast<float*>(smem + L::k_off);
-  float* vs = reinterpret_cast<float*>(smem + L::v_off);
-  float* ss = reinterpret_cast<float*>(smem + L::s_off);
-  float* ps = reinterpret_cast<float*>(smem + L::p_off);
-  float* os = reinterpret_cast<float*>(smem + L::o_off);
-  float* m_s = reinterpret_cast<float*>(smem + L::m_off);
-  float* l_s = reinterpret_cast<float*>(smem + L::l_off);
-  float* a_s = reinterpret_cast<float*>(smem + L::a_off);
-
+  using L = FwdF32Smem<D, FQ>;
+  using C = f32::Cols<D>;
+  constexpr int RM = FQ / 16;  // query rows per thread
+  extern __shared__ __align__(16) float fsm[];
+  const float* qs = fsm + L::q_off;
+  float* ks = fsm + L::k_off;
+  float* vs = fsm + L::v_off;
+  float* ps = fsm + L::p_off;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * FQ;
   const float* kb = k + (size_t)bh * Tk * D;
   const float* vb = v + (size_t)bh * Tk * D;
   const int sep = min(max(*sep_ptr, 0), Tk);
+  const sm90::Tiles<FQ, FK, DIAG> tiles(sep, q0, Tk);
 
-  load_tile<D, BQ>(qs, q + (size_t)bh * Tq * D, q0, Tq);
-  for (int i = threadIdx.x; i < BQ * L::LDO; i += NTHREADS) os[i] = 0.0f;
-  if (threadIdx.x < BQ) {
-    m_s[threadIdx.x] = -INFINITY;
-    l_s[threadIdx.x] = 0.0f;
+  f32::load_tile_async<D, FQ>(fsm + L::q_off, q + (size_t)bh * Tq * D, q0, Tq);
+  if (tiles.n > 0) f32::load_tile_async<D, FK>(ks, kb, tiles.row0(0), Tk);
+  f32::cp_async_commit();
+
+  // Rows ty + 16 r of the tile: the running max m, this thread's partial
+  // row sum l (its 4 of the tile's 64 columns), and O, all in registers.
+  float acc[RM][C::PER_THREAD];
+  float m[RM], l[RM];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C::PER_THREAD; ++c) acc[r][c] = 0.0f;
   }
-  __syncthreads();
 
-  const sm90::Tiles<BQ, BK, DIAG> tiles(sep, q0, Tk);
   for (int i = 0; i < tiles.n; ++i) {
     const int key0 = tiles.row0(i);
-    load_tile<D, BK>(ks, kb, key0, Tk);
-    load_tile<D, BK>(vs, vb, key0, Tk);
-    __syncthreads();
-    tile_scores<D>(qs, ks, ss);
-    __syncthreads();
-    tile_softmax<D, DIAG>(ss, ps, m_s, l_s, a_s, q0, key0, sep, Tk);
-    __syncthreads();
-    tile_accumulate<D>(os, ps, vs, a_s);
-    __syncthreads();  // the next tile overwrites ks, vs, ss and ps
-  }
+    f32::cp_async_wait<0>();
+    __syncthreads();  // K(i) is in; every thread is done with V(i - 1) and P
+    f32::load_tile_async<D, FK>(vs, vb, key0, Tk);
+    f32::cp_async_commit();
 
-  for (int i = threadIdx.x; i < BQ * D; i += NTHREADS) {
-    const int r = i / D, c = i % D;
-    if (q0 + r < Tq) o[((size_t)bh * Tq + q0 + r) * D + c] = os[r * L::LDO + c] / fmaxf(l_s[r], 1e-30f);
+    float s[RM][4];  // S = Q K^T: rows ty + 16 r, keys key0 + tx + 16 j
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[r][j] = 0.0f;
+    f32::mma_nt<RM, 4, D>(s, qs + ty * L::LDX, 16 * L::LDX, ks + tx * L::LDX, 16 * L::LDX);
+    if (key0 + FK > sep) {  // the tile holding sep, or a diagonal tile
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (!sm90::allowed<DIAG>(q0 + ty + 16 * r, key0 + tx + 16 * j, sep, Tk)) s[r][j] = -INFINITY;
+    }
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const float mx = f32::group_max(fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3])));
+      const float m_new = fmaxf(m[r], mx);
+      const float mb = (m_new == -INFINITY ? 0.0f : m_new) * f32::kLog2e;
+      const float alpha = exp2f(fmaf(m[r], f32::kLog2e, -mb));  // 0 while the row has seen no allowed key
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = exp2f(fmaf(s[r][j], f32::kLog2e, -mb));
+        ps[(ty + 16 * r) * L::LDP + tx + 16 * j] = p;
+        sum += p;
+      }
+      l[r] = fmaf(l[r], alpha, sum);
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < C::PER_THREAD; ++c) acc[r][c] *= alpha;
+    }
+    f32::cp_async_wait<0>();
+    __syncthreads();  // V(i) and P are in; every thread is done with K(i)
+    if (i + 1 < tiles.n) f32::load_tile_async<D, FK>(ks, kb, tiles.row0(i + 1), Tk);
+    f32::cp_async_commit();
+    f32::mma_nn<RM, D, FK>(acc, ps + ty * L::LDP, 16 * L::LDP, vs, L::LDX, tx);  // O += P V
   }
-  if (threadIdx.x < BQ && q0 + threadIdx.x < Tq) {
-    // A row with no allowed key (prefix variant, sep = 0) reports
-    // lse = -1e30 + log(1e-30), as the TPU kernel's initial state gives.
-    const float m = m_s[threadIdx.x] == -INFINITY ? -1e30f : m_s[threadIdx.x];
-    lse[(size_t)bh * Tq + q0 + threadIdx.x] = m + logf(fmaxf(l_s[threadIdx.x], 1e-30f));
+  f32::cp_async_wait<0>();  // with no KV tile (prefix variant, sep = 0) the Q copy is still in flight
+
+  float inv[RM];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const float lt = fmaxf(f32::group_sum(l[r]), 1e-30f);
+    inv[r] = 1.0f / lt;
+    const int row = q0 + ty + 16 * r;
+    if (tx == 0 && row < Tq) {
+      // A row with no allowed key (prefix variant, sep = 0) reports
+      // lse = -1e30 + log(1e-30), as the TPU kernel's initial state gives.
+      lse[(size_t)bh * Tq + row] = (m[r] == -INFINITY ? -1e30f : m[r]) + logf(lt);
+    }
   }
+  f32::store_rows<RM, D>(o + (size_t)bh * Tq * D, acc, inv, q0, Tq, tx, ty);
 }
 
 // ------------------------------------------------------- bf16, sm_90a
@@ -399,18 +323,25 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
   }
 }
 
+template <int D, int FQ, bool DIAG>
+cudaError_t launch_f32_rows(const void* q, const void* k, const void* v, void* o, void* lse, const void* sep,
+                            int BH, int Tq, int Tk, cudaStream_t stream) {
+  using L = FwdF32Smem<D, FQ>;
+  auto kernel = fwd_f32<D, FQ, DIAG>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tq + FQ - 1) / FQ, BH);
+  kernel<<<grid, f32::kThreads, L::bytes, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                                     static_cast<const float*>(v), static_cast<float*>(o),
+                                                     static_cast<float*>(lse), static_cast<const int*>(sep), Tq, Tk);
+  return cudaGetLastError();
+}
+
 template <int D, bool DIAG>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, const void* sep, int BH,
                        int Tq, int Tk, cudaStream_t stream) {
-  using L = Smem<D>;
-  auto kernel = fwd_f32<D, DIAG>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + BQ - 1) / BQ, BH);
-  kernel<<<grid, NTHREADS, L::bytes, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                                static_cast<const float*>(v), static_cast<float*>(o),
-                                                static_cast<float*>(lse), static_cast<const int*>(sep), Tq, Tk);
-  return cudaGetLastError();
+  return Tq >= kLongSeq ? launch_f32_rows<D, 128, DIAG>(q, k, v, o, lse, sep, BH, Tq, Tk, stream)
+                        : launch_f32_rows<D, 64, DIAG>(q, k, v, o, lse, sep, BH, Tq, Tk, stream);
 }
 
 template <int D, bool DIAG>
