@@ -9,8 +9,10 @@ Phases, each printing one JSON line:
   2. build: compiles the CUDA sources of the checkout, one nvcc each, all at
      once, and reports ptxas's registers and spills of every kernel, by name,
      and nvcc's warnings; fails if a bf16 flash kernel, the fused layer's
-     GEMM or its attention kernels (the *_sm90 bodies), or the flash f32
-     forward or dk/dv body (fwd_f32, dkv_f32) spills, and names the kernels
+     GEMM or its attention kernels (the *_sm90 bodies), the flash f32
+     forward or dk/dv body (fwd_f32, dkv_f32), or a kernel of the fused
+     backward's f32 chains (gemm_f32, attn_recompute_f32, attn_bwd_f32, the
+     f32 LayerNorm backward, the ordered sums) spills, and names the kernels
      it checked.
   3. kernel: the PFN flash-attention forward kernel, both variants, against
      its plain dense f32 version over FLASH_CASES: T in {127, 128, 129, 2010}
@@ -54,8 +56,9 @@ Phases, each printing one JSON line:
   8. fused_kernel: the fused encoder-layer forward kernel against its plain
      version (y, r and lse) over T in {1, 16, 100, 127, 128, 129, 512}, sep
      in {0, 1, T//2, T-1, T}, B in {1, 3} (and 64 at T = 100), (D, H, F) in
-     {(512, 4, 1024), (64, 2, 96), (32, 2, 48)}, and at the bf16 kernels'
-     tile edges FUSED_FWD_EDGES; f32 at atol = rtol = 3e-5, bf16 by the rule
+     {(512, 4, 1024), (64, 2, 96), (32, 2, 48)}, at the bf16 kernels'
+     tile edges FUSED_FWD_EDGES, and in f32 at the f32 GEMM's tile edges
+     FUSED_F32_EDGES; f32 at atol = rtol = 3e-5, bf16 by the rule
      err <= 2 * plain_bf16_err + 1e-3 against an f32 gold; a repeat call
      bitwise equal.
   9. fused_timing: one layer at the bench.py flagship shape (B 64, T 100,
@@ -66,8 +69,9 @@ Phases, each printing one JSON line:
      GEMM, the wgmma attention, the LayerNorm and the cast may appear), its
      device kernels per layer counted from it, and its host time per call.
  10. fused_bwd_kernel: the fused layer's two backward kernels (FFN, then
-     attention) against fused_layer_bwd_plain on fused_kernel's grid and the
-     GEMM tile edges FUSED_BWD_EDGES, r and lse from the forward kernel: dx
+     attention) against fused_layer_bwd_plain on fused_kernel's grid, the
+     bf16 GEMM's tile edges FUSED_BWD_EDGES and, in f32, FUSED_F32_EDGES, r
+     and lse from the forward kernel: dx
      and all 12 gradients, f32 at atol = rtol = 3e-4, bf16 by the
      kernel_bwd rule against the plain bf16 backward's own error and an f32
      gold; a repeat call bitwise equal.
@@ -75,11 +79,15 @@ Phases, each printing one JSON line:
      their plain versions, the unfused PFNEncoderLayer's backward (events
      and device time) and the bound; a device profile of one call of each
      (every device kernel), its host time per call and its device kernels
-     per layer. Then fused_f32_timing: the three fused kernels' f32 FMA
-     bodies at the flagship shape and sep, held to their plain versions and
-     timed beside them, beside the unfused f32 PFNEncoderLayer (dense
-     attention at T 100) forward and backward, events and device time, and
-     the f32 bound (67 TFLOP/s, 3.35 TB/s).
+     per layer. Then fused_f32_timing: the three fused kernels' f32 bodies
+     at the flagship shape and sep, held to their plain versions, repeat
+     calls bitwise equal, and timed beside them and beside their yardsticks
+     in the unfused f32 PFNEncoderLayer (dense attention at T 100), events
+     and device time: the forward against its forward, the FFN backward
+     against the FFN block's backward alone, the attention backward against
+     the attention block's, both together against the whole backward; the
+     f32 bound (67 TFLOP/s, 3.35 TB/s); a device profile of each chain by
+     sub-kernel.
  12. fused_path: fused_forward at the bench.py flagship model (6 layers, 100
      buckets, bf16, seeded weights, 64 GP datasets of T = 100): logits
      against the unfused forward in bf16 and f32, the kernel launched once
@@ -93,7 +101,11 @@ Phases, each printing one JSON line:
      launched 6 layers x 4 updates times and no flash kernel; one update
      fused against unfused (bf16 budget, f32 1e-4 relative); no host sync
      inside a fused update; update times fused and unfused, peak memory, a
-     profile of one fused update.
+     profile of one fused update. Then fused_f32_train: the same at
+     TrainConfig's default dtype, f32, so the fused layer's f32 bodies run
+     on a user's path: each launched 6 layers x 4 updates times, one update
+     against the unfused f32 one within FUSED_TRAIN_F32_TOL, update times,
+     datasets/s, peak memory and the idle share of a profiled update.
  14. library_timing: F.scaled_dot_product_attention with the boolean PFN
      mask, forward and backward, at the flash kernels' timing shapes (the
      library yardstick of the kernels line; the port never calls it), and
@@ -149,7 +161,8 @@ Then the kernels line (each kernel's launches on its path, error, time,
 plain time, bound and library time, for the fused kernels also the library
 call's device time, for the flash kernels also their f32 rows at T 100 and
 T 2010 (and the prefix variant's at T 2010), the f32 rows at T 2010 with
-their launches on f32_path, for the fused kernels their f32 rows; its
+their launches on f32_path, for the fused kernels their f32 rows with
+their launches on fused_f32_train; its
 route, and the design of its bf16 body), the run's seconds, and
 last {"ok": true, "device": {...}}.
 
@@ -278,6 +291,16 @@ FUSED_BWD_EDGES = [(D, H, F, T, B) for D, H, F in ((80, 5, 144), (128, 2, 128))
 # the GEMM's 128-row tiles.
 FUSED_FWD_EDGES = [(D, H, F, T, B) for D, H, F in ((64, 2, 96), (32, 2, 48))
                    for T, B in ((63, 1), (64, 2), (65, 1), (85, 3), (257, 1))]
+# Edges of the f32 GEMM (pfn_fused_common.cuh: 128 x 128 output tiles over
+# 16-deep K tiles, column sums over 128-row tiles) that the grids above do
+# not straddle, as (D, H, F, T, B), in f32 only, each at sep in {0, T//2,
+# T-1, T}: M = B*T at 127, 128 and 129; N = D, F, 3D past 128-column tiles
+# (D 144, F 272), short of them (D 112, F 240) and on them (D 128, F 128,
+# head dim 128); T 15, 16 and 17 against the K step of the attention
+# products (tests/test_torch_port_fused_f32_edges.py holds the plain
+# versions to the JAX package at these shapes).
+FUSED_F32_EDGES = [(144, 9, 272, 127, 1), (144, 9, 272, 64, 2), (112, 7, 240, 129, 1), (128, 1, 128, 17, 3),
+                   (128, 1, 128, 16, 1), (112, 7, 240, 15, 2)]
 # f32 fused path against the f32 unfused forward: 6 layers of f32
 # summation-order differences (each within FUSED_F32_TOL), then the decoder.
 FUSED_PATH_F32_TOL = 1e-3
@@ -290,9 +313,12 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 # Name fragments of the kernels whose registers must not spill: the Hopper
-# bodies (bf16 flash, fused GEMM and attention) and the flash kernels' f32
-# forward and dk/dv bodies.
-SPILL_CHECKED = ("_sm90<", "fwd_f32<", "dkv_f32<")
+# bodies (bf16 flash, fused GEMM and attention), the flash kernels' f32
+# forward and dk/dv bodies, and the f32 kernels of the fused backward's
+# chains (the f32 GEMM, which the forward shares, the attention's recompute
+# and softmax backward, the LayerNorm backward, the ordered sums).
+SPILL_CHECKED = ("_sm90<", "fwd_f32<", "dkv_f32<", "gemm_f32<", "attn_recompute_f32<", "attn_bwd_f32<",
+                 "layernorm_bwd_kernel<float>", "colsum_final_kernel", "split_sum_kernel")
 # The design of each kernel's bf16 body, beside its route in the kernels line.
 SM90_DESIGN = "sm90-wgmma-tma"  # wgmma fed by TMA through an mbarrier ring (pfn_flash_sm90.cuh, pfn_gemm_sm90.cuh)
 # The device kernels a bf16 call of the fused forward may launch (name
@@ -333,8 +359,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def profiled_kernels(fn, calls: int = 1, cpu: bool = False):
-    """([name, ms, launches] of each device kernel, wall ms) of ``calls``
-    calls of fn() in one recorded profiler step, after a warm-up call and a
+    """([name, ms, launches] of each device kernel, wall ms, busy ms) of
+    ``calls`` calls of fn() in one recorded profiler step, busy ms being the
+    union of the kernels' intervals (kernels that overlap on two streams
+    count once), after a warm-up call and a
     profiler warm-up step (the tracer can miss the first kernels of a
     session). The step is padded by PROFILE_PAD_S on both sides, and a
     session that saw no kernel is tried again, up to PROFILE_TRIES in all.
@@ -370,16 +398,25 @@ def profiled_kernels(fn, calls: int = 1, cpu: bool = False):
         if kernels:
             break
         profile_misses += 1
-    return kernels, wall_ms
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+                   and e.time_range.end > e.time_range.start)
+    busy_us, reached = 0.0, float("-inf")
+    for start, end in spans:
+        if end > reached:
+            busy_us += end - max(start, reached)
+            reached = end
+    return kernels, wall_ms, busy_us / 1e3
 
 
 def device_ms(fn, calls: int = 20):
-    """Mean device time of one fn() call: the time of the kernels it
-    launches, by torch.profiler over ``calls`` calls (profiled_kernels).
-    Unlike cuda_ms it does not grow when the host enqueues slower than the
-    card runs. "not measured" if the profiler saw no kernel."""
-    kernels, _ = profiled_kernels(fn, calls)
-    return sum(k[1] for k in kernels) / calls if kernels else "not measured"
+    """Mean device time of one fn() call: the time the card spends in the
+    kernels it launches (the union of their intervals), by torch.profiler
+    over ``calls`` calls (profiled_kernels). Unlike cuda_ms it does not grow
+    when the host enqueues slower than the card runs. "not measured" if the
+    profiler saw no kernel."""
+    kernels, _, busy = profiled_kernels(fn, calls)
+    return busy / calls if kernels else "not measured"
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
@@ -461,12 +498,12 @@ def fused_layer_bwd_bound(kind: str, B: int, T: int, D: int, H: int, F: int, sep
 def device_profile(fn, top: int = 8) -> dict:
     """One call of fn() under torch.profiler (profiled_kernels): the wall
     time from a synchronize to a synchronize, the device time of its kernels
-    (their sum, so overlapping kernels would count twice; this path runs one
-    stream), the idle share of the card in between, and the kernels that
-    took most of it: [name, ms, launches]."""
-    kernels, wall_ms = profiled_kernels(fn, cpu=True)
+    (the union of their intervals: the fused f32 backward overlaps its
+    weight gradients with other products on a second stream), the idle
+    share of the card in between, and the kernels that took most of it:
+    [name, ms, launches], each kernel's time its own."""
+    kernels, wall_ms, device_ms = profiled_kernels(fn, cpu=True)
     kernels.sort(key=lambda k: -k[1])
-    device_ms = sum(k[1] for k in kernels)
     return {"wall_ms": wall_ms, "device_ms": device_ms if kernels else "not measured",
             "idle_share": 1.0 - device_ms / wall_ms if kernels else "not measured", "kernels": kernels[:top]}
 
@@ -1189,10 +1226,10 @@ def phase_fused_kernel(device):
     g = torch.Generator(device=device).manual_seed(4)
     worst, n = {}, 0
 
-    def check(D, H, F, p, T, B, sep):
+    def check(D, H, F, p, T, B, sep, dtypes=(torch.float32, torch.bfloat16)):
         x = torch.randn(B, T, D, generator=g, device=device)
         gold = fused_layer_fwd_plain(x, p, sep, H, torch.float32)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             got = fused_layer_fwd(x, p, sep, H, dtype)
             again = fused_layer_fwd(x, p, sep, H, dtype)
             torch.cuda.synchronize()
@@ -1235,7 +1272,15 @@ def phase_fused_kernel(device):
         for sep in sorted({0, T // 2, T - 1, T}):
             check(D, H, F, p, T, B, sep)
             n += 2
-    emit({"phase": "fused_kernel", "cases": n, "grid_cases": grid, "edge_cases": n - grid, "worst": worst,
+    f32_edges = 0
+    for D, H, F, T, B in FUSED_F32_EDGES:
+        p = _fused_params(D, F, g, device)
+        for sep in sorted({0, T // 2, T - 1, T}):
+            check(D, H, F, p, T, B, sep, dtypes=(torch.float32,))
+            f32_edges += 1
+    n += f32_edges
+    emit({"phase": "fused_kernel", "cases": n, "grid_cases": grid, "edge_cases": n - grid - f32_edges,
+          "f32_edge_cases": f32_edges, "worst": worst,
           "tol_f32": FUSED_F32_TOL,
           "bf16_rule": "err <= 2 * plain_bf16_err + 1e-3 against the plain f32 gold, for y, r and lse",
           "repeat_bitwise_equal": True})
@@ -1339,7 +1384,7 @@ def phase_fused_bwd_kernel(device):
     g = torch.Generator(device=device).manual_seed(9)
     worst, n = {}, 0
 
-    def check(D, H, F, p, T, B, sep):
+    def check(D, H, F, p, T, B, sep, dtypes=(torch.float32, torch.bfloat16)):
         x = torch.randn(B, T, D, generator=g, device=device)
         dy = torch.randn(B, T, D, generator=g, device=device)
 
@@ -1348,7 +1393,7 @@ def phase_fused_bwd_kernel(device):
             return {"dx": dx, **dp}
 
         gold = grads(fused_layer_bwd_plain, torch.float32, *fused_layer_fwd_plain(x, p, sep, H, torch.float32)[1:])
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             _, r, lse = fused_layer_fwd(x, p, sep, H, dtype)
             got = grads(fused_layer_bwd, dtype, r, lse)
             again = grads(fused_layer_bwd, dtype, r, lse)
@@ -1386,7 +1431,15 @@ def phase_fused_bwd_kernel(device):
         for sep in sorted({0, T // 2, T}):
             check(D, H, F, p, T, B, sep)
             n += 2
-    emit({"phase": "fused_bwd_kernel", "cases": n, "worst": worst, "tol_f32": FUSED_BWD_F32_TOL,
+    f32_edges = 0
+    for D, H, F, T, B in FUSED_F32_EDGES:
+        p = _fused_params(D, F, g, device)
+        for sep in sorted({0, T // 2, T - 1, T}):
+            check(D, H, F, p, T, B, sep, dtypes=(torch.float32,))
+            f32_edges += 1
+    n += f32_edges
+    emit({"phase": "fused_bwd_kernel", "cases": n, "f32_edge_cases": f32_edges, "worst": worst,
+          "tol_f32": FUSED_BWD_F32_TOL,
           "bf16_rule": f"err/max|gold| <= max({BF16_GRAD_FLOOR}, 3 * plain_bf16_err/max|gold|) per gradient, "
                        "against the plain f32 backward of the plain f32 forward",
           "repeat_bitwise_equal": True})
@@ -1471,13 +1524,45 @@ def phase_fused_bwd_timing(device, smi: str, size: dict = FLAGSHIP):
     return rows
 
 
+def _unfused_block_grads(layer, x, sep_t, dy, dr):
+    """Autograd calls of the unfused f32 PFNEncoderLayer's two blocks alone,
+    the per-block yardsticks of the fused backward kernels: the FFN block
+    (LN1's output r back through linear1, GELU, linear2 and LN2 to dy) and
+    the attention block (x through the qkv projection, the dense PFN
+    attention, out_proj and LN1 to dr). Each retains its graph."""
+    import torch
+    import torch.nn.functional as F
+
+    from pfn_tpu_torch.models.transformer import _linear
+
+    f32 = torch.float32
+    with torch.no_grad():
+        r_in = layer.norm1(x + layer.self_attn(x, sep_t))
+    r_leaf = r_in.detach().requires_grad_()
+    h = F.gelu(_linear(r_leaf, layer.linear1, f32), approximate=layer.gelu_approximate)
+    y = layer.norm2(r_leaf + _linear(h, layer.linear2, f32))
+    ffn_leaves = [r_leaf, *layer.linear1.parameters(), *layer.linear2.parameters(), *layer.norm2.parameters()]
+    x_leaf = x.detach().requires_grad_()
+    r_out = layer.norm1(x_leaf + layer.self_attn(x_leaf, sep_t))
+    attn_leaves = [x_leaf, *layer.self_attn.parameters(), *layer.norm1.parameters()]
+    return {"ffn": lambda: torch.autograd.grad(y, ffn_leaves, dy, retain_graph=True),
+            "attn": lambda: torch.autograd.grad(r_out, attn_leaves, dr, retain_graph=True)}
+
+
 def phase_fused_f32_timing(device, smi: str, size: dict = FLAGSHIP):
-    """The fused layer's f32 FMA bodies (forward, FFN backward, attention
+    """The fused layer's f32 bodies (forward, FFN backward, attention
     backward) at the flagship shape and sep, each held to its plain version
-    (FUSED_F32_TOL, FUSED_BWD_F32_TOL) and timed beside it, beside the
-    unfused f32 PFNEncoderLayer (dense attention at T 100) forward and
-    backward, by CUDA events and by device time, and beside the bound at 67
-    TFLOP/s and 3.35 TB/s."""
+    (FUSED_F32_TOL, FUSED_BWD_F32_TOL), a repeat call of each bitwise equal,
+    and each timed beside its plain version and its yardstick in the unfused
+    f32 PFNEncoderLayer (dense attention at T 100), by CUDA events and by
+    device time, with the ratio of each: the forward against the layer's
+    forward, the FFN backward against the FFN block's backward alone, the
+    attention backward against the attention block's backward alone, and
+    both backward kernels together against the layer's whole backward;
+    beside the bound at 67 TFLOP/s and 3.35 TB/s. A device profile of one call of each chain lists every device
+    kernel (the split by sub-kernel; the backward's weight gradients overlap
+    other products on a second stream, so its kernel times sum past its
+    device time)."""
     import torch
 
     from pfn_tpu_torch.models import PFNEncoderLayer
@@ -1509,36 +1594,57 @@ def phase_fused_f32_timing(device, smi: str, size: dict = FLAGSHIP):
         tol = FUSED_F32_TOL if part == "fwd" else FUSED_BWD_F32_TOL
         if not all(torch.allclose(a, b, atol=tol, rtol=tol) for a, b in ab):
             raise AssertionError(f"fused_f32_timing: the f32 {part} body disagrees with its plain version: {errs}")
+    # A repeat call of each body, bitwise equal (no atomics on the chains).
+    again = {"fwd": _ext.fused_layer_fwd(x, kp, sep_t, H), "ffn": _ext.fused_layer_bwd_ffn(r, kp, dy),
+             "attn": _ext.fused_layer_bwd_attn(x, kp, lse, dr, sep_t, H)}
+    for part, out in again.items():
+        first = pairs[part]
+        tensors = list(out) if part == "fwd" else [out[0], *out[1].values()]
+        if not all(torch.equal(a, b) for a, (b, _) in zip(tensors, first)):
+            raise AssertionError(f"fused_f32_timing: a repeat call of the f32 {part} body differs")
 
-    leaves = [x.detach().requires_grad_(), *layer.parameters()]
-    out = layer(leaves[0], sep_t)
     with torch.no_grad():
         unfused_fwd = (cuda_ms(lambda: layer(x, sep_t)), device_ms(lambda: layer(x, sep_t)))
-    unfused_bwd = (cuda_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)),
-                   device_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)))
+    leaves = [x.detach().requires_grad_(), *layer.parameters()]
+    out = layer(leaves[0], sep_t)
+    whole = lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)  # noqa: E731
+    unfused_bwd = (cuda_ms(whole), device_ms(whole))
+    blocks = _unfused_block_grads(layer, x, sep_t, dy, dr)
+    unfused_block = {part: (cuda_ms(fn), device_ms(fn)) for part, fn in blocks.items()}
     calls = {"fwd": (lambda: _ext.fused_layer_fwd(x, kp, sep_t, H),
                      lambda: fused_layer_fwd_plain(x, p, sep_t, H, torch.float32), unfused_fwd,
                      fused_layer_bound(B, T, D, H, F, sep, "f32")),
              "ffn": (lambda: _ext.fused_layer_bwd_ffn(r, kp, dy),
-                     lambda: _bwd_ffn_plain(r, p, dy, torch.float32), unfused_bwd,
+                     lambda: _bwd_ffn_plain(r, p, dy, torch.float32), unfused_block["ffn"],
                      fused_layer_bwd_bound("ffn", B, T, D, H, F, sep, "f32")),
              "attn": (lambda: _ext.fused_layer_bwd_attn(x, kp, lse, dr, sep_t, H),
-                      lambda: _bwd_attn_plain(x, p, sep_t, lse, dr, H, torch.float32), unfused_bwd,
+                      lambda: _bwd_attn_plain(x, p, sep_t, lse, dr, H, torch.float32), unfused_block["attn"],
                       fused_layer_bwd_bound("attn", B, T, D, H, F, sep, "f32"))}
-    rows = {}
+    rows, profiles = {}, {}
     for part, (kernel, plain, (lib_ms, lib_dev_ms), b) in calls.items():
         ms, dev = cuda_ms(kernel), device_ms(kernel)
         rows[part] = {"ms": ms, "dev_ms": dev, "plain_ms": cuda_ms(plain), "library_ms": lib_ms,
                       "library_dev_ms": lib_dev_ms, "max_abs_err": errs[part], **b,
-                      "pct_of_bound": 100.0 * b["bound_ms"] / ms,
-                      "against_library": ms / lib_ms}
-    # The backward's two kernels together against the unfused backward.
+                      "pct_of_bound": 100.0 * b["bound_ms"] / ms, "against_library": ms / lib_ms,
+                      "against_library_dev": dev / lib_dev_ms}
+        profiles[part] = device_profile(kernel, top=64)
+    # The backward's two kernels together against the unfused layer's whole backward.
     both = rows["ffn"]["ms"] + rows["attn"]["ms"]
+    both_dev = rows["ffn"]["dev_ms"] + rows["attn"]["dev_ms"]
     emit({"phase": "fused_f32_timing", "card": smi,
           "shape": {"B": B, "T": T, "D": D, "H": H, "F": F, "sep": sep, "dtype": "f32"}, "rows": rows,
-          "bwd_both_against_library": both / unfused_bwd[0],
-          "library_note": "the unfused f32 PFNEncoderLayer (dense attention at T 100); the backward's yardstick is "
-                          "its whole backward, against both fused backward kernels"})
+          "bwd_both_ms": both, "bwd_both_dev_ms": both_dev, "unfused_bwd_ms": unfused_bwd[0],
+          "unfused_bwd_dev_ms": unfused_bwd[1], "bwd_both_against_library": both / unfused_bwd[0],
+          "bwd_both_against_library_dev": both_dev / unfused_bwd[1], "repeat_bitwise_equal": True,
+          "device_kernels_per_call": {part: _kernel_count(_chain_kernels(prof)) for part, prof in profiles.items()},
+          "profiles": profiles,
+          "library_note": "the unfused f32 PFNEncoderLayer (dense attention at T 100): the forward against its "
+                          "forward, each backward kernel against its block's backward alone, both together "
+                          "against its whole backward; against_library by events, against_library_dev by "
+                          "device time (the autograd yardsticks are many small launches, so their event "
+                          "times carry the host's)",
+          "dev_ms_note": "the union of a call's kernel intervals; the f32 backward runs its weight gradients on "
+                         "a second stream beside other products, so its profile's kernel times sum past it"})
     return rows
 
 
@@ -1630,11 +1736,15 @@ def phase_fused_path(device, smi: str, size: dict = FLAGSHIP):
     return launched["pfn_fused_layer_fwd"], latency
 
 
-def phase_fused_train(device, smi: str, size: dict = FLAGSHIP, updates: int = 2, timed_updates: int = 4):
+def phase_fused_train(device, smi: str, size: dict = FLAGSHIP, updates: int = 2, timed_updates: int = 4,
+                      f32: bool = False):
     """train(...) with attention_impl="fused" at the bench.py config
     (bench.py:27-31, 73-87): epoch 1 into a checkpoint, a second call that
     resumes it and runs epoch 2; then one update fused against unfused, and
-    the update times of both."""
+    the update times of both. In bf16 (phase fused_train), or with ``f32``
+    at TrainConfig's default dtype, f32 (phase fused_f32_train: the fused
+    layer's f32 bodies), where the one update is held to the unfused f32
+    update alone."""
     import io
     import tempfile
 
@@ -1658,12 +1768,16 @@ def phase_fused_train(device, smi: str, size: dict = FLAGSHIP, updates: int = 2,
     B, T = size["B"], size["T"]
     prior = GPPrior(num_features=1, noise=1e-4, outputscale=1.0, lengthscale=0.6, grid=size["grid"])
     criterion = bar_criterion(get_bucket_limits(size["buckets"], full_range=(-4.0, 4.0))).to(device)
+    phase = "fused_f32_train" if f32 else "fused_train"
     cfg = TrainConfig(
         emsize=size["emsize"], nhid=size["nhid"], nlayers=size["nlayers"], nhead=size["nhead"], batch_size=B,
-        bptt=T, lr=1e-4, warmup_epochs=1, epochs=2, steps_per_epoch=updates, dtype=torch.bfloat16,
-        attention_impl="fused", checkpoint_dir=tempfile.mkdtemp(prefix="pfn_fused_train_"), checkpoint_every=1,
-        device=device, seed=0,
+        bptt=T, lr=1e-4, warmup_epochs=1, epochs=2, steps_per_epoch=updates, attention_impl="fused",
+        checkpoint_dir=tempfile.mkdtemp(prefix=f"pfn_{phase}_"), checkpoint_every=1, device=device, seed=0,
     )
+    if f32 and cfg.dtype != torch.float32:
+        raise AssertionError(f"TrainConfig's default dtype is {cfg.dtype}, not float32")
+    if not f32:
+        cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
     # Seeded random weights through the weight bridge, as phase_train starts
     # (the fresh init's zero rows: ROADMAP.md queue 3).
     init = state_dict_from_flax_params(
@@ -1686,13 +1800,16 @@ def phase_fused_train(device, smi: str, size: dict = FLAGSHIP, updates: int = 2,
     after_epoch2 = _param_vector(result.model.state_dict())
 
     # One update fused and unfused (bf16), and both in f32, from the same
-    # params, batch and sep.
+    # params, batch and sep (the f32 phase: the f32 pair alone).
     g = torch.Generator(device=device).manual_seed(15)
     xs, ys, tys = (t[None] for t in prior.sample(B, T, generator=g, device=device))
     one = {}
-    for name, over in {"fused_bf16": {}, "unfused_bf16": {"attention_impl": "auto"},
-                       "fused_f32": {"dtype": torch.float32},
-                       "unfused_f32": {"attention_impl": "auto", "dtype": torch.float32}}.items():
+    variants = {"fused_bf16": {}, "unfused_bf16": {"attention_impl": "auto"},
+                "fused_f32": {"dtype": torch.float32},
+                "unfused_f32": {"attention_impl": "auto", "dtype": torch.float32}}
+    for name, over in variants.items():
+        if f32 and name.endswith("bf16"):
+            continue
         pcfg = dataclasses.replace(cfg, eval_pos_sampler="fixed", fixed_eval_pos=size["sep"], checkpoint_dir=None,
                                    **over)
         model = build_model(prior, criterion, pcfg)
@@ -1701,11 +1818,12 @@ def phase_fused_train(device, smi: str, size: dict = FLAGSHIP, updates: int = 2,
         state = TrainState(model, optimizer, torch.Generator(device=device).manual_seed(0))
         m = make_train_step_from_batch(criterion, pcfg, schedule)(state, xs, ys, tys)
         one[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
-    budget = {key: 2 * abs(one["unfused_bf16"][key] - one["unfused_f32"][key])
-              + 1e-3 * abs(one["unfused_f32"][key]) for key in ("loss", "grad_norm")}
+    keys = ("loss", "grad_norm")
+    budget = {} if f32 else {key: 2 * abs(one["unfused_bf16"][key] - one["unfused_f32"][key])
+                             + 1e-3 * abs(one["unfused_f32"][key]) for key in keys}
     diff = {key: abs(one["fused_bf16"][key] - one["unfused_bf16"][key]) for key in budget}
     rel_f32 = {key: abs(one["fused_f32"][key] - one["unfused_f32"][key]) / abs(one["unfused_f32"][key])
-               for key in budget}
+               for key in keys}
 
     # Update time from the trained weights, fused and unfused in turns: the
     # first update of each, then the median of the rest.
@@ -1749,7 +1867,7 @@ def phase_fused_train(device, smi: str, size: dict = FLAGSHIP, updates: int = 2,
         "update_without_host_sync": no_host_sync,
     }
     emit({
-        "phase": "fused_train", "card": smi, "size": size, "dtype": "bf16", "updates_per_epoch": updates,
+        "phase": phase, "card": smi, "size": size, "dtype": "f32" if f32 else "bf16", "updates_per_epoch": updates,
         "epoch_stats": stats, "train_calls_s": train_s, "launches": launches, "expected_launches": expected,
         "update_ms": {name: {"first": ms[0], f"median_of_{timed_updates}": float(np.median(ms[1:]))}
                       for name, ms in update_ms.items()},
@@ -1759,7 +1877,7 @@ def phase_fused_train(device, smi: str, size: dict = FLAGSHIP, updates: int = 2,
     })
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"fused_train checks failed: {failed}")
+        raise AssertionError(f"{phase} checks failed: {failed}")
     return launches
 
 
@@ -1899,7 +2017,7 @@ def phase_tabular(device, smi: str, size: dict = TABULAR):
         torch.cuda.synchronize(device)
         update_ms.append((time.perf_counter() - t1) * 1e3)
     median_ms = float(np.median(update_ms[1:]))
-    kernels, wall_ms = profiled_kernels(lambda: float(step(state)["loss"]), cpu=True)
+    kernels, wall_ms, _ = profiled_kernels(lambda: float(step(state)["loss"]), cpu=True)
     update_dev_ms = sum(k[1] for k in kernels)
     update_flash = _kernel_launches(kernels)
     kernels.sort(key=lambda k: -k[1])
@@ -1923,7 +2041,7 @@ def phase_tabular(device, smi: str, size: dict = TABULAR):
             runs.append((ms, wall))
             probs.append(p)
     serve_launches = {name: _ext.launch_counts[name] for name in FLASH_F32_KERNELS}
-    request_kernels, _ = profiled_kernels(lambda: clf.predict_proba(xh_np[0, n_ctx:]))
+    request_kernels, _, _ = profiled_kernels(lambda: clf.predict_proba(xh_np[0, n_ctx:]))
     request_flash = _kernel_launches(request_kernels)
     acc = float(np.mean([(p.argmax(-1) == yh_np[i % len(xh_np), n_ctx:]).mean() for i, p in enumerate(probs)]))
 
@@ -2178,7 +2296,7 @@ def phase_f32_path(device, smi: str, size: dict = F32_PATH):
         torch.cuda.synchronize(device)
         update_ms.append((time.perf_counter() - t1) * 1e3)
     median_ms = float(np.median(update_ms[1:]))
-    kernels, wall_ms = profiled_kernels(lambda: float(step(state)["loss"]), cpu=True)
+    kernels, wall_ms, _ = profiled_kernels(lambda: float(step(state)["loss"]), cpu=True)
     update_dev_ms = sum(kn[1] for kn in kernels)
     profiled = _kernel_launches(kernels)
     kernels.sort(key=lambda kn: -kn[1])
@@ -2457,6 +2575,11 @@ def main() -> int:
     fused_f32 = phase_fused_f32_timing(device, smi)
     fused_launches, _ = phase_fused_path(device, smi)
     fused_train_launches = phase_fused_train(device, smi)
+    # The fused layer's f32 bodies on their path: the f32 rows' launches.
+    fused_f32_launches = phase_fused_train(device, smi, f32=True)
+    for part, name in (("fwd", "pfn_fused_layer_fwd"), ("ffn", "pfn_fused_layer_bwd_ffn"),
+                       ("attn", "pfn_fused_layer_bwd_attn")):
+        fused_f32[part]["launches"] = fused_f32_launches[name]
     library = phase_library_timing(device, smi)
     phase_tabular(device, smi)
     tabular_timing = f32_kernel_timing(device, smi, "tabular_kernel_timing", TABULAR_KERNEL_SHAPE)

@@ -3,7 +3,7 @@
 PyTorch port (``pfn_tpu_torch``) in several checkouts, in turns, on one
 NVIDIA GPU.
 
-    python3 experiments/port_flash_bwd_ab.py TREE_A TREE_B [--fused] [--train] [--out FILE]
+    python3 experiments/port_flash_bwd_ab.py TREE_A TREE_B [--fused [--f32]] [--train] [--out FILE]
 
 Each TREE is a directory that holds a ``pfn_tpu_torch`` package and its
 ``chip_smoke.py``: a checkout, or a commit unpacked by ``git archive`` into a
@@ -30,8 +30,9 @@ backward relative to its largest entry, a device profile of one call of each
 of the three at sep 50 (every device kernel), their host time per
 call (50 calls without a synchronize), ptxas's report of the forward and
 backward libraries' kernels; and with ``--train`` the JSON line of the tree's
-``chip_smoke.phase_fused_train``. Any failure of a run stops the script with
-a nonzero exit.
+``chip_smoke.phase_fused_train``. ``--fused --f32`` does the same for the
+fused layer's f32 bodies (the weights in f32, errors against the plain f32
+versions). Any failure of a run stops the script with a nonzero exit.
 """
 
 from __future__ import annotations
@@ -100,8 +101,9 @@ def host_us(fn, calls: int = 50) -> float:
     return us
 
 
-def run_fused(tree: str, device, smi: str, train: bool) -> dict:
-    """The fused layer's kernels of one tree, in this process."""
+def run_fused(tree: str, device, smi: str, train: bool, f32: bool = False) -> dict:
+    """The fused layer's kernels of one tree, in this process, in bf16 or
+    with ``f32`` their f32 bodies."""
     import torch
 
     import chip_smoke
@@ -109,13 +111,15 @@ def run_fused(tree: str, device, smi: str, train: bool) -> dict:
     from pfn_tpu_torch.ops.fused_layer import _bwd_attn_plain, _bwd_ffn_plain, _kernel_params
 
     logs = {name: info["log"] for name, info in _ext.build(["pfn_fused_layer_fwd", "pfn_fused_layer_bwd"]).items()}
-    out = {"tree": tree, "card": smi, "ptxas_fwd": chip_smoke.ptxas_report(logs["pfn_fused_layer_fwd"]),
+    dtype = torch.float32 if f32 else torch.bfloat16
+    out = {"tree": tree, "card": smi, "dtype": str(dtype),
+           "ptxas_fwd": chip_smoke.ptxas_report(logs["pfn_fused_layer_fwd"]),
            "ptxas_bwd": chip_smoke.ptxas_report(logs["pfn_fused_layer_bwd"])}
     size = chip_smoke.FLAGSHIP
     B, T, D, H, F = size["B"], size["T"], size["emsize"], size["nhead"], size["nhid"]
     g = torch.Generator(device=device).manual_seed(10)
     p = chip_smoke._fused_params(D, F, g, device)
-    kp = _kernel_params(p, torch.bfloat16)
+    kp = _kernel_params(p, dtype)
     x, dy = (torch.randn(B, T, D, generator=g, device=device) for _ in range(2))
 
     def rel_err(got, want):
@@ -126,8 +130,8 @@ def run_fused(tree: str, device, smi: str, train: bool) -> dict:
         _, r, lse = _ext.fused_layer_fwd(x, kp, sep_t, H)
         dr, dp_ffn = _ext.fused_layer_bwd_ffn(r, kp, dy)
         dx, dp_attn = _ext.fused_layer_bwd_attn(x, kp, lse, dr, sep_t, H)
-        dr_plain, dp_ffn_plain = _bwd_ffn_plain(r, p, dy, torch.bfloat16)
-        dx_plain, dp_attn_plain = _bwd_attn_plain(x, p, sep_t, lse, dr, H, torch.bfloat16)
+        dr_plain, dp_ffn_plain = _bwd_ffn_plain(r, p, dy, dtype)
+        dx_plain, dp_attn_plain = _bwd_attn_plain(x, p, sep_t, lse, dr, H, dtype)
         calls = {"ffn": lambda: _ext.fused_layer_bwd_ffn(r, kp, dy),
                  "attn": lambda: _ext.fused_layer_bwd_attn(x, kp, lse, dr, sep_t, H),
                  "fwd": lambda: _ext.fused_layer_fwd(x, kp, sep_t, H)}
@@ -141,11 +145,11 @@ def run_fused(tree: str, device, smi: str, train: bool) -> dict:
             row["host_us_per_call"] = {part: host_us(fn) for part, fn in calls.items()}
         out[f"sep_{sep}"] = row
     if train:
-        chip_smoke.phase_fused_train(device, smi)
+        chip_smoke.phase_fused_train(device, smi, **({"f32": True} if f32 else {}))
     return out
 
 
-def run_tree(tree: str, train: bool, fused: bool) -> dict:
+def run_tree(tree: str, train: bool, fused: bool, f32: bool = False) -> dict:
     """The measurements of one tree, in this process."""
     sys.path.insert(0, tree)
     import torch
@@ -158,7 +162,7 @@ def run_tree(tree: str, train: bool, fused: bool) -> dict:
         raise RuntimeError(f"{tree}: imported {_ext.__file__} and {chip_smoke.__file__}")
     device, smi = chip_smoke.phase_card()
     if fused:
-        return run_fused(tree, device, smi, train)
+        return run_fused(tree, device, smi, train, f32)
     log = _ext.build(["pfn_flash_fwd", "pfn_flash_bwd"])["pfn_flash_bwd"]["log"]
     out = {"tree": tree, "card": smi,
            "ptxas_dkv": [k for k in chip_smoke.ptxas_report(log) if "dkv" in k["kernel"]]}
@@ -193,20 +197,21 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("trees", nargs="*", help="directories holding pfn_tpu_torch and chip_smoke.py")
     parser.add_argument("--fused", action="store_true", help="time the fused layer's kernels, not the flash ones")
+    parser.add_argument("--f32", action="store_true", help="with --fused: the f32 bodies, not the bf16 ones")
     parser.add_argument("--train", action="store_true",
                         help="also run each tree's chip_smoke train phase (fused_train with --fused)")
     parser.add_argument("--out", help="also append every JSON line to this file")
     parser.add_argument("--one", help=argparse.SUPPRESS)  # internal: measure this tree in this process
     args = parser.parse_args()
     if args.one:
-        print(json.dumps({"ab": run_tree(args.one, args.train, args.fused)}), flush=True)
+        print(json.dumps({"ab": run_tree(args.one, args.train, args.fused, args.f32)}), flush=True)
         return 0
     if not args.trees:
         parser.error("give at least one tree")
     trees = [str(Path(t).resolve()) for t in args.trees]
     for tree in trees + trees[::-1]:
         cmd = [sys.executable, __file__, "--one", tree, *(["--train"] if args.train else []),
-               *(["--fused"] if args.fused else [])]
+               *(["--fused"] if args.fused else []), *(["--f32"] if args.f32 else [])]
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=tree, env={**os.environ, "PYTHONPATH": tree})
         if proc.returncode != 0:
             sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-8000:])

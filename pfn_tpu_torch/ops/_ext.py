@@ -274,17 +274,30 @@ def fused_shape_error(D: int, H: int | None, F: int, T: int | None = None) -> st
 COLSUM_ROWS = 32
 
 
-# Output tile of the backward's bf16 GEMM (csrc/pfn_gemm_sm90.cuh).
+# Output tile (square) of the backward's GEMMs in both dtypes: the bf16 one
+# of csrc/pfn_gemm_sm90.cuh (one block an SM) and the f32 one of
+# csrc/pfn_fused_common.cuh (F32_GEMM_BLOCKS_PER_SM blocks an SM, its launch
+# bounds).
 WGRAD_TILE = 128
+F32_GEMM_BLOCKS_PER_SM = 2
 
 
-def weight_grad_splits(M: int, Kin: int, N: int, sms: int) -> int:
+def weight_grad_splits(M: int, Kin: int, N: int, slots: int) -> int:
     """Chunks the backward cuts the M = B*T rows of the weight gradient dW
     (Kin, N) into (split-K, summed in order): as many as keep its 128 x 128
-    output tiles times the chunks within one wave of ``sms`` SMs, with at
-    least 256 rows a chunk, at most 16, and at least 1."""
+    output tiles times the chunks within one wave of ``slots`` blocks (the
+    SMs times the blocks an SM holds), with at least 256 rows a chunk, at
+    most 16, and at least 1."""
     tiles = -(-Kin // WGRAD_TILE) * -(-N // WGRAD_TILE)
-    return max(1, min(sms // tiles, M // 256, 16))
+    return max(1, min(slots // tiles, M // 256, 16))
+
+
+def _weight_grad_splits(M: int, pairs, device, bf16: bool) -> tuple:
+    """:func:`weight_grad_splits` of each (Kin, N) in ``pairs`` for the GEMM
+    of the compute dtype."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    slots = sms if bf16 else sms * F32_GEMM_BLOCKS_PER_SM
+    return tuple(weight_grad_splits(M, Kin, N, slots) for Kin, N in pairs)
 
 
 def _check_fused_layer(name: str, x, params: dict, nhead: int | None, tensors=(), backward: bool = False) -> tuple:
@@ -389,14 +402,10 @@ def _workspace(device, *parts) -> tuple:
     return buf, [None if o is None else base + o for o in offsets]
 
 
-def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def fused_layer_bwd_ffn(r: torch.Tensor, params: dict, dy: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """Launch the fused layer's FFN backward (the TPU kernel
-    ``_bwd_ffn_kernel``): one call, which enqueues its device kernels (ten,
-    and an ordered sum for each weight gradient that
+    ``_bwd_ffn_kernel``): one call, which enqueues its device kernels (ten
+    in bf16, nine in f32, and an ordered sum for each weight gradient that
     :func:`weight_grad_splits` splits) on the current stream and counts one
     launch. The products by W1^T and W2^T read the weights in place.
 
@@ -416,9 +425,8 @@ def fused_layer_bwd_ffn(r: torch.Tensor, params: dict, dy: torch.Tensor) -> tupl
              for k, s in fused_param_shapes(D, F).items() if k in ("w1", "b1", "w2", "b2", "ln2_g", "ln2_b")}
     if r.numel() == 0:
         return dr, grads
-    sms = _sms(dev)
-    splits = weight_grad_splits(M, F, D, sms), weight_grad_splits(M, D, F, sms)  # dW2, dW1
     bf16 = cdt == torch.bfloat16
+    splits = _weight_grad_splits(M, ((F, D), (D, F)), dev, bf16)  # dW2, dW1
     # rc, dr2c and dh1c exist in bf16 only; dh1 (f32) in f32 only; g in the compute dtype.
     work, (rc, h1, g, r2, dr2, dr2c, dh1, dh1c, partial, wpartial) = _workspace(
         dev, (M * D, 2) if bf16 else None, M * F, (M * F, 2) if bf16 else M * F, M * D, M * D,
@@ -434,8 +442,8 @@ def fused_layer_bwd_attn(x: torch.Tensor, params: dict, lse: torch.Tensor, dr: t
                          nhead: int) -> tuple[torch.Tensor, dict]:
     """Launch the fused layer's attention backward (the TPU kernel
     ``_bwd_attn_kernel``): one call, which enqueues its device kernels
-    (fifteen, and an ordered sum for each weight gradient that
-    :func:`weight_grad_splits` splits) on the current stream
+    (fifteen in bf16, fourteen in f32, and an ordered sum for each weight
+    gradient that :func:`weight_grad_splits` splits) on the current stream
     and counts one launch. The products by Wout^T and Wqkv^T read the
     weights in place.
 
@@ -458,12 +466,11 @@ def fused_layer_bwd_attn(x: torch.Tensor, params: dict, lse: torch.Tensor, dr: t
              for k, s in fused_param_shapes(D, F).items() if k in ("wqkv", "bqkv", "wout", "bout", "ln1_g", "ln1_b")}
     if x.numel() == 0:
         return dx, grads
-    sms = _sms(dev)
-    splits = weight_grad_splits(M, D, D, sms), weight_grad_splits(M, D, 3 * D, sms)  # dWout, dWqkv
     bf16 = cdt == torch.bfloat16
+    splits = _weight_grad_splits(M, ((D, D), (D, 3 * D)), dev, bf16)  # dWout, dWqkv
     ldp = -(-T // 16) * 16  # row stride of the (B*H*T, T) p and ds scratch, as in the kernel
-    # partial: the LayerNorm's and dqkv's column sums, by COLSUM_ROWS rows
-    # (and in bf16 by item and 128-row tile).
+    # partial: the LayerNorm's column sums by COLSUM_ROWS rows, and dqkv's by
+    # item and 128-row tile.
     chunks = max(-(-M // COLSUM_ROWS), B * -(-T // 128))
     c = 2 if bf16 else 4  # bytes of the compute dtype
     # xc, dr1c and dqkvc exist in bf16 only, dqkv (f32) in f32 only.

@@ -24,8 +24,9 @@
 //   - mma_nn: C (rows x N) += A B with A row-major over the reduced
 //     dimension and B row-major over N (P V, P^T dO, dS^T Q); each thread owns
 //     RM rows x N / 16 columns (vectors of VW = min(4, N / 16) columns at tx VW
-//     + 16 VW g) and reads one float4 of each A row and one vector of each B
-//     row per 4 steps: 0.375 floats per FMA at 4 x 8, 0.25 at 8 x 8.
+//     + 16 VW g; N = 16, the fused layer's smallest head dim, gives VW 1) and
+//     reads one float4 of each A row and one vector of each B row per 4
+//     steps: 0.375 floats per FMA at 4 x 8, 0.25 at 8 x 8.
 // * Layouts without bank conflicts: an operand tile's rows are padded by 4
 //   floats (ld_tile), so the 8 rows that one quarter-warp reads in mma_nt
 //   fall into 8 distinct groups of 4 banks; a staged score tile of 64
@@ -78,16 +79,18 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows [row0, row0 + ROWS) of a (nrows, D) row-major f32 matrix into shared
-// memory with row stride ld_tile(D); rows past nrows are zero-filled.
+// Rows [row0, row0 + ROWS) of a (nrows, D) row-major f32 matrix (row stride
+// ld, D by default) into shared memory with row stride ld_tile(D); rows past
+// nrows are zero-filled.
 template <int D, int ROWS>
-__device__ __forceinline__ void load_tile_async(float* dst, const float* __restrict__ src, int row0, int nrows) {
+__device__ __forceinline__ void load_tile_async(float* dst, const float* __restrict__ src, int row0, int nrows,
+                                                int ld = D) {
   constexpr int CHUNKS = D / 4;
   constexpr int LD = ld_tile(D);
   for (int i = threadIdx.x; i < ROWS * CHUNKS; i += kThreads) {
     const int r = i / CHUNKS, c = (i % CHUNKS) * 4;
     const bool in = row0 + r < nrows;
-    cp_async16(dst + r * LD + c, in ? src + (size_t)(row0 + r) * D + c : src, in);
+    cp_async16(dst + r * LD + c, in ? src + (size_t)(row0 + r) * ld + c : src, in);
   }
 }
 
@@ -169,9 +172,11 @@ __device__ __forceinline__ void mma_nn(float (&acc)[RM][N / 16], const float* a,
         if constexpr (C::VW == 4) {
           const float4 t = ld4(brow + g * 16 * C::VW);
           bv[4 * g] = t.x, bv[4 * g + 1] = t.y, bv[4 * g + 2] = t.z, bv[4 * g + 3] = t.w;
-        } else {
+        } else if constexpr (C::VW == 2) {
           const float2 t = *reinterpret_cast<const float2*>(brow + g * 16 * C::VW);
           bv[2 * g] = t.x, bv[2 * g + 1] = t.y;
+        } else {
+          bv[g] = brow[g * 16];
         }
       }
 #pragma unroll
@@ -184,26 +189,30 @@ __device__ __forceinline__ void mma_nn(float (&acc)[RM][N / 16], const float* a,
   }
 }
 
-// Store a thread's RM rows (row0 + ty + 16 i) of an N-wide f32 output, each
-// row scaled by scale[i]; rows at or past nrows are skipped.
+// Store a thread's RM rows (row0 + ty + 16 i) of an N-wide f32 output (row
+// stride ld, N by default), each row scaled by scale[i]; rows at or past
+// nrows are skipped.
 template <int RM, int N>
 __device__ __forceinline__ void store_rows(float* __restrict__ dst, const float (&acc)[RM][N / 16],
-                                           const float (&scale)[RM], int row0, int nrows, int tx, int ty) {
+                                           const float (&scale)[RM], int row0, int nrows, int tx, int ty,
+                                           int ld = N) {
   using C = Cols<N>;
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int row = row0 + ty + 16 * i;
     if (row >= nrows) continue;
-    float* out = dst + (size_t)row * N + tx * C::VW;
+    float* out = dst + (size_t)row * ld + tx * C::VW;
 #pragma unroll
     for (int g = 0; g < C::GROUPS; ++g) {
       if constexpr (C::VW == 4) {
         *reinterpret_cast<float4*>(out + g * 16 * C::VW) =
             make_float4(acc[i][4 * g] * scale[i], acc[i][4 * g + 1] * scale[i], acc[i][4 * g + 2] * scale[i],
                         acc[i][4 * g + 3] * scale[i]);
-      } else {
+      } else if constexpr (C::VW == 2) {
         *reinterpret_cast<float2*>(out + g * 16 * C::VW) = make_float2(acc[i][2 * g] * scale[i],
                                                                        acc[i][2 * g + 1] * scale[i]);
+      } else {
+        out[g * 16] = acc[i][g] * scale[i];
       }
     }
   }

@@ -2,20 +2,39 @@
 // (pfn_fused_layer_fwd.cu) and its backward (pfn_fused_layer_bwd.cu), each of
 // which is compiled into a library of its own:
 //   * a bf16 cast;
-//   * the f32 body's GEMM: 128 x 64 output tiles over 32-deep K tiles, four
-//     warps, a three-deep cp.async ring, FMA (no TF32); A and W may be read
-//     transposed (TA, TB), a batch of products may share one launch, and the
-//     epilogue fuses the bias, GELU, GELU's derivative, a residual or a
-//     scale; a weight gradient may split its K rows (split-K, summed in
-//     order). The bf16 products run on the wgmma GEMM of pfn_gemm_sm90.cuh,
+//   * the f32 body's GEMM, gemm_f32: FMA on the CUDA cores (no TF32), 128 x
+//     128 output tiles over 16-deep K tiles, 256 threads with an 8 x 8
+//     register tile each, read as float4 from operands staged (K, 128) in a
+//     four-deep cp.async ring (an operand stored with K along its rows is
+//     transposed on the store); A and W may be read transposed in place (TA,
+//     TB), a batch of products may share one launch, a weight gradient may
+//     split its K rows (split-K, summed in order), and the epilogue runs from
+//     the registers: the bias, GELU, GELU's derivative, a residual or a
+//     scale, and the column sums of each 128-row tile that a bias gradient
+//     takes. The bf16 products run on the wgmma GEMM of pfn_gemm_sm90.cuh,
 //     which takes the same epilogue modes (pfn_fused_layer.cuh dispatches);
-//   * the f32 PFN attention per (32 query rows, head, item) with a (32, T)
-//     score row buffer, normalised from the row (the forward) or from a
-//     saved lse (the backward's recompute), and its score loop, which the
-//     backward's f32 softmax kernel reuses; the bf16 attention is
+//   * the f32 PFN attention: the forward's per (32 query rows, head, item)
+//     with a (32, T) score row buffer, normalised from the row; the
+//     backward's recompute from a saved lse, attn_recompute_f32, per 64
+//     query rows on the register tiles of pfn_flash_f32.cuh, whose layout the
+//     backward's f32 softmax kernel shares; the bf16 attention is
 //     attn_fwd_sm90 (pfn_fused_layer.cuh);
 //   * the f32 LayerNorm and its row statistics.
 // Rounding follows pfn_tpu/ops/fused_layer.py (see each source's note).
+//
+// What bounds the f32 GEMM: every product is an FMA, 67 TFLOP/s on an H100
+// SXM, and at the fused layer's shapes (M = B*T rows against K and N of
+// 512-1536) the products are bound by operations. A thread's 8 x 8 tile
+// takes two float4 of A and two of W for 64 FMAs a k: at four shared-memory
+// wavefronts a warp's float4, as many wavefronts as FMA clocks. 256 threads
+// of at most 128 registers keep two blocks, 16 warps, on an SM. On an H100
+// 80GB HBM3 at 700 W a full wave (the weight gradients, split to fill one)
+// runs at ~45 TFLOP/s, 2/3 of the peak; at the flagship (B 64, T 100) the
+// 200, 400 and 600 tiles of N = 512, 1024 and 1536 fill 0.76, 1.52 and 2.27
+// waves of the 264 slots, and those products run at 27-37 TFLOP/s. Tried
+// and no faster: 8 x 16 register tiles on 128 threads (240-255 registers, 8
+// warps an SM), both operands staged as they lie with 16-byte copies,
+// 32-deep K tiles, explicitly double-buffered fragments.
 
 #pragma once
 
@@ -25,6 +44,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "pfn_flash_f32.cuh"
 
 #define RETURN_IF_ERROR(call)                 \
   do {                                        \
@@ -102,30 +123,13 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, siz
   }
 }
 
-// The same copy with cp.async (16 bytes a thread, zero-filled outside the
-// bounds), so that it overlaps the products on the tile before it.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in_bounds) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(in_bounds ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <typename T, int ROWS, int COLS, int LD>
-__device__ __forceinline__ void cp_async_tile(T* dst, const T* __restrict__ src, size_t ld_src, int row0, int nrows,
-                                              int col0, int ncols) {
-  constexpr int VEC = 16 / (int)sizeof(T);
-  constexpr int CH = COLS / VEC;
-  for (int i = threadIdx.x; i < ROWS * CH; i += NTHREADS) {
-    const int r = i / CH;
-    const int c = (i % CH) * VEC;
-    const bool in = row0 + r < nrows && col0 + c < ncols;
-    cp_async16(dst + r * LD + c, in ? src + (size_t)(row0 + r) * ld_src + col0 + c : src, in);
-  }
-}
+// cp.async and float4 loads: pfn_flash_f32.cuh's.
+namespace f32t = pfn_flash_f32;
+using f32t::cp_async16;
+using f32t::cp_async4;
+using f32t::cp_async_commit;
+using f32t::cp_async_wait;
+using f32t::ld4;
 
 // ---- x.astype(cdt) ------------------------------------------------------------
 
@@ -150,10 +154,18 @@ inline cudaError_t cast_bf16(const void* x, void* out, size_t n, cudaStream_t s)
 
 // ---- f32 GEMM: out = epilogue(op(A) op(W)) ----------------------------------
 
-// Block tile 128 x 64 over 32-deep K tiles, four warps of 64 x 32; a ring of
-// GSTAGES K tiles in shared memory filled by cp.async, so the loads of tile
-// k + 2 overlap the products on tile k.
-constexpr int GBM = 128, GBN = 64, GBK = 32, GSTAGES = 3;
+// Block tile 128 x 128 over 16-deep K tiles, 256 threads (eight warps of 32
+// x 64: four along M, two along N), each thread an 8 x 8 register tile; a
+// ring of GSTAGES K tiles in shared memory filled by cp.async, so the loads
+// of tile k + 3 overlap the products on tile k. Both operands are staged
+// (K, 128): a k row holds the tile's 128 rows of A (or columns of W)
+// side by side, so that a thread reads its 8 A values and 8 W values of one
+// k as two float4 each. An operand whose rows in memory run along K (A not
+// transposed, W transposed) is transposed on its way in, 4 bytes a copy; the
+// other is copied 16 bytes at a time.
+constexpr int GBM = 128, GBN = 128, GBK = 16, GSTAGES = 4, GTHREADS = 256;
+constexpr int GLD = GBM + 4;  // row stride of a staged tile: the transposing copies' 16 k of one row meet 2-way
+constexpr int GTILE = GBK * GLD;  // floats per staged operand tile
 
 // The epilogue modes of both GEMMs; cdt is the compute dtype (the identity
 // in f32), and out and out2 are in the dtype named.
@@ -174,12 +186,17 @@ enum Epilogue {
 // stride lda; W is (K, N) with row stride ldw, or, read transposed (TB),
 // stored (N, K) with row stride ldw; the outputs (M, N) with row stride ldo;
 // all f32. bias (N,) f32 may be null (no bias). Rows of A and W past K read
-// as zero. A vector of 4 f32 along A's or W's rows is loaded whole once it
-// starts inside the bounds, so ragged rows are padded with zeros by the
-// caller (K for A not transposed, M for A transposed, N for W are multiples
-// of the vector width or padded). With ksplit > 0, batch z
+// as zero. An operand stored with K along its rows (A, or W with TB) is read
+// element by element; the other (A with TA, W) in vectors of 4 f32, loaded
+// whole once they start inside the bounds, so its rows are padded with zeros
+// by the caller (M for A transposed, N for W multiples of 4 or padded). N,
+// ldo and the output offsets are multiples of 4. With ksplit > 0, batch z
 // sums only its rows [z * ksplit, (z + 1) * ksplit) of K (split-K: the batch
 // offsets of A and W step by ksplit rows, each z writes its own partial).
+// With colsum, the GELU' and scale modes also write the sums of their f32
+// output's columns over each 128-row tile, in row order: row (z / zdiv) *
+// ceil(M / 128) + row tile of colsum (row stride ldo, columns offset by
+// (z % zdiv) * o_lo), which the caller adds in order.
 struct GemmArgs {
   const void* A;
   const void* W;
@@ -187,51 +204,64 @@ struct GemmArgs {
   const float* aux;
   void* out;
   void* out2;
+  float* colsum;
   int M, N, K, lda, ldw, ldo, zdiv, ksplit;
   long long a_hi, a_lo, w_hi, w_lo, o_hi, o_lo;
   float scale;
 };
 
-template <bool TA, bool TB>
-struct GemmSmem {
-  static constexpr int LDA = (TA ? GBM : GBK) + PAD;  // A tile: (GBM, GBK), or (GBK, GBM) transposed
-  static constexpr int LDW = (TB ? GBK : GBN) + PAD;  // W tile: (GBK, GBN), or (GBN, GBK) transposed
-  static constexpr int LDC = GBN + 4;  // staging of the output tile
-  static constexpr int w_off = round128((TA ? GBK : GBM) * LDA * 4);
-  static constexpr int stage = w_off + round128((TB ? GBN : GBK) * LDW * 4);
-  static constexpr int c_bytes = GBM * LDC * 4;
-  // The output staging reuses the ring once the last K tile is consumed.
-  static constexpr int bytes = GSTAGES * stage > c_bytes ? GSTAGES * stage : c_bytes;
-};
+// K rows [k0, k0 + GBK) of an operand stored (K, L) with row stride ld, its
+// columns [l0, l0 + 128), into a staged tile; zeros past K and L.
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int ld, int k0, int K, int l0,
+                                           int L) {
+#pragma unroll
+  for (int it = 0; it < GBK * GBM / 4 / GTHREADS; ++it) {
+    const int i = it * GTHREADS + threadIdx.x, r = i / (GBM / 4), c = (i % (GBM / 4)) * 4;
+    const bool in = k0 + r < K && l0 + c < L;
+    cp_async16(dst + r * GLD + c, in ? src + (size_t)(k0 + r) * ld + l0 + c : src, in);
+  }
+}
 
-// Grid (ceil(N/64), ceil(M/128), batches).
-template <int EPI, bool TA, bool TB = false>
-__global__ void __launch_bounds__(NTHREADS) gemm_kernel(const GemmArgs g) {
-  using L = GemmSmem<TA, TB>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  auto a_tile = [&](int s) { return reinterpret_cast<float*>(smem + s * L::stage); };
-  auto w_tile = [&](int s) { return reinterpret_cast<float*>(smem + s * L::stage + L::w_off); };
-  float* cs = reinterpret_cast<float*>(smem);
+// The same tile of an operand stored (L, K) with row stride ld, transposed on
+// the store: element (l, k) lands in k row k. Sixteen neighbouring threads
+// read one row's 16 k (64 bytes).
+__device__ __forceinline__ void stage_cols(float* dst, const float* __restrict__ src, int ld, int k0, int K, int l0,
+                                           int L) {
+#pragma unroll
+  for (int it = 0; it < GBK * GBM / GTHREADS; ++it) {
+    const int i = it * GTHREADS + threadIdx.x, k = i % GBK, l = i / GBK;
+    const bool in = k0 + k < K && l0 + l < L;
+    cp_async4(dst + k * GLD + l, in ? src + (size_t)(l0 + l) * ld + k0 + k : src, in);
+  }
+}
 
+// Grid (ceil(N/128), ceil(M/128), batches). Warp w covers rows (w % 4) * 32
+// and columns (w / 4) * 64 of the tile; lane (lr, lc) = (lane / 8, lane % 8)
+// owns rows lr * 4 + {0..3, 16..19} and columns lc * 4 + {0..3, 32..35} of
+// its warp's part, so a warp's four loads of one k read 4 and 8 distinct
+// float4 (64 and 128 contiguous bytes), and its stores write whole 128-byte
+// row segments.
+template <int EPI, bool TA, bool TB>
+__global__ void __launch_bounds__(GTHREADS, 2) gemm_f32(const GemmArgs g) {
+  extern __shared__ __align__(128) float gsm[];
   const long long zh = blockIdx.z / g.zdiv, zl = blockIdx.z % g.zdiv;
   const float* A = static_cast<const float*>(g.A) + zh * g.a_hi + zl * g.a_lo;
   const float* W = static_cast<const float*>(g.W) + zh * g.w_hi + zl * g.w_lo;
-  const size_t obase = (size_t)(zh * g.o_hi + zl * g.o_lo);
   const int M = g.M, N = g.N;
   const int K = g.ksplit ? min(g.ksplit, g.K - (int)blockIdx.z * g.ksplit) : g.K;
   const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
   const int k_tiles = (K + GBK - 1) / GBK;
   auto load = [&](int kt) {
-    const int s = kt % GSTAGES;
+    float* a_s = gsm + (kt % GSTAGES) * 2 * GTILE;
     if constexpr (TA) {
-      cp_async_tile<float, GBK, GBM, L::LDA>(a_tile(s), A, g.lda, kt * GBK, K, m0, M);
+      stage_rows(a_s, A, g.lda, kt * GBK, K, m0, M);
     } else {
-      cp_async_tile<float, GBM, GBK, L::LDA>(a_tile(s), A, g.lda, m0, M, kt * GBK, K);
+      stage_cols(a_s, A, g.lda, kt * GBK, K, m0, M);
     }
     if constexpr (TB) {
-      cp_async_tile<float, GBN, GBK, L::LDW>(w_tile(s), W, g.ldw, n0, N, kt * GBK, K);
+      stage_cols(a_s + GTILE, W, g.ldw, kt * GBK, K, n0, N);
     } else {
-      cp_async_tile<float, GBK, GBN, L::LDW>(w_tile(s), W, g.ldw, kt * GBK, K, n0, N);
+      stage_rows(a_s + GTILE, W, g.ldw, kt * GBK, K, n0, N);
     }
   };
 #pragma unroll
@@ -240,8 +270,8 @@ __global__ void __launch_bounds__(NTHREADS) gemm_kernel(const GemmArgs g) {
     cp_async_commit();
   }
 
-  // Thread (ty, tx) owns rows ty*8 .. ty*8+7 and columns tx + 8*j.
-  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int am = (warp % 4) * 32 + (lane / 8) * 4, bn = (warp / 4) * 64 + (lane % 8) * 4;
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -249,66 +279,97 @@ __global__ void __launch_bounds__(NTHREADS) gemm_kernel(const GemmArgs g) {
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
   for (int kt = 0; kt < k_tiles; ++kt) {
     cp_async_wait<GSTAGES - 2>();
-    __syncthreads();
+    __syncthreads();  // tile kt has landed, and every thread is done with the slot refilled next
     if (kt + GSTAGES - 1 < k_tiles) load(kt + GSTAGES - 1);
     cp_async_commit();
-    const float* as = a_tile(kt % GSTAGES);
-    const float* ws = w_tile(kt % GSTAGES);
-#pragma unroll 4
+    const float* as = gsm + (kt % GSTAGES) * 2 * GTILE + am;
+    const float* ws = gsm + (kt % GSTAGES) * 2 * GTILE + GTILE + bn;
+#pragma unroll
     for (int k = 0; k < GBK; ++k) {
-      float w[8];
+      const float4 a0 = ld4(as + k * GLD), a1 = ld4(as + k * GLD + 16);
+      const float4 b0 = ld4(ws + k * GLD), b1 = ld4(ws + k * GLD + 32);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int j = 0; j < 8; ++j) w[j] = TB ? ws[(tx + 8 * j) * L::LDW + k] : ws[k * L::LDW + tx + 8 * j];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int m = ty * 8 + i;
-        const float a = TA ? as[k * L::LDA + m] : as[m * L::LDA + k];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a, w[j], acc[i][j]);
-      }
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
   }
   cp_async_wait<0>();
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) cs[(ty * 8 + i) * L::LDC + tx + 8 * j] = acc[i][j];
-  __syncthreads();
 
-  for (int i = threadIdx.x; i < GBM * GBN; i += NTHREADS) {
-    const int r = i / GBN, c = i % GBN;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= M || n >= N) continue;
-    const size_t o = obase + (size_t)m * g.ldo + n;
-    float v = cs[r * L::LDC + c];
-    if (g.bias) v += g.bias[n];
-    float* out = static_cast<float*>(g.out);
-    if constexpr (EPI == EPI_ROUND) {
-      out[o] = v;
-    } else if constexpr (EPI == EPI_ROUND_RESID || EPI == EPI_RESID) {
-      out[o] = g.aux[o] + v;
-    } else if constexpr (EPI == EPI_GELU) {
-      out[o] = gelu(v);
-    } else if constexpr (EPI == EPI_F32_GELU) {
-      out[o] = v;
-      static_cast<float*>(g.out2)[o] = gelu(v);
-    } else {
-      const float d = EPI == EPI_GELU_GRAD ? v * gelu_grad(g.aux[o]) : v * g.scale;
-      out[o] = d;
-      if (g.out2) static_cast<float*>(g.out2)[o] = d;
+  // The epilogue, from the registers: a float4 of 4 columns at a time.
+  constexpr bool kSums = EPI == EPI_GELU_GRAD || EPI == EPI_SCALE;
+  const size_t obase = (size_t)(zh * g.o_hi + zl * g.o_lo);
+  float* out = static_cast<float*>(g.out);
+  float* out2 = static_cast<float*>(g.out2);
+  float4 sums[2] = {make_float4(0.0f, 0.0f, 0.0f, 0.0f), make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
+#pragma unroll
+  for (int jg = 0; jg < 2; ++jg) {
+    const int n = n0 + bn + 32 * jg;
+    if (n >= N) continue;
+    const float4 bias = g.bias ? ld4(g.bias + n) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + am + (i < 4 ? i : 12 + i);
+      if (m >= M) continue;
+      const size_t o = obase + (size_t)m * g.ldo + n;
+      float v[4] = {acc[i][4 * jg] + bias.x, acc[i][4 * jg + 1] + bias.y, acc[i][4 * jg + 2] + bias.z,
+                    acc[i][4 * jg + 3] + bias.w};
+      if constexpr (EPI == EPI_ROUND_RESID || EPI == EPI_RESID || EPI == EPI_GELU_GRAD) {
+        const float4 x = ld4(g.aux + o);
+        const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[c] = EPI == EPI_GELU_GRAD ? v[c] * gelu_grad(xs[c]) : xs[c] + v[c];
+      } else if constexpr (EPI == EPI_GELU) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[c] = gelu(v[c]);
+      } else if constexpr (EPI == EPI_SCALE) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[c] *= g.scale;
+      }
+      *reinterpret_cast<float4*>(out + o) = make_float4(v[0], v[1], v[2], v[3]);
+      if constexpr (EPI == EPI_F32_GELU) {
+        *reinterpret_cast<float4*>(out2 + o) = make_float4(gelu(v[0]), gelu(v[1]), gelu(v[2]), gelu(v[3]));
+      } else if constexpr (kSums) {
+        if (out2) *reinterpret_cast<float4*>(out2 + o) = make_float4(v[0], v[1], v[2], v[3]);
+        sums[jg] = make_float4(sums[jg].x + v[0], sums[jg].y + v[1], sums[jg].z + v[2], sums[jg].w + v[3]);
+      }
+    }
+  }
+  if (kSums && g.colsum != nullptr) {  // uniform over the launch
+    // A thread's 8 rows, then the 4 lanes of one column (lr = 0..3), then
+    // the 4 warps along M, each in a fixed order.
+    float* warp_sums = gsm + GSTAGES * 2 * GTILE;  // (4, GBN)
+#pragma unroll
+    for (int jg = 0; jg < 2; ++jg) {
+#pragma unroll
+      for (int off = 8; off < 32; off <<= 1) {
+        sums[jg].x += __shfl_xor_sync(0xffffffffu, sums[jg].x, off);
+        sums[jg].y += __shfl_xor_sync(0xffffffffu, sums[jg].y, off);
+        sums[jg].z += __shfl_xor_sync(0xffffffffu, sums[jg].z, off);
+        sums[jg].w += __shfl_xor_sync(0xffffffffu, sums[jg].w, off);
+      }
+      if (lane < 8) *reinterpret_cast<float4*>(warp_sums + (warp % 4) * GBN + bn + 32 * jg) = sums[jg];
+    }
+    __syncthreads();
+    const int col = threadIdx.x;
+    if (col < GBN && n0 + col < N) {
+      const float s = warp_sums[col] + warp_sums[GBN + col] + warp_sums[2 * GBN + col] + warp_sums[3 * GBN + col];
+      const int tiles_m = (M + GBM - 1) / GBM;
+      g.colsum[((size_t)zh * tiles_m + blockIdx.y) * g.ldo + zl * g.o_lo + n0 + col] = s;
     }
   }
 }
 
 template <int EPI, bool TA = false, bool TB = false>
 cudaError_t gemm(const GemmArgs& a, int batches, cudaStream_t stream) {
-  auto kernel = gemm_kernel<EPI, TA, TB>;
-  const int bytes = GemmSmem<TA, TB>::bytes;
+  auto kernel = gemm_f32<EPI, TA, TB>;
+  constexpr int bytes = (GSTAGES * 2 * GTILE + 4 * GBN) * 4;  // the ring, then the column sums
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.N + GBN - 1) / GBN, (a.M + GBM - 1) / GBM, batches);
-  kernel<<<grid, NTHREADS, bytes, stream>>>(a);
+  kernel<<<grid, GTHREADS, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -354,7 +415,7 @@ inline cudaError_t split_sum(const void* partial, void* out, size_t n, int split
 // and dY (M, N) row-major, all f32. With splits > 1 the M rows are cut into
 // `splits` chunks (multiples of the K tile), each chunk's product goes to its
 // own (Kin, N) slice of `partial`, and the slices are summed in order: more
-// blocks than the (Kin / 128) x (N / 64) output tiles, and no atomics.
+// blocks than the (Kin / 128) x (N / 128) output tiles, and no atomics.
 inline cudaError_t gemm_weight_grad(const void* X, const void* dY, void* dW, int M, int Kin, int N, int splits,
                              void* partial, cudaStream_t stream) {
   GemmArgs a = dense_args(X, dY, nullptr, nullptr, splits > 1 ? partial : dW, Kin, N, M);
@@ -452,15 +513,15 @@ __device__ __forceinline__ void tile_accumulate(float* os, const float* ps, cons
     for (int j = 0; j < DH / 16; ++j) os[(ty * 4 + i) * LDO + tx + 16 * j] = acc[i][j];
 }
 
-// The key tiles that hold an allowed key for query rows [q0, q0 + ABQ): the
-// train prefix [0, sep), then the tiles of the rows' own diagonal keys. No
-// other entry of S or P is read or used.
+// The key tiles of ABK keys that hold an allowed key for query rows [q0, q0
+// + rows): the train prefix [0, sep), then the tiles of the rows' own
+// diagonal keys. No other entry of S or P is read or used.
 struct KeyTiles {
   int n_prefix, diag_first, n;
-  __device__ KeyTiles(int sep, int q0, int seq) {
+  __device__ KeyTiles(int sep, int q0, int seq, int rows = ABQ) {
     n_prefix = (sep + ABK - 1) / ABK;
     diag_first = max(n_prefix, q0 / ABK);
-    const int diag_last = (min(q0 + ABQ, seq) - 1) / ABK;
+    const int diag_last = (min(q0 + rows, seq) - 1) / ABK;
     n = n_prefix + max(0, diag_last - diag_first + 1);
   }
   __device__ int key0(int i) const { return (i < n_prefix ? i : diag_first + (i - n_prefix)) * ABK; }
@@ -481,11 +542,10 @@ __device__ __forceinline__ void block_scores(const float* qs, float* kvs, float*
   }
 }
 
-// One block per (32 query rows, head h, item b). qkv (B*seq, 3D); writes
-// attn (B*seq, D) (head h at columns h*DH ..). SAVED_LSE false: the softmax
-// of each row, writing its lse (B, seq, H) (`_attn_item` :105-111); true:
-// p = exp(s - lse) from the given lse, the backward's recompute (:112-114).
-template <int DH, bool SAVED_LSE>
+// The forward's attention: one block per (32 query rows, head h, item b).
+// qkv (B*seq, 3D); writes attn (B*seq, D) (head h at columns h*DH ..) and
+// the lse of each row's softmax (B, seq, H) (`_attn_item` :105-111).
+template <int DH>
 __global__ void __launch_bounds__(NTHREADS)
     attn_kernel(const float* __restrict__ qkv, float* __restrict__ attn, float* __restrict__ lse,
                 const int* __restrict__ sep_ptr, int seq, int D, int H) {
@@ -521,24 +581,19 @@ __global__ void __launch_bounds__(NTHREADS)
       for (int c = lane; c < tpad; c += 32) prow[c] = 0.0f;
       continue;
     }
-    if constexpr (SAVED_LSE) {
-      const float ls = lse[((size_t)b * seq + query) * H + h];
-      for (int c = lane; c < tpad; c += 32) prow[c] = (c < sep || c == query) ? expf(srow[c] - ls) : 0.0f;
-    } else {
-      float mx = -INFINITY;
-      for (int c = lane; c < tpad; c += 32)
-        if (c < sep || c == query) mx = fmaxf(mx, srow[c]);
-      mx = warp_max(mx);
-      float l = 0.0f;
-      for (int c = lane; c < tpad; c += 32) {
-        const float e = (c < sep || c == query) ? expf(srow[c] - mx) : 0.0f;
-        srow[c] = e;
-        l += e;
-      }
-      l = warp_sum(l);
-      for (int c = lane; c < tpad; c += 32) prow[c] = srow[c] / l;
-      if (lane == 0) lse[((size_t)b * seq + query) * H + h] = mx + logf(l);
+    float mx = -INFINITY;
+    for (int c = lane; c < tpad; c += 32)
+      if (c < sep || c == query) mx = fmaxf(mx, srow[c]);
+    mx = warp_max(mx);
+    float l = 0.0f;
+    for (int c = lane; c < tpad; c += 32) {
+      const float e = (c < sep || c == query) ? expf(srow[c] - mx) : 0.0f;
+      srow[c] = e;
+      l += e;
     }
+    l = warp_sum(l);
+    for (int c = lane; c < tpad; c += 32) prow[c] = srow[c] / l;
+    if (lane == 0) lse[((size_t)b * seq + query) * H + h] = mx + logf(l);
   }
   __syncthreads();
 
@@ -556,34 +611,139 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <int DH, bool SAVED_LSE>
-cudaError_t attention_f32_dh(const void* qkv, void* attn, void* lse, const void* sep, int B, int seq, int D, int H,
-                             cudaStream_t stream) {
-  const AttnLayout<DH> L(seq);
-  auto kernel = attn_kernel<DH, SAVED_LSE>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((seq + ABQ - 1) / ABQ, H, B);
-  kernel<<<grid, NTHREADS, L.bytes, stream>>>(static_cast<const float*>(qkv), static_cast<float*>(attn),
-                                               static_cast<float*>(lse), static_cast<const int*>(sep), seq, D, H);
-  return cudaGetLastError();
+// ---- the f32 attention's recompute from a saved lse, on register tiles -------
+//
+// The backward's recompute (`_attn_item` :112-114 as `_bwd_attn_kernel`
+// calls it): attn = p V with p = exp(s - lse) from the forward's lse, s =
+// scale q k^T. One block of 256 threads per (64 query rows, head h, item b),
+// on pfn_flash_f32.cuh's register tiles: thread (tx, ty) owns rows ty + 16 r
+// (r < 4); S (4 x 4 a thread) and the head output (4 x DH / 16) stay in
+// registers, p passes through shared memory once a key tile as the A operand
+// of O += P V. q, K and V are copied from qkv's rows in place by cp.async,
+// rows past T zero-filled.
+constexpr int RBQ = 64;  // query rows per block of the f32 recompute and softmax backward
+constexpr int RM_ROWS = RBQ / 16;  // a thread's rows
+
+// Allowed (query, key) pairs of the PFN rule (rows past T have none).
+__device__ __forceinline__ bool pfn_allowed(int row, int key, int sep, int seq) {
+  return row < seq && key < seq && (key < sep || key == row);
 }
 
-template <bool SAVED_LSE>
-cudaError_t attention_f32(const void* qkv, void* attn, void* lse, const void* sep, int B, int seq, int D, int H,
-                          cudaStream_t s) {
-  switch (D / H) {
+template <int DH>
+struct RecomputeSmem {  // in floats
+  static constexpr int LDX = f32t::ld_tile(DH);
+  static constexpr int LDP = f32t::ld_scores(ABK);
+  static constexpr int k_off = RBQ * LDX, v_off = k_off + ABK * LDX, p_off = v_off + ABK * LDX;
+  static constexpr int bytes = (p_off + RBQ * LDP) * 4;
+};
+
+// qkv (B*seq, 3D), lse (B, seq, H); writes attn (B*seq, D), head h at
+// columns h*DH. Grid (ceil(seq / 64), H, B).
+template <int DH>
+__global__ void __launch_bounds__(f32t::kThreads, 1)
+    attn_recompute_f32(const float* __restrict__ qkv, float* __restrict__ attn, const float* __restrict__ lse,
+                       const int* __restrict__ sep_ptr, int seq, int D, int H) {
+  using L = RecomputeSmem<DH>;
+  constexpr int RM = RM_ROWS;
+  extern __shared__ __align__(16) float rsm[];
+  float* qs = rsm;
+  float* ks = rsm + L::k_off;
+  float* vs = rsm + L::v_off;
+  float* ps = rsm + L::p_off;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = blockIdx.x * RBQ, h = blockIdx.y, b = blockIdx.z;
+  const int sep = min(max(*sep_ptr, 0), seq);
+  const float scale = 1.0f / sqrtf((float)DH);  // 1 / sqrt(dh), correctly rounded
+  const int ld = 3 * D;
+  const float* item = qkv + (size_t)b * seq * ld;
+  const KeyTiles tiles(sep, q0, seq, RBQ);
+  f32t::load_tile_async<DH, RBQ>(qs, item + h * DH, q0, seq, ld);
+  f32t::cp_async_commit();
+  float ls[RM], acc[RM][DH / 16];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const int row = q0 + ty + 16 * r;
+    ls[r] = row < seq ? lse[((size_t)b * seq + row) * H + h] : 0.0f;
+#pragma unroll
+    for (int c = 0; c < DH / 16; ++c) acc[r][c] = 0.0f;
+  }
+  for (int i = 0; i < tiles.n; ++i) {
+    const int key0 = tiles.key0(i);
+    f32t::load_tile_async<DH, ABK>(ks, item + D + h * DH, key0, seq, ld);
+    f32t::load_tile_async<DH, ABK>(vs, item + 2 * D + h * DH, key0, seq, ld);
+    f32t::cp_async_commit();
+    f32t::cp_async_wait<0>();
+    __syncthreads();  // q, K and V are in
+    float sc[RM][4];
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[r][j] = 0.0f;
+    f32t::mma_nt<RM, 4, DH>(sc, qs + ty * L::LDX, 16 * L::LDX, ks + tx * L::LDX, 16 * L::LDX);
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = q0 + ty + 16 * r, key = key0 + tx + 16 * j;
+        ps[(ty + 16 * r) * L::LDP + tx + 16 * j] =
+            pfn_allowed(row, key, sep, seq) ? expf(sc[r][j] * scale - ls[r]) : 0.0f;
+      }
+    __syncthreads();  // P is in
+    f32t::mma_nn<RM, DH, ABK>(acc, ps + ty * L::LDP, 16 * L::LDP, vs, L::LDX, tx);
+    __syncthreads();  // every thread is done with K, V and P
+  }
+  f32t::cp_async_wait<0>();
+  const float one[RM] = {1.0f, 1.0f, 1.0f, 1.0f};
+  f32t::store_rows<RM, DH>(attn + (size_t)b * seq * D + h * DH, acc, one, q0, seq, tx, ty, D);
+}
+
+// Calls launch(std::integral_constant<int, DH>{}) for the head dim dh, one
+// of 16, 32, 64 and 128.
+template <typename Launch>
+cudaError_t by_head_dim(int dh, Launch launch) {
+  switch (dh) {
     case 16:
-      return attention_f32_dh<16, SAVED_LSE>(qkv, attn, lse, sep, B, seq, D, H, s);
+      return launch(std::integral_constant<int, 16>{});
     case 32:
-      return attention_f32_dh<32, SAVED_LSE>(qkv, attn, lse, sep, B, seq, D, H, s);
+      return launch(std::integral_constant<int, 32>{});
     case 64:
-      return attention_f32_dh<64, SAVED_LSE>(qkv, attn, lse, sep, B, seq, D, H, s);
+      return launch(std::integral_constant<int, 64>{});
     case 128:
-      return attention_f32_dh<128, SAVED_LSE>(qkv, attn, lse, sep, B, seq, D, H, s);
+      return launch(std::integral_constant<int, 128>{});
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The forward's f32 attention over all heads (attn_kernel), writing lse.
+inline cudaError_t attention_f32(const void* qkv, void* attn, void* lse, const void* sep, int B, int seq, int D,
+                                 int H, cudaStream_t stream) {
+  return by_head_dim(D / H, [&](auto dh) {
+    constexpr int DH = decltype(dh)::value;
+    const AttnLayout<DH> L(seq);
+    auto kernel = attn_kernel<DH>;
+    RETURN_IF_ERROR(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes));
+    kernel<<<dim3((seq + ABQ - 1) / ABQ, H, B), NTHREADS, L.bytes, stream>>>(
+        static_cast<const float*>(qkv), static_cast<float*>(attn), static_cast<float*>(lse),
+        static_cast<const int*>(sep), seq, D, H);
+    return cudaGetLastError();
+  });
+}
+
+// The backward's f32 recompute over all heads (attn_recompute_f32) from the
+// forward's lse.
+inline cudaError_t attention_recompute_f32(const void* qkv, void* attn, const void* lse, const void* sep, int B,
+                                           int seq, int D, int H, cudaStream_t stream) {
+  return by_head_dim(D / H, [&](auto dh) {
+    constexpr int DH = decltype(dh)::value;
+    using L = RecomputeSmem<DH>;
+    auto kernel = attn_recompute_f32<DH>;
+    RETURN_IF_ERROR(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes));
+    kernel<<<dim3((seq + RBQ - 1) / RBQ, H, B), f32t::kThreads, L::bytes, stream>>>(
+        static_cast<const float*>(qkv), static_cast<float*>(attn), static_cast<const float*>(lse),
+        static_cast<const int*>(sep), seq, D, H);
+    return cudaGetLastError();
+  });
 }
 
 // ---- LayerNorm over rows of D, f32 ------------------------------------------

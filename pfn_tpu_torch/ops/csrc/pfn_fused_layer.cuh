@@ -1,7 +1,8 @@
 // What the fused PFN encoder layer's forward (pfn_fused_layer_fwd.cu) and
 // backward (pfn_fused_layer_bwd.cu) chains share, dispatched on the compute
 // dtype: bf16 to the Hopper kernels, f32 to the FMA bodies of
-// pfn_fused_common.cuh (f32 stays f32, no TF32).
+// pfn_fused_common.cuh (f32 stays f32, no TF32): its register-tiled GEMM
+// and its attention.
 //   * product: out = epilogue(A W) for a row-major activation A and a weight
 //     W read where it lies (or as W^T);
 //   * attention: the PFN attention over qkv, all heads, with the softmax
@@ -47,9 +48,9 @@ namespace g90 = pfn_gemm_sm90;
 
 // out (M, N) = epilogue(A W) with A (M, K) row-major and W (K, N) row-major,
 // or, with WT, W stored (N, K) and read as its transpose where it lies. bf16:
-// the wgmma GEMM, A K-major and W MN-major (K-major for W^T), which with
-// `colsum` also writes the f32 output's column sums over each 128-row tile
-// (ceil(M / 128) rows of N); f32: the FMA GEMM.
+// the wgmma GEMM, A K-major and W MN-major (K-major for W^T); f32: the FMA
+// GEMM of pfn_fused_common.cuh. With `colsum`, both also write the f32
+// output's column sums over each 128-row tile (ceil(M / 128) rows of N).
 template <typename T, int EPI, bool WT = false>
 cudaError_t product(const void* A, const void* W, const void* bias, const void* aux, void* out, void* out2, int M,
                     int N, int K, cudaStream_t s, void* colsum = nullptr) {
@@ -62,6 +63,7 @@ cudaError_t product(const void* A, const void* W, const void* bias, const void* 
   } else {
     GemmArgs a = dense_args(A, W, bias, aux, out, M, N, K);
     a.out2 = out2;
+    a.colsum = static_cast<float*>(colsum);
     if (WT) a.ldw = K;
     return gemm<EPI, false, WT>(a, 1, s);
   }
@@ -287,7 +289,8 @@ template <typename T, bool SAVED_LSE>
 cudaError_t attention(const void* qkv, void* attn, void* lse, const void* sep, int B, int seq, int D, int H,
                       cudaStream_t s) {
   if constexpr (!is_bf16_v<T>) {
-    return attention_f32<SAVED_LSE>(qkv, attn, lse, sep, B, seq, D, H, s);
+    if constexpr (SAVED_LSE) return attention_recompute_f32(qkv, attn, lse, sep, B, seq, D, H, s);
+    else return attention_f32(qkv, attn, lse, sep, B, seq, D, H, s);
   } else {
     switch (D / H) {
       case 16:

@@ -58,18 +58,25 @@
 // head, row, column) of qkv, dO, p and ds, so a K tile past T reads zeros,
 // never the next item's rows; at head dims 16 and 32 the tile's columns
 // past the head dim are the maps' zero fill, so every head dim runs on this
-// GEMM. The products whose f32 output only feeds a bias gradient (dh1 for
-// db1, dqkv for dbqkv) sum its columns in their epilogue and store only the
-// rounded copy that later products read. The LayerNorm backward writes the
-// partial sums of its gain, bias and preceding-bias gradients itself. The
-// softmax backward runs S and dP on wgmma too (attn_bwd_sm90). In f32 the
-// products run on the FMA GEMM of pfn_fused_common.cuh, which reads A (TA)
-// and W (TB) transposed in place, the attention and its softmax backward on
-// the first port's FMA kernels, and dh1 and dqkv are stored and summed by two
-// passes. Each entry point enqueues a chain of kernels on the caller's stream
-// and counts one launch (each weight gradient adds its ordered sum when its
-// split count is above 1):
-//   FFN (ten in bf16, ten in f32):
+// GEMM. The products whose f32 output feeds a bias gradient (dh1 for db1,
+// dqkv for dbqkv) sum its columns over each 128-row tile in their epilogue
+// (in bf16 they store only the rounded copy that later products read). The
+// LayerNorm backward writes the partial sums of its gain, bias and
+// preceding-bias gradients itself. The softmax backward runs S and dP on
+// wgmma too (attn_bwd_sm90).
+//
+// In f32 every product runs on gemm_f32 of pfn_fused_common.cuh: FMA on the
+// CUDA cores (no TF32), 128 x 128 tiles, 8 x 8 register tiles fed as float4
+// from a cp.async ring, A (TA) and W (TB) read transposed in place, the same
+// epilogue modes and column sums, and the weight gradients' split-K chunks
+// sized for its tile and its two blocks an SM. The attention's recompute
+// (attn_recompute_f32) and its softmax backward (attn_bwd_f32) run on the
+// register tiles of pfn_flash_f32.cuh, 64 query rows a block, and the weight
+// gradients (5, 8, 6 and 13 below) on a second stream beside the products
+// that do not need them (SideStream). Each entry point enqueues a chain of
+// kernels on the caller's stream and counts one launch (each weight
+// gradient adds its ordered sum when its split count is above 1):
+//   FFN (ten in bf16, nine in f32):
 //     0. cast rc = cdt(r) (bf16 only)
 //     1. gemm h1 = rc W1 + b1 (f32) and g = cdt(gelu(h1))
 //     2. gemm r2 = r + g W2 + b2
@@ -77,16 +84,17 @@
 //             and dr2
 //     4. sums dgamma2, dbeta2, db2
 //     5. gemm dW2 = g^T cdt(dr2)
-//     6. gemm dh1 = (cdt(dr2) W2^T) gelu'(h1): bf16 cdt(dh1) and partial
-//             sums of dh1; f32 dh1
-//     7. sums db1 (f32: two passes over dh1)
+//     6. gemm dh1 = (cdt(dr2) W2^T) gelu'(h1): bf16 cdt(dh1), f32 dh1, and
+//             the partial sums of dh1
+//     7. sums db1
 //     8. gemm dW1 = rc^T cdt(dh1)
 //     9. gemm dr = dr2 + cdt(dh1) W1^T
-//   attention (fifteen in bf16, fifteen in f32):
+//   attention (fifteen in bf16, fourteen in f32):
 //     0. cast xc = cdt(x) (bf16 only)
 //     1. gemm qkv = cdt(xc Wqkv + bqkv)
-//     2. attn attn = cdt(cdt(p) V), p = exp(s - lse): bf16 attn_fwd_sm90's
-//             recompute mode per (64 rows, head, item) on wgmma
+//     2. attn attn = cdt(cdt(p) V), p = exp(s - lse), per (64 rows, head,
+//             item): bf16 attn_fwd_sm90's recompute mode on wgmma, f32
+//             attn_recompute_f32
 //     3. gemm r1 = x + cdt(attn Wout + bout)
 //     4. ln'  dr1 = LN1'(r1, dr), cdt(dr1), partial sums as in the FFN
 //     5. sums dgamma1, dbeta1, dbout
@@ -96,12 +104,13 @@
 //        delta, and cdt(p) and ds written out as (B, H, T, T16) rows (T16 =
 //        T rounded up to 16, zeros where the PFN rule forbids the key): bf16
 //        per (64 rows, head, item) on wgmma in two passes (delta, then ds);
-//        f32 per (32 rows, head, item) into two (32, T) row buffers
+//        f32 per (64 rows, head, item) in one pass over the products, then
+//        one over the rows it wrote
 //     9. gemm dq = ds K scale, over the B*H (item, head) pairs in one launch
 //    10. gemm dk = ds^T Q scale, the same
-//    11. gemm dv = cdt(p)^T dO, the same; in bf16 each of 9-11 writes
-//        cdt(dqkv) and partial sums of dqkv, in f32 dqkv
-//    12. sums dbqkv (f32: two passes over dqkv)
+//    11. gemm dv = cdt(p)^T dO, the same; each of 9-11 writes the partial
+//        sums of dqkv, and cdt(dqkv) in bf16, dqkv in f32
+//    12. sums dbqkv
 //    13. gemm dWqkv = xc^T cdt(dqkv)
 //    14. gemm dx = dr1 + cdt(dqkv) Wqkv^T
 // The (T, T) probabilities and score gradients are written to device memory
@@ -127,6 +136,18 @@
 // waves), and the softmax backward takes 31 us. Later work: saving qkv and
 // h1 in the forward instead of recomputing them (memory for time), and the
 // epilogue overlapped with the next tile's products.
+//
+// In f32 the same ~83 GFLOP take 1.23 ms at the 67 TFLOP/s FMA peak (0.60
+// and 0.63 ms for the two chains), so both are bound by operations. On an
+// H100 80GB HBM3 at 700 W (chip_smoke.py, fused_f32_timing) the FFN chain
+// takes 1.17 ms and the attention chain 1.40 ms (first port: 1.79 and 2.21).
+// Alone, the weight gradients, split so as to fill a wave, run at ~45
+// TFLOP/s and the other products at 27-37 TFLOP/s, because their 200, 400
+// and 600 tiles leave a quarter of the 264 block slots idle in their last
+// wave; the weight gradients on the second stream fill part of that (1.29
+// and 1.48 ms on one stream). The attention's recompute and softmax
+// backward take 0.08 and 0.09 ms. What bounds the GEMM inside a wave:
+// pfn_fused_common.cuh's note.
 
 #include "pfn_fused_layer.cuh"
 
@@ -153,25 +174,14 @@ cudaError_t weight_grad(const void* X, const void* dY, void* dW, int M, int Kin,
 
 // ---- column sums in a fixed order --------------------------------------------
 
-constexpr int CS_ROWS = 32;  // rows per partial sum (COLSUM_ROWS in _ext.py)
+constexpr int CS_ROWS = 32;  // rows per partial sum of the LayerNorm backward (COLSUM_ROWS in _ext.py)
+// Rows per partial sum of a GEMM's column sums: its output tile, the same in both dtypes.
+constexpr int GEMM_ROWS = GBM;
+static_assert(g90::kBM == GEMM_ROWS, "the bf16 and f32 GEMMs sum columns over tiles of the same rows");
 
 struct ColSumArgs {
-  const float* in[3];
   float* out[3];
 };
-
-// partial[a][chunk][n] = sum of in[a][m][n] over the chunk's CS_ROWS rows, in
-// row order. Grid (ceil(N/128), chunks, arrays).
-__global__ void __launch_bounds__(NTHREADS)
-    colsum_partial_kernel(const ColSumArgs args, float* __restrict__ partial, int M, int N) {
-  const int n = blockIdx.x * NTHREADS + threadIdx.x, chunk = blockIdx.y, a = blockIdx.z;
-  if (n >= N) return;
-  const float* in = args.in[a];
-  const int r1 = min(M, (chunk + 1) * CS_ROWS);
-  float s = 0.0f;
-  for (int m = chunk * CS_ROWS; m < r1; ++m) s += in[(size_t)m * N + n];
-  partial[((size_t)a * gridDim.y + chunk) * N + n] = s;
-}
 
 // out[a][n] = sum of the partial sums in chunk order. Grid (ceil(N/128), arrays).
 __global__ void __launch_bounds__(NTHREADS)
@@ -183,7 +193,7 @@ __global__ void __launch_bounds__(NTHREADS)
   args.out[a][n] = s;
 }
 
-// The second pass alone: out[a] = the sum of `chunks` rows of partial sums.
+// out[a] = the sum of `chunks` rows of partial sums, in order.
 inline cudaError_t colsum_final(const ColSumArgs& args, int count, const void* partial, int chunks, int N,
                                 cudaStream_t s) {
   colsum_final_kernel<<<dim3((N + NTHREADS - 1) / NTHREADS, count), NTHREADS, 0, s>>>(
@@ -191,21 +201,8 @@ inline cudaError_t colsum_final(const ColSumArgs& args, int count, const void* p
   return cudaGetLastError();
 }
 
-// The column sums of `count` (M, N) f32 arrays; partial holds count *
-// ceil(M / CS_ROWS) * N floats.
-inline cudaError_t colsum(const ColSumArgs& args, int count, void* partial, int M, int N, cudaStream_t s) {
-  const int chunks = (M + CS_ROWS - 1) / CS_ROWS;
-  const int col_blocks = (N + NTHREADS - 1) / NTHREADS;
-  colsum_partial_kernel<<<dim3(col_blocks, chunks, count), NTHREADS, 0, s>>>(args, static_cast<float*>(partial), M,
-                                                                              N);
-  RETURN_IF_ERROR(cudaGetLastError());
-  return colsum_final(args, count, partial, chunks, N, s);
-}
-
-inline ColSumArgs sums(const void* a0, void* o0, const void* a1 = nullptr, void* o1 = nullptr,
-                       const void* a2 = nullptr, void* o2 = nullptr) {
-  return ColSumArgs{{static_cast<const float*>(a0), static_cast<const float*>(a1), static_cast<const float*>(a2)},
-                    {static_cast<float*>(o0), static_cast<float*>(o1), static_cast<float*>(o2)}};
+inline ColSumArgs sums(void* o0, void* o1 = nullptr, void* o2 = nullptr) {
+  return ColSumArgs{{static_cast<float*>(o0), static_cast<float*>(o1), static_cast<float*>(o2)}};
 }
 
 // ---- LayerNorm backward with its column sums, f32 ------------------------------
@@ -300,79 +297,100 @@ cudaError_t layernorm_bwd(const void* pre, const void* dout, const void* gamma, 
       static_cast<const float*>(pre), static_cast<const float*>(dout), static_cast<const float*>(gamma),
       static_cast<float*>(dres), static_cast<T*>(dres_c), static_cast<float*>(partial), M, D);
   RETURN_IF_ERROR(cudaGetLastError());
-  return colsum_final(sums(nullptr, dg, nullptr, dbe, nullptr, db), 3, partial, chunks, D, stream);
+  return colsum_final(sums(dg, dbe, db), 3, partial, chunks, D, stream);
 }
 
 // ---- softmax backward of the PFN attention ----------------------------------
 
+// The f32 body (bf16: attn_bwd_sm90 below), on pfn_flash_f32.cuh's register
+// tiles. One block of 256 threads per (64 query rows, head h, item b):
+// thread (tx, ty) owns rows ty + 16 r (r < 4) and keys tx + 16 j of each
+// key tile. Per key tile that holds an allowed key (the recompute's tiles),
+// S = scale Q K^T and dP = dO V^T run from shared memory into registers (4 x
+// 4 each a thread); on the allowed keys the thread writes p = exp(s - lse)
+// and dp into the p and ds rows and adds p dp to its share of delta. The
+// row's 16 threads then sum delta, and each thread walks its columns of its
+// rows below ldp once more: ds = p (dp - delta) from what it wrote itself,
+// zeros wherever the PFN rule forbids the key and in the padding. So ds and
+// p are written as (B*H*seq, ldp) rows, the products' operands, with no
+// second pass over the products.
 template <int DH>
-struct AttnBwdLayout {
-  int LDS, q_off, kv_off, s_off, dp_off, bytes;
-  __host__ __device__ explicit AttnBwdLayout(int seq) {
-    constexpr int LDH = AttnLayout<DH>::LDH;
-    LDS = (seq + ABK - 1) / ABK * ABK + 4;  // rows of S (then p) and dP
-    q_off = 0;
-    kv_off = q_off + round128(ABQ * LDH * 4);
-    s_off = kv_off + round128(ABK * LDH * 4);
-    dp_off = s_off + round128(ABQ * LDS * 4);
-    bytes = dp_off + round128(ABQ * LDS * 4);
-  }
+struct SoftmaxBwdF32Smem {  // in floats: q, dO, K, V
+  static constexpr int LDX = f32t::ld_tile(DH);
+  static constexpr int do_off = RBQ * LDX, k_off = 2 * RBQ * LDX, v_off = k_off + ABK * LDX;
+  static constexpr int bytes = (v_off + ABK * LDX) * 4;
 };
 
-// The f32 body (bf16: attn_bwd_sm90 below). One block per (32 query rows,
-// head h, item b): S = scale Q K^T and dP = dO V^T over the key tiles that
-// hold an allowed key (the forward's tiles), then for each row
-// p = exp(s - lse) on the allowed keys, delta = sum_j p_j dp_j, and writes
-// p and ds = p (dp - delta) as row (b, h, query) of (B*H*seq, ldp), zeros at
-// the keys the rule forbids and in the padding.
 template <int DH>
-__global__ void __launch_bounds__(NTHREADS)
-    attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dout, const float* __restrict__ lse,
-                    const int* __restrict__ sep_ptr, float* __restrict__ pc, float* __restrict__ ds, int seq, int ldp,
-                    int D, int H) {
-  constexpr int LDH = AttnLayout<DH>::LDH;
-  const AttnBwdLayout<DH> L(seq);
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem + L.q_off);
-  float* kvs = reinterpret_cast<float*>(smem + L.kv_off);
-  float* ss = reinterpret_cast<float*>(smem + L.s_off);
-  float* dps = reinterpret_cast<float*>(smem + L.dp_off);
-
-  const int q0 = blockIdx.x * ABQ, h = blockIdx.y, b = blockIdx.z;
+__global__ void __launch_bounds__(f32t::kThreads, 1)
+    attn_bwd_f32(const float* __restrict__ qkv, const float* __restrict__ dout, const float* __restrict__ lse,
+                 const int* __restrict__ sep_ptr, float* pc, float* ds, int seq, int ldp, int D, int H) {
+  using L = SoftmaxBwdF32Smem<DH>;
+  constexpr int RM = RM_ROWS;
+  extern __shared__ __align__(16) float bsm[];
+  float* qs = bsm;
+  float* dos = bsm + L::do_off;
+  float* ks = bsm + L::k_off;
+  float* vs = bsm + L::v_off;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = blockIdx.x * RBQ, h = blockIdx.y, b = blockIdx.z;
   const int sep = min(max(*sep_ptr, 0), seq);
   const float scale = 1.0f / sqrtf((float)DH);
-  const size_t ld = 3 * (size_t)D;
+  const int ld = 3 * D;
   const float* item = qkv + (size_t)b * seq * ld;
-  const KeyTiles tiles(sep, q0, seq);
-
-  load_tile<float, ABQ, DH, LDH>(qs, item + h * DH, ld, q0, seq, 0, DH);
-  block_scores<DH>(qs, kvs, ss, L.LDS, item, ld, D + h * DH, seq, tiles, scale);
-  // The rows of dO take the q rows' place (block_scores ends on a barrier).
-  load_tile<float, ABQ, DH, LDH>(qs, dout + (size_t)b * seq * D + h * DH, D, q0, seq, 0, DH);
-  block_scores<DH>(qs, kvs, dps, L.LDS, item, ld, 2 * D + h * DH, seq, tiles, 1.0f);
-
-  // Warp w owns rows w*8 .. w*8+7. Only allowed entries of S and dP are read.
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int rr = 0; rr < ABQ / (NTHREADS / 32); ++rr) {
-    const int r = warp * (ABQ / (NTHREADS / 32)) + rr;
-    const int query = q0 + r;
-    if (query >= seq) continue;
-    float* srow = ss + r * L.LDS;
-    const float* dprow = dps + r * L.LDS;
-    const float ls = lse[((size_t)b * seq + query) * H + h];
-    float delta = 0.0f;
-    for (int c = lane; c < seq; c += 32) {
-      const bool allowed = c < sep || c == query;
-      const float p = allowed ? expf(srow[c] - ls) : 0.0f;
-      srow[c] = p;
-      if (allowed) delta += p * dprow[c];
-    }
-    delta = warp_sum(delta);
-    const size_t base = (((size_t)b * H + h) * seq + query) * ldp;
-    for (int c = lane; c < ldp; c += 32) {
-      const bool allowed = c < seq && (c < sep || c == query);
-      pc[base + c] = allowed ? srow[c] : 0.0f;
-      ds[base + c] = allowed ? srow[c] * (dprow[c] - delta) : 0.0f;
+  const KeyTiles tiles(sep, q0, seq, RBQ);
+  f32t::load_tile_async<DH, RBQ>(qs, item + h * DH, q0, seq, ld);
+  f32t::load_tile_async<DH, RBQ>(dos, dout + (size_t)b * seq * D + h * DH, q0, seq, D);
+  float ls[RM], delta[RM];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const int row = q0 + ty + 16 * r;
+    ls[r] = row < seq ? lse[((size_t)b * seq + row) * H + h] : 0.0f;
+    delta[r] = 0.0f;
+  }
+  const size_t row_base = ((size_t)b * H + h) * seq;  // row of (b, h, query 0) in pc and ds
+  for (int i = 0; i < tiles.n; ++i) {
+    const int key0 = tiles.key0(i);
+    f32t::load_tile_async<DH, ABK>(ks, item + D + h * DH, key0, seq, ld);
+    f32t::load_tile_async<DH, ABK>(vs, item + 2 * D + h * DH, key0, seq, ld);
+    f32t::cp_async_commit();
+    f32t::cp_async_wait<0>();
+    __syncthreads();  // q, dO, K and V are in
+    float sc[RM][4], dp[RM][4];
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[r][j] = dp[r][j] = 0.0f;
+    f32t::mma_nt<RM, 4, DH>(sc, qs + ty * L::LDX, 16 * L::LDX, ks + tx * L::LDX, 16 * L::LDX);
+    f32t::mma_nt<RM, 4, DH>(dp, dos + ty * L::LDX, 16 * L::LDX, vs + tx * L::LDX, 16 * L::LDX);
+    __syncthreads();  // every thread is done with K and V
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = q0 + ty + 16 * r, key = key0 + tx + 16 * j;
+        if (!pfn_allowed(row, key, sep, seq)) continue;
+        const float p = expf(sc[r][j] * scale - ls[r]);
+        delta[r] += p * dp[r][j];
+        const size_t o = (row_base + row) * ldp + key;
+        pc[o] = p;
+        ds[o] = dp[r][j];
+      }
+  }
+  f32t::cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const float dl = f32t::group_sum(delta[r]);
+    const int row = q0 + ty + 16 * r;
+    if (row >= seq) continue;
+    for (int c = tx; c < ldp; c += 16) {
+      const size_t o = (row_base + row) * ldp + c;
+      if (pfn_allowed(row, c, sep, seq)) {
+        ds[o] = pc[o] * (ds[o] - dl);
+      } else {
+        pc[o] = 0.0f;
+        ds[o] = 0.0f;
+      }
     }
   }
 }
@@ -380,14 +398,14 @@ __global__ void __launch_bounds__(NTHREADS)
 template <int DH>
 cudaError_t attention_bwd_f32(const void* qkv, const void* dout, const void* lse, const void* sep, void* pc, void* ds,
                               int B, int seq, int ldp, int D, int H, cudaStream_t stream) {
-  const AttnBwdLayout<DH> L(seq);
-  auto kernel = attn_bwd_kernel<DH>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((seq + ABQ - 1) / ABQ, H, B);
-  kernel<<<grid, NTHREADS, L.bytes, stream>>>(static_cast<const float*>(qkv), static_cast<const float*>(dout),
-                                               static_cast<const float*>(lse), static_cast<const int*>(sep),
-                                               static_cast<float*>(pc), static_cast<float*>(ds), seq, ldp, D, H);
+  using L = SoftmaxBwdF32Smem<DH>;
+  auto kernel = attn_bwd_f32<DH>;
+  RETURN_IF_ERROR(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes));
+  const dim3 grid((seq + RBQ - 1) / RBQ, H, B);
+  kernel<<<grid, f32t::kThreads, L::bytes, stream>>>(static_cast<const float*>(qkv), static_cast<const float*>(dout),
+                                                      static_cast<const float*>(lse), static_cast<const int*>(sep),
+                                                      static_cast<float*>(pc), static_cast<float*>(ds), seq, ldp, D,
+                                                      H);
   return cudaGetLastError();
 }
 
@@ -606,7 +624,8 @@ cudaError_t attention_grads_sm90(const void* qkv, const void* dout, const void* 
 
 // dq = ds K scale, dk = ds^T Q scale, dv = cdt(p)^T dO for every (item,
 // head): three batched GEMMs over z = b * H + h into the columns of (B*seq,
-// 3D): in f32 the dqkv itself, in bf16 as attention_grads_sm90 writes it.
+// 3D): in f32 the dqkv itself and the column sums of each (item, 128-row
+// tile), in bf16 as attention_grads_sm90 writes them.
 template <typename T>
 cudaError_t attention_grads(const void* qkv, const void* dout, const void* pc, const void* ds, void* dqkv,
                             void* dqkvc, void* colsum, int B, int seq, int ldp, int D, int H, cudaStream_t s) {
@@ -633,7 +652,10 @@ cudaError_t attention_grads(const void* qkv, const void* dout, const void* pc, c
     a.scale = 1.0f / sqrtf((float)DH);
     const float* q = static_cast<const float*>(qkv);
     float* dq = static_cast<float*>(dqkv);
-    auto at = [&](int col) { a.out = dq + col; };  // column block col of dqkv
+    auto at = [&](int col) {  // column block col of dqkv and of its sums
+      a.out = dq + col;
+      a.colsum = static_cast<float*>(colsum) + col;
+    };
     a.A = ds;
     a.W = q + D;
     at(0);
@@ -649,6 +671,63 @@ cudaError_t attention_grads(const void* qkv, const void* dout, const void* pc, c
     at(2 * D);
     return gemm<EPI_SCALE, true>(a, B * H, s);
   }
+}
+
+// ---- a second stream for the f32 weight gradients ----------------------------
+
+// In f32 each chain runs its weight gradients on a stream of its own, beside
+// the products that do not need them (dW2 beside dh1, dW1 beside dr, dWout
+// beside dO and the attention's gradients, dWqkv beside dx), so that their
+// blocks fill the SMs that the other product's last wave of tiles leaves
+// idle. One stream and two events per host thread and device, made at first
+// use; the side stream waits for the caller's stream at each fork, and the
+// caller's stream waits for it before the chain returns, so that everything
+// after the chain on the caller's stream sees its outputs (and the caching
+// allocator may reuse its scratch).
+struct SideStream {
+  cudaStream_t stream = nullptr;
+  cudaEvent_t fork = nullptr, join = nullptr;
+};
+
+inline cudaError_t side_stream(SideStream** out) {
+  static thread_local SideStream per_device[g90::kMaxDevices];
+  int device = 0;
+  RETURN_IF_ERROR(cudaGetDevice(&device));
+  if (device >= g90::kMaxDevices) return cudaErrorInvalidDevice;
+  SideStream& side = per_device[device];
+  if (side.stream == nullptr) {
+    RETURN_IF_ERROR(cudaStreamCreateWithFlags(&side.stream, cudaStreamNonBlocking));
+    RETURN_IF_ERROR(cudaEventCreateWithFlags(&side.fork, cudaEventDisableTiming));
+    RETURN_IF_ERROR(cudaEventCreateWithFlags(&side.join, cudaEventDisableTiming));
+  }
+  *out = &side;
+  return cudaSuccess;
+}
+
+// `to` waits for the work enqueued on `from` so far.
+inline cudaError_t wait_for(cudaStream_t to, cudaStream_t from, cudaEvent_t ev) {
+  RETURN_IF_ERROR(cudaEventRecord(ev, from));
+  return cudaStreamWaitEvent(to, ev, 0);
+}
+
+// The stream of a chain's weight gradients: the caller's in bf16, the side
+// stream (after the caller's work so far) in f32.
+template <typename T>
+cudaError_t fork(cudaStream_t s, SideStream** side, cudaStream_t* ws) {
+  *ws = s;
+  if constexpr (!is_bf16_v<T>) {
+    RETURN_IF_ERROR(side_stream(side));
+    *ws = (*side)->stream;
+    return wait_for(*ws, s, (*side)->fork);
+  }
+  return cudaSuccess;
+}
+
+// The caller's stream waits for the weight gradients (f32).
+template <typename T>
+cudaError_t join(cudaStream_t s, const SideStream* side) {
+  if constexpr (!is_bf16_v<T>) return wait_for(s, side->stream, side->join);
+  return cudaSuccess;
 }
 
 // ---- the two chains ----------------------------------------------------------
@@ -669,18 +748,22 @@ cudaError_t ffn_bwd(const void* r, const void* w1, const void* b1, const void* w
   RETURN_IF_ERROR((product<T, EPI_RESID>(g, w2, b2, r, r2, nullptr, M, D, F, s)));
   RETURN_IF_ERROR((layernorm_bwd<T>(r2, dy, g2, dr2, is_bf16_v<T> ? dr2c : nullptr, partial, dg2, dbe2, db2, M, D,
                                     s)));
-  RETURN_IF_ERROR((weight_grad<T>(g, dr2c, dw2, M, F, D, splits_w2, wpartial, s)));
-  if constexpr (is_bf16_v<T>) {
-    // cdt(dh1) only; db1 from the product's column sums.
-    RETURN_IF_ERROR((product<T, EPI_GELU_GRAD, true>(dr2c, w2, nullptr, h1, nullptr, dh1c, M, F, D, s, partial)));
-    RETURN_IF_ERROR(colsum_final(sums(nullptr, db1), 1, partial, (M + g90::kBM - 1) / g90::kBM, F, s));
-  } else {
-    RETURN_IF_ERROR((product<T, EPI_GELU_GRAD, true>(dr2c, w2, nullptr, h1, dh1, nullptr, M, F, D, s)));
-    RETURN_IF_ERROR(colsum(sums(dh1, db1), 1, partial, M, F, s));
+  SideStream* side = nullptr;
+  cudaStream_t ws;  // the weight gradients' stream
+  RETURN_IF_ERROR(fork<T>(s, &side, &ws));
+  RETURN_IF_ERROR((weight_grad<T>(g, dr2c, dw2, M, F, D, splits_w2, wpartial, ws)));
+  // bf16 stores cdt(dh1) only, f32 dh1 itself; db1 from the product's column sums.
+  constexpr bool bf16 = is_bf16_v<T>;
+  RETURN_IF_ERROR((product<T, EPI_GELU_GRAD, true>(dr2c, w2, nullptr, h1, bf16 ? nullptr : dh1, bf16 ? dh1c : nullptr,
+                                                   M, F, D, s, partial)));
+  RETURN_IF_ERROR(colsum_final(sums(db1), 1, partial, (M + GEMM_ROWS - 1) / GEMM_ROWS, F, s));
+  if constexpr (!bf16) {
     dh1c = dh1;
+    RETURN_IF_ERROR(wait_for(ws, s, side->fork));  // dW1 needs dh1
   }
-  RETURN_IF_ERROR((weight_grad<T>(rc, dh1c, dw1, M, D, F, splits_w1, wpartial, s)));
-  return product<T, EPI_RESID, true>(dh1c, w1, nullptr, dr2, dr, nullptr, M, D, F, s);
+  RETURN_IF_ERROR((weight_grad<T>(rc, dh1c, dw1, M, D, F, splits_w1, wpartial, ws)));
+  RETURN_IF_ERROR((product<T, EPI_RESID, true>(dh1c, w1, nullptr, dr2, dr, nullptr, M, D, F, s)));
+  return join<T>(s, side);
 }
 
 template <typename T>
@@ -702,19 +785,22 @@ cudaError_t attn_bwd(const void* x, const void* wqkv, const void* bqkv, const vo
   RETURN_IF_ERROR((product<T, EPI_ROUND_RESID>(attn, wout, bout, x, r1, nullptr, M, D, D, s)));
   RETURN_IF_ERROR((layernorm_bwd<T>(r1, dr, g1, dr1, is_bf16_v<T> ? dr1c : nullptr, partial, dg1, dbe1, dbout, M, D,
                                     s)));
-  RETURN_IF_ERROR((weight_grad<T>(attn, dr1c, dwout, M, D, D, splits_wout, wpartial, s)));
+  SideStream* side = nullptr;
+  cudaStream_t ws;  // the weight gradients' stream
+  RETURN_IF_ERROR(fork<T>(s, &side, &ws));
+  RETURN_IF_ERROR((weight_grad<T>(attn, dr1c, dwout, M, D, D, splits_wout, wpartial, ws)));
   RETURN_IF_ERROR((product<T, EPI_ROUND, true>(dr1c, wout, nullptr, nullptr, dout, nullptr, M, D, D, s)));
   RETURN_IF_ERROR((attention_bwd<T>(qkv, dout, lse, sep, pc, ds, B, seq, ldp, D, H, s)));
   RETURN_IF_ERROR((attention_grads<T>(qkv, dout, pc, ds, dqkv, dqkvc, partial, B, seq, ldp, D, H, s)));
-  if constexpr (is_bf16_v<T>) {
-    // dbqkv from the products' column sums, one row per (item, 128-row tile).
-    RETURN_IF_ERROR(colsum_final(sums(nullptr, dbqkv), 1, partial, B * ((seq + g90::kBM - 1) / g90::kBM), 3 * D, s));
-  } else {
-    RETURN_IF_ERROR(colsum(sums(dqkv, dbqkv), 1, partial, M, 3 * D, s));
+  // dbqkv from the products' column sums, one row per (item, 128-row tile).
+  RETURN_IF_ERROR(colsum_final(sums(dbqkv), 1, partial, B * ((seq + GEMM_ROWS - 1) / GEMM_ROWS), 3 * D, s));
+  if constexpr (!is_bf16_v<T>) {
     dqkvc = dqkv;
+    RETURN_IF_ERROR(wait_for(ws, s, side->fork));  // dWqkv needs dqkv
   }
-  RETURN_IF_ERROR((weight_grad<T>(xc, dqkvc, dwqkv, M, D, 3 * D, splits_wqkv, wpartial, s)));
-  return product<T, EPI_RESID, true>(dqkvc, wqkv, nullptr, dr1, dx, nullptr, M, D, 3 * D, s);
+  RETURN_IF_ERROR((weight_grad<T>(xc, dqkvc, dwqkv, M, D, 3 * D, splits_wqkv, wpartial, ws)));
+  RETURN_IF_ERROR((product<T, EPI_RESID, true>(dqkvc, wqkv, nullptr, dr1, dx, nullptr, M, D, 3 * D, s)));
+  return join<T>(s, side);
 }
 
 }  // namespace
