@@ -3,7 +3,7 @@
 PyTorch port (``pfn_tpu_torch``) in several checkouts, in turns, on one
 NVIDIA GPU.
 
-    python3 experiments/port_flash_bwd_ab.py TREE_A TREE_B [--fused [--f32]] [--train] [--out FILE]
+    python3 experiments/port_flash_bwd_ab.py TREE_A TREE_B [--fused] [--f32] [--train] [--out FILE]
 
 Each TREE is a directory that holds a ``pfn_tpu_torch`` package and its
 ``chip_smoke.py``: a checkout, or a commit unpacked by ``git archive`` into a
@@ -32,7 +32,12 @@ call (50 calls without a synchronize), ptxas's report of the forward and
 backward libraries' kernels; and with ``--train`` the JSON line of the tree's
 ``chip_smoke.phase_fused_train``. ``--fused --f32`` does the same for the
 fused layer's f32 bodies (the weights in f32, errors against the plain f32
-versions). Any failure of a run stops the script with a nonzero exit.
+versions). ``--f32`` alone times the flash backward's f32 bodies, dq and
+dk/dv (both times, as above), at the f32 path's shape (B*H 16, T 2010, D
+128, sep 1000) and the tabular one (B*H 1024, T 100, sep 30), both
+variants, each with its largest error against the plain f32 backward, and
+ptxas's report of the f32 kernels. Any failure of a run stops the script
+with a nonzero exit.
 """
 
 from __future__ import annotations
@@ -149,6 +154,40 @@ def run_fused(tree: str, device, smi: str, train: bool, f32: bool = False) -> di
     return out
 
 
+def run_flash_f32(tree: str, device, smi: str) -> dict:
+    """The flash backward's f32 bodies of one tree, in this process, at the
+    shapes of chip_smoke's f32_long_timing and tabular_kernel_timing."""
+    import torch
+
+    import chip_smoke
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.ops.flash_attention import _flash_bwd_plain, _flash_fwd
+
+    log = _ext.build(["pfn_flash_fwd", "pfn_flash_bwd"])["pfn_flash_bwd"]["log"]
+    out = {"tree": tree, "card": smi,
+           "ptxas_f32": [k for k in chip_smoke.ptxas_report(log) if "_f32" in k["kernel"]]}
+    g = torch.Generator(device=device).manual_seed(3)
+    for shape in (chip_smoke.F32_LONG_SHAPE, chip_smoke.TABULAR_KERNEL_SHAPE):
+        n, t, d = shape["bwd_BH"], shape["T"], shape["D"]
+        sep_t = torch.full((1,), shape["sep"], dtype=torch.int32, device=device)
+        qs = torch.randn(n, t, d, generator=g, device=device) * d**-0.5
+        k, v, do = (torch.randn(n, t, d, generator=g, device=device) for _ in range(3))
+        for include_diag in (True, False):
+            o, lse = _flash_fwd(qs, k, v, sep_t, include_diag)
+            delta = (do * o).sum(-1)
+            got = (_ext.flash_bwd_dq(qs, k, v, do, lse, delta, sep_t, include_diag),
+                   *_ext.flash_bwd_dkv(qs, k, v, do, lse, delta, sep_t, include_diag))
+            gold = _flash_bwd_plain(qs, k, v, o, lse, do, None, sep_t, t, include_diag)
+            calls = {"dq": lambda: _ext.flash_bwd_dq(qs, k, v, do, lse, delta, sep_t, include_diag),
+                     "dkv": lambda: _ext.flash_bwd_dkv(qs, k, v, do, lse, delta, sep_t, include_diag)}
+            out[f"T{t}_{'diag' if include_diag else 'prefix'}"] = {
+                **{f"{name}_ms": ms(fn) for name, fn in calls.items()},
+                **{f"{name}_dev_ms": dev_ms(fn) for name, fn in calls.items()},
+                "max_abs_err": {name: float((a - b).abs().max()) for name, a, b in zip(("dq", "dk", "dv"), got, gold)},
+            }
+    return out
+
+
 def run_tree(tree: str, train: bool, fused: bool, f32: bool = False) -> dict:
     """The measurements of one tree, in this process."""
     sys.path.insert(0, tree)
@@ -163,6 +202,8 @@ def run_tree(tree: str, train: bool, fused: bool, f32: bool = False) -> dict:
     device, smi = chip_smoke.phase_card()
     if fused:
         return run_fused(tree, device, smi, train, f32)
+    if f32:
+        return run_flash_f32(tree, device, smi)
     log = _ext.build(["pfn_flash_fwd", "pfn_flash_bwd"])["pfn_flash_bwd"]["log"]
     out = {"tree": tree, "card": smi,
            "ptxas_dkv": [k for k in chip_smoke.ptxas_report(log) if "dkv" in k["kernel"]]}
@@ -197,7 +238,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("trees", nargs="*", help="directories holding pfn_tpu_torch and chip_smoke.py")
     parser.add_argument("--fused", action="store_true", help="time the fused layer's kernels, not the flash ones")
-    parser.add_argument("--f32", action="store_true", help="with --fused: the f32 bodies, not the bf16 ones")
+    parser.add_argument("--f32", action="store_true", help="the f32 bodies, not the bf16 ones")
     parser.add_argument("--train", action="store_true",
                         help="also run each tree's chip_smoke train phase (fused_train with --fused)")
     parser.add_argument("--out", help="also append every JSON line to this file")

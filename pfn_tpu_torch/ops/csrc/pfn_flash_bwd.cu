@@ -46,9 +46,26 @@
 //     registers a thread at D = 128) stays in registers; 64-key tiles keep S
 //     and dP at 32 registers each, so nothing spills. It visits the
 //     forward's tiles: below sep, then the diagonal tiles.
-//   * dq, f32: the FMA body of the first port (64-row query tiles, four
-//     warps, every tile and the accumulator in shared memory), so f32 stays
-//     f32 (no TF32); its Hopper redesign on pfn_flash_f32.cuh is still to come.
+//   * dq, f32, `dq_f32` (FMA, no TF32; pfn_flash_f32.cuh): bound by
+//     operations at the 67 TFLOP/s f32 peak (0.369 ms at the shape above)
+//     and, as fwd_f32, by shared memory feeding the FMA units. fwd_f32's
+//     block: 256 threads per (query tile, b*h), 128 rows from Tq = 256 on and
+//     64 below, a thread owning rows ty + 16 r; its tile list. Q and dO are
+//     resident (cp.async, once), lse and delta of the thread's rows and its
+//     dQ (8 x D / 16 at 128 rows) stay in registers. Per key tile of 64: dP
+//     = dO V^T as a register tile, dP - delta parked in the thread's own
+//     entries of the staged dS tile, then S = Q K^T in the same registers, p
+//     (exactly 0 off the allowed entries) and ds = p (dp - delta) formed over
+//     the parked entries, and dQ += dS K with dS read once from shared
+//     memory. K(i) loads while dP(i) is computed and V(i + 1) while S(i) and
+//     dQ(i) are; at D = 128 and 128 rows dS beside V would put the block at
+//     238 KB, so dS takes V's slot (205 KB) and V(i + 1) loads after dQ(i).
+//     No atomics: each block writes its own rows once. 214-216 registers at
+//     128 rows, D 128, no spill. On an H100 80GB HBM3 at 700 W: 0.72-0.74 ms
+//     at the shape above (50 % of the bound; 64-row tiles there, everything
+//     in flight, 0.84 ms; the first port's shared-memory body 1.61 ms), 0.35
+//     ms at B*H 1024, T 100, sep 30 (the first port's 0.74 ms; SDPA f32's
+//     whole backward 0.71 ms).
 //   * dk/dv, bf16 (the main path), `dkv_sm90`: the same block with the
 //     roles swapped. A unit is (128-key tile, b*h): its K and V are resident
 //     (TMA, once a unit, 64 keys per consumer warpgroup), and the Q and dO
@@ -109,155 +126,132 @@ namespace {
 namespace sm90 = pfn_flash_sm90;
 namespace f32 = pfn_flash_f32;
 
-constexpr int BQ = 64;  // query rows per f32 dq block
-constexpr int BK = 64;  // keys per KV tile of the f32 kernels
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
+constexpr int FK = 64;  // keys per KV tile of the f32 dq body
 constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory one block may use
 
 template <typename T>
 constexpr bool is_bf16 = std::is_same<T, __nv_bfloat16>::value;
 
-constexpr int round128(int bytes) { return (bytes + 127) / 128 * 128; }
-
-// Copy rows [row0, row0 + ROWS) of a (nrows, D) f32 matrix into shared
-// memory (row stride LD) with 16-byte loads; rows past nrows are zero-filled.
-template <int D, int ROWS, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0, int nrows) {
-  constexpr int CHUNKS = D / 4;
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 4;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// Per-row f32 values (lse or delta) of rows [row0, row0 + ROWS); 0 past nrows.
-template <int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int row0, int nrows) {
-  for (int r = threadIdx.x; r < ROWS; r += NTHREADS) dst[r] = row0 + r < nrows ? src[row0 + r] : 0.0f;
-}
-
-// C (M x N, f32, row stride ldc) = [C +] A op(B) on FMA, every operand in
-// shared memory, computed by the whole block (the f32 dq body's products):
-//   A(i, k) = A[i * lda + k]                             (M x K)
-//   op(B)(k, j) = TB ? B[j * ldb + k] : B[k * ldb + j]    (K x N)
-// Thread (ty, tx) owns rows ty*RM .. ty*RM+RM-1 and columns tx + 16*j.
-template <int M, int N, int K, bool TB, bool ACC>
-__device__ __forceinline__ void mm(float* C, int ldc, const float* A, int lda, const float* B, int ldb) {
-  constexpr int RM = M / 8, CN = N / 16;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[RM][CN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j) acc[i][j] = ACC ? C[(ty * RM + i) * ldc + tx + 16 * j] : 0.0f;
-  for (int k = 0; k < K; ++k) {
-    float b[CN];
-#pragma unroll
-    for (int j = 0; j < CN; ++j) b[j] = TB ? B[(tx + 16 * j) * ldb + k] : B[k * ldb + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const float a = A[(ty * RM + i) * lda + k];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j) C[(ty * RM + i) * ldc + tx + 16 * j] = acc[i][j];
-}
-
-// From S and dP (ROWS x BK, f32, row stride lds) of query rows q0.. and keys
-// key0..: p = exp(s - lse) on allowed entries and 0 elsewhere; writes ds =
-// p (dp - delta) over S (each entry is read and written by one thread).
-template <bool DIAG, int ROWS>
-__device__ __forceinline__ void tile_ds(float* ss, const float* dps, int lds, const float* lse_s,
-                                        const float* delta_s, int q0, int key0, int sep, int Tq, int Tk) {
-  for (int i = threadIdx.x; i < ROWS * BK; i += NTHREADS) {
-    const int r = i / BK, c = i % BK;
-    const int query = q0 + r, key = key0 + c;
-    const bool allowed = query < Tq && key < Tk && (key < sep || (DIAG && key == query));
-    const float p = allowed ? expf(ss[r * lds + c] - lse_s[r]) : 0.0f;
-    ss[r * lds + c] = p * (dps[r * lds + c] - delta_s[r]);
-  }
-}
-
-// Shared-memory layout of an f32 dq block. Every region starts on a 128-byte
-// boundary; ds is written over S.
-template <int D>
-struct DqSmem {
-  static constexpr int LDX = D + 4;   // q, dO, k, v tiles
-  static constexpr int LDS = BK + 4;          // S, dP, and dS over S
-  static constexpr int LDA = D + 4;           // dq accumulator
-  static constexpr int q_off = 0;
-  static constexpr int do_off = q_off + round128(BQ * LDX * 4);
-  static constexpr int k_off = do_off + round128(BQ * LDX * 4);
-  static constexpr int v_off = k_off + round128(BK * LDX * 4);
-  static constexpr int s_off = v_off + round128(BK * LDX * 4);
-  static constexpr int dp_off = s_off + round128(BQ * LDS * 4);
-  static constexpr int acc_off = dp_off + round128(BQ * LDS * 4);
-  static constexpr int lse_off = acc_off + round128(BQ * LDA * 4);
-  static constexpr int delta_off = lse_off + round128(BQ * 4);
-  static constexpr int bytes = delta_off + round128(BQ * 4);
-  static_assert(bytes <= SMEM_LIMIT, "dq block over the shared-memory limit");
+// Shared memory of an f32 dq block, in floats: Q and dO of the query tile
+// (resident), one K and one V tile of FK keys, and the staged dS tile (FQ x
+// FK), which holds dP - delta until ds is formed over it. Where dS beside V
+// would put the block over the limit (D = 128 at 128 rows: 238 KB), dS takes
+// V's slot, which is dead once dP is formed (205 KB).
+template <int D, int FQ>
+struct DqF32Smem {
+  static constexpr int LDX = f32::ld_tile(D);
+  static constexpr int LDS = f32::ld_scores(FK);
+  static constexpr int do_off = FQ * LDX;
+  static constexpr int k_off = do_off + FQ * LDX;
+  static constexpr int v_off = k_off + FK * LDX;
+  static constexpr int v_end = v_off + FK * LDX;
+  static constexpr bool DS_OWN = (v_end + FQ * LDS) * 4 <= SMEM_LIMIT;  // dS beside V
+  static constexpr int ds_off = DS_OWN ? v_end : v_off;
+  static constexpr int bytes = (ds_off + FQ * LDS > v_end ? ds_off + FQ * LDS : v_end) * 4;
+  static_assert(bytes <= SMEM_LIMIT, "f32 dq block over the shared-memory limit");
 };
 
-template <int D, bool DIAG>
-__global__ void __launch_bounds__(NTHREADS)
+template <int D, int FQ, bool DIAG>
+__global__ void __launch_bounds__(f32::kThreads, 1)
     dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
            const float* __restrict__ dO, const float* __restrict__ lse, const float* __restrict__ delta,
            float* __restrict__ dq, const int* __restrict__ sep_ptr, int Tq, int Tk) {
-  using L = DqSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem + L::q_off);
-  float* dos = reinterpret_cast<float*>(smem + L::do_off);
-  float* ks = reinterpret_cast<float*>(smem + L::k_off);
-  float* vs = reinterpret_cast<float*>(smem + L::v_off);
-  float* ss = reinterpret_cast<float*>(smem + L::s_off);
-  float* dps = reinterpret_cast<float*>(smem + L::dp_off);
-  float* acc = reinterpret_cast<float*>(smem + L::acc_off);
-  float* lse_s = reinterpret_cast<float*>(smem + L::lse_off);
-  float* delta_s = reinterpret_cast<float*>(smem + L::delta_off);
-
+  using L = DqF32Smem<D, FQ>;
+  using C = f32::Cols<D>;
+  constexpr int RM = FQ / 16;  // query rows per thread
+  extern __shared__ __align__(16) float fsm[];
+  const float* qs = fsm;
+  const float* dos = fsm + L::do_off;
+  float* ks = fsm + L::k_off;
+  float* vs = fsm + L::v_off;
+  float* dss = fsm + L::ds_off;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * FQ;
   const float* kb = k + (size_t)bh * Tk * D;
   const float* vb = v + (size_t)bh * Tk * D;
   const int sep = min(max(*sep_ptr, 0), Tk);
+  const sm90::Tiles<FQ, FK, DIAG> tiles(sep, q0, Tk);
 
-  load_tile<D, BQ, L::LDX>(qs, q + (size_t)bh * Tq * D, q0, Tq);
-  load_tile<D, BQ, L::LDX>(dos, dO + (size_t)bh * Tq * D, q0, Tq);
-  load_rows<BQ>(lse_s, lse + (size_t)bh * Tq, q0, Tq);
-  load_rows<BQ>(delta_s, delta + (size_t)bh * Tq, q0, Tq);
-  for (int i = threadIdx.x; i < BQ * L::LDA; i += NTHREADS) acc[i] = 0.0f;
-  __syncthreads();
+  // Two groups in flight: Q, dO and V(0), then K(0), which loads while dP(0)
+  // is computed.
+  f32::load_tile_async<D, FQ>(fsm, q + (size_t)bh * Tq * D, q0, Tq);
+  f32::load_tile_async<D, FQ>(fsm + L::do_off, dO + (size_t)bh * Tq * D, q0, Tq);
+  if (tiles.n > 0) f32::load_tile_async<D, FK>(vs, vb, tiles.row0(0), Tk);
+  f32::cp_async_commit();
+  if (tiles.n > 0) f32::load_tile_async<D, FK>(ks, kb, tiles.row0(0), Tk);
+  f32::cp_async_commit();
 
-  // The forward's tile list: the train prefix [0, sep), then the diagonal
-  // keys [q0, q0 + BQ) not yet covered (Tq == Tk in that variant).
-  const sm90::Tiles<BQ, BK, DIAG> tiles(sep, q0, Tk);
+  // Rows ty + 16 r of the tile: lse * log2(e), delta and dQ, in registers.
+  float lse2[RM], dl[RM], acc[RM][C::PER_THREAD];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const int row = q0 + ty + 16 * r;
+    lse2[r] = row < Tq ? lse[(size_t)bh * Tq + row] * f32::kLog2e : 0.0f;
+    dl[r] = row < Tq ? delta[(size_t)bh * Tq + row] : 0.0f;
+#pragma unroll
+    for (int c = 0; c < C::PER_THREAD; ++c) acc[r][c] = 0.0f;
+  }
+
   for (int i = 0; i < tiles.n; ++i) {
     const int key0 = tiles.row0(i);
-    load_tile<D, BK, L::LDX>(ks, kb, key0, Tk);
-    load_tile<D, BK, L::LDX>(vs, vb, key0, Tk);
-    __syncthreads();
-    mm<BQ, BK, D, true, false>(ss, L::LDS, qs, L::LDX, ks, L::LDX);    // S = Q K^T
-    mm<BQ, BK, D, true, false>(dps, L::LDS, dos, L::LDX, vs, L::LDX);  // dP = dO V^T
-    __syncthreads();
-    tile_ds<DIAG, BQ>(ss, dps, L::LDS, lse_s, delta_s, q0, key0, sep, Tq, Tk);
-    __syncthreads();
-    mm<BQ, D, BK, false, true>(acc, L::LDA, ss, L::LDS, ks, L::LDX);  // dQ += dS K
-    __syncthreads();  // the next tile overwrites ks, vs, ss and dps
+    f32::cp_async_wait<1>();
+    __syncthreads();  // V(i) is in; every thread is done with K(i - 1) and dS
+
+    // dP = dO V^T, then S = Q K^T, in one register tile: rows ty + 16 r,
+    // keys key0 + tx + 16 j. dP - delta waits in the thread's own entries
+    // of dS while S is computed.
+    float t[RM][4];
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) t[r][j] = 0.0f;
+    f32::mma_nt<RM, 4, D>(t, dos + ty * L::LDX, 16 * L::LDX, vs + tx * L::LDX, 16 * L::LDX);
+    if constexpr (!L::DS_OWN) __syncthreads();  // every thread is done with V(i), whose slot dS takes
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        dss[(ty + 16 * r) * L::LDS + tx + 16 * j] = t[r][j] - dl[r];
+        t[r][j] = 0.0f;
+      }
+    f32::cp_async_wait<0>();
+    __syncthreads();  // K(i) is in; every thread is done with V(i)
+    if constexpr (L::DS_OWN) {
+      if (i + 1 < tiles.n) f32::load_tile_async<D, FK>(vs, vb, tiles.row0(i + 1), Tk);
+      f32::cp_async_commit();
+    }
+    f32::mma_nt<RM, 4, D>(t, qs + ty * L::LDX, 16 * L::LDX, ks + tx * L::LDX, 16 * L::LDX);
+
+    // p = exp(s - lse) on the allowed entries and exactly 0 elsewhere (a
+    // prefix row with no allowed key has lse = -1e30), ds = p (dp - delta).
+    const bool masked = key0 + FK > sep;  // the tile holding sep, or a diagonal tile
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float p = exp2f(fmaf(t[r][j], f32::kLog2e, -lse2[r]));
+        if (masked && !sm90::allowed<DIAG>(q0 + ty + 16 * r, key0 + tx + 16 * j, sep, Tk)) p = 0.0f;
+        float* e = dss + (ty + 16 * r) * L::LDS + tx + 16 * j;
+        *e = p * *e;
+      }
+    __syncthreads();  // dS is in
+    f32::mma_nn<RM, D, FK>(acc, dss + ty * L::LDS, 16 * L::LDS, ks, L::LDX, tx);  // dQ += dS K
+    __syncthreads();  // every thread is done with K(i) and dS
+    if constexpr (!L::DS_OWN) {
+      if (i + 1 < tiles.n) f32::load_tile_async<D, FK>(vs, vb, tiles.row0(i + 1), Tk);
+      f32::cp_async_commit();
+    }
+    if (i + 1 < tiles.n) f32::load_tile_async<D, FK>(ks, kb, tiles.row0(i + 1), Tk);
+    f32::cp_async_commit();
   }
+  f32::cp_async_wait<0>();  // with no KV tile (prefix variant, sep = 0) Q and dO are still in flight
 
   // A row that saw no allowed key keeps dq = 0.
-  for (int i = threadIdx.x; i < BQ * D; i += NTHREADS) {
-    const int r = i / D, c = i % D;
-    if (q0 + r < Tq) dq[((size_t)bh * Tq + q0 + r) * D + c] = acc[r * L::LDA + c];
-  }
+  float one[RM];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) one[r] = 1.0f;
+  f32::store_rows<RM, D>(dq + (size_t)bh * Tq * D, acc, one, q0, Tq, tx, ty);
 }
 
 constexpr int kBQ = 128;  // query rows per bf16 dq block, 64 per consumer warpgroup
@@ -664,6 +658,20 @@ struct Args {
   cudaStream_t stream;
 };
 
+template <int D, int FQ, bool DIAG>
+cudaError_t launch_dq_f32(const Args& a) {
+  using L = DqF32Smem<D, FQ>;
+  auto kernel = dq_f32<D, FQ, DIAG>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Tq + FQ - 1) / FQ, a.BH);
+  kernel<<<grid, f32::kThreads, L::bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+      static_cast<const float*>(a.dO), static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(a.out0), static_cast<const int*>(a.sep), a.Tq, a.Tk);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, bool DIAG>
 cudaError_t launch_dq(const Args& a) {
   if constexpr (is_bf16<T>) {
@@ -682,18 +690,11 @@ cudaError_t launch_dq(const Args& a) {
                                                           static_cast<const float*>(a.delta),
                                                           static_cast<__nv_bfloat16*>(a.out0),
                                                           static_cast<const int*>(a.sep), a.Tq, a.Tk);
+    return cudaGetLastError();
   } else {
-    using L = DqSmem<D>;
-    auto kernel = dq_f32<D, DIAG>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.Tq + BQ - 1) / BQ, a.BH);
-    kernel<<<grid, NTHREADS, L::bytes, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
-        static_cast<const float*>(a.dO), static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<float*>(a.out0), static_cast<const int*>(a.sep), a.Tq, a.Tk);
+    // The forward's query tiles: 128 rows from Tq = 256 on, 64 below.
+    return a.Tq >= f32::kLongSeq ? launch_dq_f32<D, 128, DIAG>(a) : launch_dq_f32<D, 64, DIAG>(a);
   }
-  return cudaGetLastError();
 }
 
 template <typename T, int D, bool DIAG>

@@ -47,6 +47,12 @@ namespace pfn_flash_f32 {
 
 constexpr int kThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
+// Query rows per block of fwd_f32 and dq_f32: 128 from Tq = kLongSeq on (a
+// thread then owns 8 rows, and reads 0.375 floats from shared memory per FMA
+// in S = Q K^T and 0.25 in O += P V, against 0.5 and 0.375 at 64 rows); 64
+// below, where a 128-row tile's masked diagonal work outweighs that and
+// twice the blocks fill the card better.
+constexpr int kLongSeq = 256;
 
 // Row stride, in floats, of an operand tile of width D (a multiple of 4, so
 // every row starts on 16 bytes).

@@ -68,12 +68,6 @@ namespace f32 = pfn_flash_f32;
 // ------------------------------------------------------------ f32, FMA
 
 constexpr int FK = 64;  // keys per f32 KV tile
-// Query rows per f32 block: 128 from T = 256 on (a thread then owns 8 rows,
-// and reads 0.375 floats from shared memory per FMA in S = Q K^T and 0.25 in
-// O += P V, against 0.5 and 0.375 at 64 rows); 64 below, where a 128-row
-// tile's masked diagonal work outweighs that and twice the blocks fill the
-// card better.
-constexpr int kLongSeq = 256;
 
 // Shared memory of an f32 block, in floats: the query tile, one K and one V
 // tile, and P, the one tile that passes through shared memory. K and V take
@@ -340,7 +334,7 @@ cudaError_t launch_f32_rows(const void* q, const void* k, const void* v, void* o
 template <int D, bool DIAG>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, const void* sep, int BH,
                        int Tq, int Tk, cudaStream_t stream) {
-  return Tq >= kLongSeq ? launch_f32_rows<D, 128, DIAG>(q, k, v, o, lse, sep, BH, Tq, Tk, stream)
+  return Tq >= f32::kLongSeq ? launch_f32_rows<D, 128, DIAG>(q, k, v, o, lse, sep, BH, Tq, Tk, stream)
                         : launch_f32_rows<D, 64, DIAG>(q, k, v, o, lse, sep, BH, Tq, Tk, stream);
 }
 

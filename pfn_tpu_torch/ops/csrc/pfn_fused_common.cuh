@@ -13,12 +13,12 @@
 //     scale, and the column sums of each 128-row tile that a bias gradient
 //     takes. The bf16 products run on the wgmma GEMM of pfn_gemm_sm90.cuh,
 //     which takes the same epilogue modes (pfn_fused_layer.cuh dispatches);
-//   * the f32 PFN attention: the forward's per (32 query rows, head, item)
-//     with a (32, T) score row buffer, normalised from the row; the
-//     backward's recompute from a saved lse, attn_recompute_f32, per 64
-//     query rows on the register tiles of pfn_flash_f32.cuh, whose layout the
-//     backward's f32 softmax kernel shares; the bf16 attention is
-//     attn_fwd_sm90 (pfn_fused_layer.cuh);
+//   * the f32 PFN attention, attn_f32<DH, SAVED_LSE>, per 64 query rows on
+//     the register tiles of pfn_flash_f32.cuh: the forward's, with an online
+//     softmax that writes lse, and the backward's recompute from that lse,
+//     each behind a launcher of its own; the backward's f32 softmax kernel
+//     shares its layout; the bf16 attention is attn_fwd_sm90
+//     (pfn_fused_layer.cuh);
 //   * the f32 LayerNorm and its row statistics.
 // Rounding follows pfn_tpu/ops/fused_layer.py (see each source's note).
 //
@@ -59,12 +59,9 @@ constexpr int NTHREADS = 128;  // four warps in every kernel
 constexpr float LN_EPS = 1e-5f;
 constexpr float GELU_C = 0.7978845608028654f;  // sqrt(2/pi)
 constexpr float GELU_A = 0.044715f;
-constexpr int PAD = 4;  // f32 row padding in shared memory: keeps rows 16-byte aligned, spreads banks
 
 template <typename T>
 constexpr bool is_bf16_v = std::is_same<T, __nv_bfloat16>::value;
-
-__host__ __device__ constexpr int round128(int bytes) { return (bytes + 127) / 128 * 128; }
 
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -91,36 +88,10 @@ __device__ __forceinline__ float gelu_grad(float v) {
   return 0.5f * (1.0f + t) + 0.5f * v * (1.0f - t * t) * du;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
-}
-
-// Copy the (ROWS, COLS) block at (row0, col0) of a row-major source with row
-// stride `ld_src` into shared memory (row stride LD) with 16-byte loads;
-// elements past (nrows, ncols) are zero. col0 is a multiple of the vector
-// width, and a vector that starts before ncols is loaded whole: the source
-// row must hold it (ncols a multiple of the vector width, or a padded row).
-template <typename T, int ROWS, int COLS, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, size_t ld_src, int row0, int nrows,
-                                          int col0, int ncols) {
-  constexpr int VEC = 16 / (int)sizeof(T);
-  constexpr int CH = COLS / VEC;
-  for (int i = threadIdx.x; i < ROWS * CH; i += NTHREADS) {
-    const int r = i / CH;
-    const int c = (i % CH) * VEC;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows && col0 + c < ncols)
-      raw = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld_src + col0 + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = raw;
-  }
 }
 
 // cp.async and float4 loads: pfn_flash_f32.cuh's.
@@ -430,199 +401,49 @@ inline cudaError_t gemm_weight_grad(const void* X, const void* dY, void* dW, int
   return splits > 1 ? split_sum(partial, dW, (size_t)Kin * N, splits, stream) : cudaSuccess;
 }
 
-// ---- f32 PFN attention over one item's qkv, all heads ------------------------
-
-constexpr int ABQ = 32;  // query rows per block
+// ---- the f32 PFN attention on register tiles ---------------------------------
+//
+// `_attn_item` (:85-115): attn = p V per head, with s = scale q k^T on the PFN
+// rule's allowed keys (key < sep, or key == row). One kernel, attn_f32<DH,
+// SAVED_LSE>, serves both of its uses: the forward (`_fwd_kernel`, lse_rows
+// None), which forms the softmax from the row and writes lse, and the
+// backward's recompute (`_bwd_attn_kernel`), which takes p = exp(s - lse)
+// from the forward's lse. One block of 256 threads per (64 query rows, head
+// h, item b), on pfn_flash_f32.cuh's register tiles: thread (tx, ty) owns
+// rows ty + 16 r (r < 4) and keys tx + 16 j of each key tile; S (4 x 4 a
+// thread) and the head's output (4 x DH / 16) stay in registers, and P passes
+// through shared memory once a key tile as the A operand of O += P V. q, K
+// and V are copied from qkv's rows in place by cp.async, rows past T
+// zero-filled; K and V take turns in flight as in fwd_f32: V(i) loads while
+// S = Q K(i)^T is computed, K(i + 1) while O += P V(i) is. The forward's
+// softmax is online, as fwd_f32's: the running max m and the thread's
+// partial row sum l in registers, O rescaled as m grows and divided by l at
+// the end. So O = (sum_j e_j v_j) / l, where `_attn_item` forms p = e / l
+// first: another order of f32 roundings, within the fused forward's 3e-5.
+// Every row below T holds its own diagonal, so its max is finite and lse = m
+// + log(l) is the plain version's. What bounds it: at the flagship (B 64, T
+// 100, DH 128) its two products are 1.3 GFLOP of the layer's 27.5, and its
+// 512 blocks of 119 KB run one an SM, so latency more than rate; 150-152
+// registers at DH 128, no spill. On an H100 80GB HBM3 at 700 W: 0.077 ms of
+// device time in the forward (the first port's (32, T) row-buffer body 0.198
+// ms), 0.073 ms as the recompute.
+constexpr int RBQ = 64;  // query rows per block of the f32 attention and softmax backward
 constexpr int ABK = 64;  // keys per K/V tile
-
-// Shared-memory layout of an attention block for sequence length `seq`; every
-// region starts on a 128-byte boundary.
-template <int DH>
-struct AttnLayout {
-  static constexpr int LDH = DH + PAD;  // q rows, K/V tile rows
-  static constexpr int LDO = DH + 4;    // output accumulator
-  int LDS, LDP, q_off, kv_off, o_off, s_off, p_off, bytes;
-  __host__ __device__ explicit AttnLayout(int seq) {
-    const int tpad = (seq + ABK - 1) / ABK * ABK;
-    LDS = tpad + 4;    // scores, then e
-    LDP = tpad + PAD;  // probabilities
-    q_off = 0;
-    kv_off = q_off + round128(ABQ * LDH * 4);
-    o_off = kv_off + round128(ABK * LDH * 4);
-    s_off = o_off + round128(ABQ * LDO * 4);
-    p_off = s_off + round128(ABQ * LDS * 4);
-    bytes = p_off + round128(ABQ * LDP * 4);
-  }
-};
-
-// S[:, key0 : key0 + ABK] = scale * Q K^T for the K tile in ks.
-template <int DH>
-__device__ __forceinline__ void tile_scores(const float* qs, const float* ks, float* ss, int LDS, int key0,
-                                            float scale) {
-  constexpr int LDH = AttnLayout<DH>::LDH;
-  // Thread (ty, tx) owns rows ty*4 .. ty*4+3 and key columns tx + 16*j.
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][ABK / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < ABK / 16; ++j) acc[i][j] = 0.0f;
-  for (int d = 0; d < DH; ++d) {
-    float kv[ABK / 16];
-#pragma unroll
-    for (int j = 0; j < ABK / 16; ++j) kv[j] = ks[(tx + 16 * j) * LDH + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float qv = qs[(ty * 4 + i) * LDH + d];
-#pragma unroll
-      for (int j = 0; j < ABK / 16; ++j) acc[i][j] = fmaf(qv, kv[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < ABK / 16; ++j) ss[(ty * 4 + i) * LDS + key0 + tx + 16 * j] = acc[i][j] * scale;
-}
-
-// O += P[:, key0 : key0 + ABK] V for the V tile in vs.
-template <int DH>
-__device__ __forceinline__ void tile_accumulate(float* os, const float* ps, const float* vs, int LDP, int key0) {
-  constexpr int LDH = AttnLayout<DH>::LDH;
-  constexpr int LDO = AttnLayout<DH>::LDO;
-  // Thread (ty, tx) owns rows ty*4 .. ty*4+3 and columns tx + 16*j.
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][DH / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DH / 16; ++j) acc[i][j] = os[(ty * 4 + i) * LDO + tx + 16 * j];
-  for (int kk = 0; kk < ABK; ++kk) {
-    float vv[DH / 16];
-#pragma unroll
-    for (int j = 0; j < DH / 16; ++j) vv[j] = vs[kk * LDH + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float p = ps[(ty * 4 + i) * LDP + key0 + kk];
-#pragma unroll
-      for (int j = 0; j < DH / 16; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DH / 16; ++j) os[(ty * 4 + i) * LDO + tx + 16 * j] = acc[i][j];
-}
+constexpr int RM_ROWS = RBQ / 16;  // a thread's rows
 
 // The key tiles of ABK keys that hold an allowed key for query rows [q0, q0
-// + rows): the train prefix [0, sep), then the tiles of the rows' own
+// + RBQ): the train prefix [0, sep), then the tiles of the rows' own
 // diagonal keys. No other entry of S or P is read or used.
 struct KeyTiles {
   int n_prefix, diag_first, n;
-  __device__ KeyTiles(int sep, int q0, int seq, int rows = ABQ) {
+  __device__ KeyTiles(int sep, int q0, int seq) {
     n_prefix = (sep + ABK - 1) / ABK;
     diag_first = max(n_prefix, q0 / ABK);
-    const int diag_last = (min(q0 + rows, seq) - 1) / ABK;
+    const int diag_last = (min(q0 + RBQ, seq) - 1) / ABK;
     n = n_prefix + max(0, diag_last - diag_first + 1);
   }
   __device__ int key0(int i) const { return (i < n_prefix ? i : diag_first + (i - n_prefix)) * ABK; }
 };
-
-// S for the block's rows over the allowed key tiles: qs holds the rows, each
-// K (or V) tile of head h at column offset `col` of the item's rows is
-// staged in kvs.
-template <int DH>
-__device__ __forceinline__ void block_scores(const float* qs, float* kvs, float* ss, int LDS, const float* item,
-                                             size_t ld, int col, int seq, const KeyTiles& tiles, float scale) {
-  for (int i = 0; i < tiles.n; ++i) {
-    const int key0 = tiles.key0(i);
-    load_tile<float, ABK, DH, AttnLayout<DH>::LDH>(kvs, item + col, ld, key0, seq, 0, DH);
-    __syncthreads();
-    tile_scores<DH>(qs, kvs, ss, LDS, key0, scale);
-    __syncthreads();
-  }
-}
-
-// The forward's attention: one block per (32 query rows, head h, item b).
-// qkv (B*seq, 3D); writes attn (B*seq, D) (head h at columns h*DH ..) and
-// the lse of each row's softmax (B, seq, H) (`_attn_item` :105-111).
-template <int DH>
-__global__ void __launch_bounds__(NTHREADS)
-    attn_kernel(const float* __restrict__ qkv, float* __restrict__ attn, float* __restrict__ lse,
-                const int* __restrict__ sep_ptr, int seq, int D, int H) {
-  const AttnLayout<DH> L(seq);
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem + L.q_off);
-  float* kvs = reinterpret_cast<float*>(smem + L.kv_off);
-  float* os = reinterpret_cast<float*>(smem + L.o_off);
-  float* ss = reinterpret_cast<float*>(smem + L.s_off);
-  float* ps = reinterpret_cast<float*>(smem + L.p_off);
-
-  const int q0 = blockIdx.x * ABQ, h = blockIdx.y, b = blockIdx.z;
-  const int sep = min(max(*sep_ptr, 0), seq);
-  const float scale = 1.0f / sqrtf((float)DH);  // 1 / sqrt(dh), correctly rounded
-  const size_t ld = 3 * (size_t)D;
-  const float* item = qkv + (size_t)b * seq * ld;
-
-  load_tile<float, ABQ, DH, AttnLayout<DH>::LDH>(qs, item + h * DH, ld, q0, seq, 0, DH);
-  for (int i = threadIdx.x; i < ABQ * AttnLayout<DH>::LDO; i += NTHREADS) os[i] = 0.0f;
-  const KeyTiles tiles(sep, q0, seq);
-  block_scores<DH>(qs, kvs, ss, L.LDS, item, ld, D + h * DH, seq, tiles, scale);
-
-  // Softmax over each whole row. Every row holds its diagonal, so the max is
-  // finite. Warp w owns rows w*8 .. w*8+7.
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int tpad = L.LDS - 4;
-  for (int rr = 0; rr < ABQ / (NTHREADS / 32); ++rr) {
-    const int r = warp * (ABQ / (NTHREADS / 32)) + rr;
-    const int query = q0 + r;
-    float* srow = ss + r * L.LDS;
-    float* prow = ps + r * L.LDP;
-    if (query >= seq) {
-      for (int c = lane; c < tpad; c += 32) prow[c] = 0.0f;
-      continue;
-    }
-    float mx = -INFINITY;
-    for (int c = lane; c < tpad; c += 32)
-      if (c < sep || c == query) mx = fmaxf(mx, srow[c]);
-    mx = warp_max(mx);
-    float l = 0.0f;
-    for (int c = lane; c < tpad; c += 32) {
-      const float e = (c < sep || c == query) ? expf(srow[c] - mx) : 0.0f;
-      srow[c] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    for (int c = lane; c < tpad; c += 32) prow[c] = srow[c] / l;
-    if (lane == 0) lse[((size_t)b * seq + query) * H + h] = mx + logf(l);
-  }
-  __syncthreads();
-
-  for (int i = 0; i < tiles.n; ++i) {
-    const int key0 = tiles.key0(i);
-    load_tile<float, ABK, DH, AttnLayout<DH>::LDH>(kvs, item + 2 * D + h * DH, ld, key0, seq, 0, DH);
-    __syncthreads();
-    tile_accumulate<DH>(os, ps, kvs, L.LDP, key0);
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < ABQ * DH; i += NTHREADS) {
-    const int r = i / DH, c = i % DH;
-    if (q0 + r < seq) attn[((size_t)b * seq + q0 + r) * D + h * DH + c] = os[r * AttnLayout<DH>::LDO + c];
-  }
-}
-
-// ---- the f32 attention's recompute from a saved lse, on register tiles -------
-//
-// The backward's recompute (`_attn_item` :112-114 as `_bwd_attn_kernel`
-// calls it): attn = p V with p = exp(s - lse) from the forward's lse, s =
-// scale q k^T. One block of 256 threads per (64 query rows, head h, item b),
-// on pfn_flash_f32.cuh's register tiles: thread (tx, ty) owns rows ty + 16 r
-// (r < 4); S (4 x 4 a thread) and the head output (4 x DH / 16) stay in
-// registers, p passes through shared memory once a key tile as the A operand
-// of O += P V. q, K and V are copied from qkv's rows in place by cp.async,
-// rows past T zero-filled.
-constexpr int RBQ = 64;  // query rows per block of the f32 recompute and softmax backward
-constexpr int RM_ROWS = RBQ / 16;  // a thread's rows
 
 // Allowed (query, key) pairs of the PFN rule (rows past T have none).
 __device__ __forceinline__ bool pfn_allowed(int row, int key, int sep, int seq) {
@@ -630,20 +451,21 @@ __device__ __forceinline__ bool pfn_allowed(int row, int key, int sep, int seq) 
 }
 
 template <int DH>
-struct RecomputeSmem {  // in floats
+struct AttnF32Smem {  // in floats: q, K, V, P
   static constexpr int LDX = f32t::ld_tile(DH);
   static constexpr int LDP = f32t::ld_scores(ABK);
   static constexpr int k_off = RBQ * LDX, v_off = k_off + ABK * LDX, p_off = v_off + ABK * LDX;
   static constexpr int bytes = (p_off + RBQ * LDP) * 4;
 };
 
-// qkv (B*seq, 3D), lse (B, seq, H); writes attn (B*seq, D), head h at
-// columns h*DH. Grid (ceil(seq / 64), H, B).
-template <int DH>
+// qkv (B*seq, 3D); lse (B, seq, H), written (SAVED_LSE false) or read
+// (true); writes attn (B*seq, D), head h at columns h*DH. Grid (ceil(seq /
+// 64), H, B).
+template <int DH, bool SAVED_LSE>
 __global__ void __launch_bounds__(f32t::kThreads, 1)
-    attn_recompute_f32(const float* __restrict__ qkv, float* __restrict__ attn, const float* __restrict__ lse,
-                       const int* __restrict__ sep_ptr, int seq, int D, int H) {
-  using L = RecomputeSmem<DH>;
+    attn_f32(const float* __restrict__ qkv, float* __restrict__ attn, float* __restrict__ lse,
+             const int* __restrict__ sep_ptr, int seq, int D, int H) {
+  using L = AttnF32Smem<DH>;
   constexpr int RM = RM_ROWS;
   extern __shared__ __align__(16) float rsm[];
   float* qs = rsm;
@@ -656,45 +478,94 @@ __global__ void __launch_bounds__(f32t::kThreads, 1)
   const float scale = 1.0f / sqrtf((float)DH);  // 1 / sqrt(dh), correctly rounded
   const int ld = 3 * D;
   const float* item = qkv + (size_t)b * seq * ld;
-  const KeyTiles tiles(sep, q0, seq, RBQ);
+  const float* kb = item + D + h * DH;
+  const float* vb = item + 2 * D + h * DH;
+  const KeyTiles tiles(sep, q0, seq);
   f32t::load_tile_async<DH, RBQ>(qs, item + h * DH, q0, seq, ld);
+  if (tiles.n > 0) f32t::load_tile_async<DH, ABK>(ks, kb, tiles.key0(0), seq, ld);
   f32t::cp_async_commit();
-  float ls[RM], acc[RM][DH / 16];
+
+  // Rows ty + 16 r: m, the saved lse (SAVED_LSE) or the running max; l, the
+  // thread's partial row sum (its 4 of a tile's 64 keys); the output.
+  float m[RM], l[RM], acc[RM][DH / 16];
 #pragma unroll
   for (int r = 0; r < RM; ++r) {
     const int row = q0 + ty + 16 * r;
-    ls[r] = row < seq ? lse[((size_t)b * seq + row) * H + h] : 0.0f;
+    if constexpr (SAVED_LSE) {
+      m[r] = row < seq ? lse[((size_t)b * seq + row) * H + h] : 0.0f;
+    } else {
+      m[r] = -INFINITY;
+    }
+    l[r] = 0.0f;
 #pragma unroll
     for (int c = 0; c < DH / 16; ++c) acc[r][c] = 0.0f;
   }
+
   for (int i = 0; i < tiles.n; ++i) {
     const int key0 = tiles.key0(i);
-    f32t::load_tile_async<DH, ABK>(ks, item + D + h * DH, key0, seq, ld);
-    f32t::load_tile_async<DH, ABK>(vs, item + 2 * D + h * DH, key0, seq, ld);
-    f32t::cp_async_commit();
     f32t::cp_async_wait<0>();
-    __syncthreads();  // q, K and V are in
-    float sc[RM][4];
+    __syncthreads();  // K(i) is in; every thread is done with V(i - 1) and P
+    f32t::load_tile_async<DH, ABK>(vs, vb, key0, seq, ld);
+    f32t::cp_async_commit();
+
+    float sc[RM][4];  // S: rows ty + 16 r, keys key0 + tx + 16 j
 #pragma unroll
     for (int r = 0; r < RM; ++r)
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[r][j] = 0.0f;
     f32t::mma_nt<RM, 4, DH>(sc, qs + ty * L::LDX, 16 * L::LDX, ks + tx * L::LDX, 16 * L::LDX);
 #pragma unroll
-    for (int r = 0; r < RM; ++r)
+    for (int r = 0; r < RM; ++r) {
+      const int row = q0 + ty + 16 * r;
+      float* prow = ps + (ty + 16 * r) * L::LDP + tx;
+      if constexpr (SAVED_LSE) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = q0 + ty + 16 * r, key = key0 + tx + 16 * j;
-        ps[(ty + 16 * r) * L::LDP + tx + 16 * j] =
-            pfn_allowed(row, key, sep, seq) ? expf(sc[r][j] * scale - ls[r]) : 0.0f;
+        for (int j = 0; j < 4; ++j)
+          prow[16 * j] = pfn_allowed(row, key0 + tx + 16 * j, sep, seq) ? expf(sc[r][j] * scale - m[r]) : 0.0f;
+      } else {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sc[r][j] = pfn_allowed(row, key0 + tx + 16 * j, sep, seq) ? sc[r][j] * scale : -INFINITY;
+          mx = fmaxf(mx, sc[r][j]);
+        }
+        const float m_new = fmaxf(m[r], f32t::group_max(mx));
+        const float m_ref = m_new == -INFINITY ? 0.0f : m_new;  // the row has seen no allowed key yet
+        const float alpha = expf(m[r] - m_ref);                 // 0 while it has seen none
+        float sum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float e = expf(sc[r][j] - m_ref);
+          prow[16 * j] = e;
+          sum += e;
+        }
+        l[r] = fmaf(l[r], alpha, sum);
+        m[r] = m_new;
+#pragma unroll
+        for (int c = 0; c < DH / 16; ++c) acc[r][c] *= alpha;
       }
-    __syncthreads();  // P is in
-    f32t::mma_nn<RM, DH, ABK>(acc, ps + ty * L::LDP, 16 * L::LDP, vs, L::LDX, tx);
-    __syncthreads();  // every thread is done with K, V and P
+    }
+    f32t::cp_async_wait<0>();
+    __syncthreads();  // V(i) and P are in; every thread is done with K(i)
+    if (i + 1 < tiles.n) f32t::load_tile_async<DH, ABK>(ks, kb, tiles.key0(i + 1), seq, ld);
+    f32t::cp_async_commit();
+    f32t::mma_nn<RM, DH, ABK>(acc, ps + ty * L::LDP, 16 * L::LDP, vs, L::LDX, tx);  // O += P V
   }
-  f32t::cp_async_wait<0>();
-  const float one[RM] = {1.0f, 1.0f, 1.0f, 1.0f};
-  f32t::store_rows<RM, DH>(attn + (size_t)b * seq * D + h * DH, acc, one, q0, seq, tx, ty, D);
+  f32t::cp_async_wait<0>();  // with no key tile (rows past T only) q's copy is still in flight
+
+  float inv[RM];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    if constexpr (SAVED_LSE) {
+      inv[r] = 1.0f;
+    } else {
+      const float lt = fmaxf(f32t::group_sum(l[r]), 1e-30f);
+      inv[r] = 1.0f / lt;
+      const int row = q0 + ty + 16 * r;
+      if (tx == 0 && row < seq) lse[((size_t)b * seq + row) * H + h] = m[r] + logf(lt);
+    }
+  }
+  f32t::store_rows<RM, DH>(attn + (size_t)b * seq * D + h * DH, acc, inv, q0, seq, tx, ty, D);
 }
 
 // Calls launch(std::integral_constant<int, DH>{}) for the head dim dh, one
@@ -715,34 +586,33 @@ cudaError_t by_head_dim(int dh, Launch launch) {
   }
 }
 
-// The forward's f32 attention over all heads (attn_kernel), writing lse.
+template <int DH, bool SAVED_LSE>
+cudaError_t launch_attn_f32(const void* qkv, void* attn, float* lse, const void* sep, int B, int seq, int D, int H,
+                            cudaStream_t stream) {
+  using L = AttnF32Smem<DH>;
+  auto kernel = attn_f32<DH, SAVED_LSE>;
+  RETURN_IF_ERROR(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes));
+  kernel<<<dim3((seq + RBQ - 1) / RBQ, H, B), f32t::kThreads, L::bytes, stream>>>(
+      static_cast<const float*>(qkv), static_cast<float*>(attn), lse, static_cast<const int*>(sep), seq, D, H);
+  return cudaGetLastError();
+}
+
+// The forward's f32 attention over all heads, writing lse.
 inline cudaError_t attention_f32(const void* qkv, void* attn, void* lse, const void* sep, int B, int seq, int D,
                                  int H, cudaStream_t stream) {
   return by_head_dim(D / H, [&](auto dh) {
-    constexpr int DH = decltype(dh)::value;
-    const AttnLayout<DH> L(seq);
-    auto kernel = attn_kernel<DH>;
-    RETURN_IF_ERROR(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes));
-    kernel<<<dim3((seq + ABQ - 1) / ABQ, H, B), NTHREADS, L.bytes, stream>>>(
-        static_cast<const float*>(qkv), static_cast<float*>(attn), static_cast<float*>(lse),
-        static_cast<const int*>(sep), seq, D, H);
-    return cudaGetLastError();
+    return launch_attn_f32<decltype(dh)::value, false>(qkv, attn, static_cast<float*>(lse), sep, B, seq, D, H,
+                                                       stream);
   });
 }
 
-// The backward's f32 recompute over all heads (attn_recompute_f32) from the
-// forward's lse.
+// The backward's f32 recompute over all heads from the forward's lse, which
+// the kernel only reads.
 inline cudaError_t attention_recompute_f32(const void* qkv, void* attn, const void* lse, const void* sep, int B,
                                            int seq, int D, int H, cudaStream_t stream) {
   return by_head_dim(D / H, [&](auto dh) {
-    constexpr int DH = decltype(dh)::value;
-    using L = RecomputeSmem<DH>;
-    auto kernel = attn_recompute_f32<DH>;
-    RETURN_IF_ERROR(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes));
-    kernel<<<dim3((seq + RBQ - 1) / RBQ, H, B), f32t::kThreads, L::bytes, stream>>>(
-        static_cast<const float*>(qkv), static_cast<float*>(attn), static_cast<const float*>(lse),
-        static_cast<const int*>(sep), seq, D, H);
-    return cudaGetLastError();
+    return launch_attn_f32<decltype(dh)::value, true>(qkv, attn, const_cast<float*>(static_cast<const float*>(lse)),
+                                                      sep, B, seq, D, H, stream);
   });
 }
 

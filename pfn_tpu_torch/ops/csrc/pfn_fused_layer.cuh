@@ -7,7 +7,8 @@
 //     W read where it lies (or as W^T);
 //   * attention: the PFN attention over qkv, all heads, with the softmax
 //     from the row (the forward, which writes lse) or from a saved lse (the
-//     backward's recompute). In bf16 that is attn_fwd_sm90 below.
+//     backward's recompute). In bf16 that is attn_fwd_sm90 below; in f32,
+//     attn_f32 of pfn_fused_common.cuh, through its two launchers.
 //
 // attn_fwd_sm90<DH, SAVED_LSE> replaces the attention body `_attn_item` of
 // pfn_tpu/ops/fused_layer.py (:85-119), which `_fwd_kernel` and

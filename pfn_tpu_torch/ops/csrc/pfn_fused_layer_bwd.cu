@@ -338,7 +338,7 @@ __global__ void __launch_bounds__(f32t::kThreads, 1)
   const float scale = 1.0f / sqrtf((float)DH);
   const int ld = 3 * D;
   const float* item = qkv + (size_t)b * seq * ld;
-  const KeyTiles tiles(sep, q0, seq, RBQ);
+  const KeyTiles tiles(sep, q0, seq);
   f32t::load_tile_async<DH, RBQ>(qs, item + h * DH, q0, seq, ld);
   f32t::load_tile_async<DH, RBQ>(dos, dout + (size_t)b * seq * D + h * DH, q0, seq, D);
   float ls[RM], delta[RM];

@@ -38,8 +38,8 @@
 //   0. cast  xc   = cdt(x), into the rc scratch (bf16 only)
 //   1. gemm  qkv  = cdt(xc Wqkv + bqkv)
 //   2. attn  per (64 query rows, head, item) in bf16 on wgmma over the key
-//            tiles that hold an allowed key, lse written (f32: per 32 rows,
-//            a (32, T) f32 row buffer in shared memory)
+//            tiles that hold an allowed key, lse written (f32: attn_f32 on
+//            register tiles, an online softmax; pfn_fused_common.cuh)
 //   3. gemm  r1   = x + cdt(attn Wout + bout)          (into y)
 //   4. ln    r    = LN1(r1), rc = cdt(r)
 //   5. gemm  g    = cdt(gelu(rc W1 + b1))

@@ -11,6 +11,9 @@
     declaration in csrc/, pointer for pointer and int for int.
   * chip_smoke.py fails, printing no result line, without a CUDA device and
     when it stands alone in a directory.
+  * Every __global__ kernel under csrc/ is held to 0 bytes of spill by
+    chip_smoke.py's SPILL_CHECKED or listed in its SPILL_EXEMPT with a
+    reason (both read with ast, so nothing of chip_smoke.py runs).
 """
 
 import ast
@@ -188,3 +191,45 @@ def test_ctypes_signatures_match_the_c_entry_points():
     for name, (source, argtypes) in _ext._SIGNATURES.items():
         kinds = "".join("P" if t is ctypes.c_void_p else "I" if t is ctypes.c_int else "?" for t in argtypes)
         assert declared[name] == (source, kinds), name
+
+
+CSRC = PACKAGE / "ops" / "csrc"
+# template <...> (optional), __global__ void, __launch_bounds__(...) (optional), the name.
+_KERNEL = re.compile(r"(template\s*<[^>]*>\s*)?__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+
+
+def _kernels() -> list:
+    """(name, is a template, file) of every __global__ kernel in csrc/."""
+    return [(m.group(2), bool(m.group(1)), path.name) for path in sorted(CSRC.glob("*.cu*"))
+            for m in _KERNEL.finditer(path.read_text())]
+
+
+def _smoke_constant(name: str):
+    """A literal assigned at the top level of chip_smoke.py, by ast."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == name for t in node.targets):
+            return ast.literal_eval(node.value)
+        if isinstance(node, ast.AnnAssign) and getattr(node.target, "id", None) == name:
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"chip_smoke.py assigns no {name}")
+
+
+def test_every_kernel_declaration_is_read():
+    declared = sum(path.read_text().count("__global__") for path in CSRC.glob("*.cu*"))
+    names = [name for name, _, _ in _kernels()]
+    assert len(names) == declared and len(set(names)) == len(names), names
+
+
+@pytest.mark.parametrize("name,template,source", _kernels(), ids=[name for name, _, _ in _kernels()])
+def test_kernel_is_spill_checked_or_exempt(name, template, source):
+    # ptxas reports a template kernel demangled as name<...>(...), any other as name(...).
+    demangled = name + ("<" if template else "(")
+    checked = any(tag in demangled for tag in _smoke_constant("SPILL_CHECKED"))
+    reason = _smoke_constant("SPILL_EXEMPT").get(name)
+    assert checked or (isinstance(reason, str) and reason.strip()), f"{source}: {name} is neither checked nor exempt"
+    assert not (checked and reason), f"{name} is both checked and exempt"
+
+
+def test_spill_exempt_names_kernels():
+    assert set(_smoke_constant("SPILL_EXEMPT")) <= {name for name, _, _ in _kernels()}
