@@ -142,7 +142,8 @@ Phases, each printing one JSON line:
      of 4 microbatches, served through PFNRegressor at context 1000 on 8
      datasets; each f32 body launched exactly once per layer per microbatch
      (and the forward once per layer per request); one update against the
-     dense f32 path (relative F32_PATH_TOL); update time, datasets/s and a
+     dense f32 path (relative F32_PATH_TOL; its reach at F32_PATH_PROBE);
+     update time, datasets/s and a
      profile of one update (its idle share; the f32 bodies in it).
  18. fig3a: the ported Fig-3a experiments (pfn_tpu_torch.experiments) at the
      full width on the round-5 recipe (FIG3A_EXPERIMENTS), seeded weights:
@@ -155,13 +156,26 @@ Phases, each printing one JSON line:
      both methods at G 8192, T 2010, batch 64 (effective noise, the prior's
      moments); gp_fitting --quick cut to 2 epochs (finite, decreasing
      losses). The flash kernels' launches are counted over the phase.
- 19. dkv_against_library: the dk/dv kernel at sep 1000, both variants,
+ 19. front_door: python -m pfn_tpu_torch.train's main in process at the
+     Fig-3a width in f32 (FRONT_DOOR): (a) the README's quick-start command
+     at bptt 1024, saved and warm-started (the f32 flash bodies at least
+     once per layer per update, finite losses, the warm start bitwise; one
+     update from seeded weights against the dense f32 path within
+     F32_PATH_TOL, beside its reach at F32_PATH_PROBE); (b) the model
+     options (normalized-uniform encoder, learned positions, SeqBN, dropout
+     0.1) on the ridge prior with adaptive buckets, a resume bitwise equal
+     to the uninterrupted run; (c) the stroke prior at 784 features with CE
+     and the prior's device time; each run's update times, datasets/s and
+     peak memory.
+ 20. dkv_against_library: the dk/dv kernel at sep 1000, both variants,
      beside SDPA's backward less the dq kernel, from this run.
 Then the kernels line (each kernel's launches on its path, error, time,
 plain time, bound and library time, for the fused kernels also the library
 call's device time, for the flash kernels also their f32 rows at T 100 and
 T 2010 (and the prefix variant's at T 2010), the f32 rows at T 2010 with
-their launches on f32_path, for the fused kernels their f32 rows with
+their launches on f32_path and front_door's run (a) (which the kernels'
+launches on the main paths count too), for the fused kernels their f32
+rows with
 their launches on fused_f32_train; its
 route, and the design of its bf16 body), the run's seconds, and
 last {"ok": true, "device": {...}}.
@@ -237,10 +251,37 @@ F32_LONG_SHAPE = dict(fwd_BH=32, bwd_BH=16, T=2010, D=128, sep=1000)
 # at context 1000 on 8 datasets.
 F32_PATH = dict(T=2010, emsize=512, nhead=4, nhid=1024, nlayers=6, batch_size=4, agg=4, updates=2, buckets=1000,
                 lr=1e-4, warmup_epochs=20, timed_updates=4, n_ctx=1000, datasets=8)
-# One f32 update on the kernel path against the dense f32 path: loss and
-# gradient norm, relative (f32 summation-order differences through 6 layers
+# One f32 update on the kernel path against the dense f32 path: loss,
+# gradient norm and the gradient vector (L2), relative (f32 summation-order differences through 6 layers
 # and back, as FUSED_TRAIN_F32_TOL).
 F32_PATH_TOL = 1e-4
+# The yardstick of that comparison's reach: the dense path again with every
+# layer's value projection scaled by 1 + F32_PATH_PROBE, which scales the
+# attention output by as much; the relative change it makes is reported.
+F32_PATH_PROBE = 1e-3
+# The front door (python -m pfn_tpu_torch.train, called in process through
+# pfn_tpu_torch.train.cli.main) at the Fig-3a width (emsize 512, 4 heads of
+# 128, nhid 1024, 6 layers), fresh seeded init, TrainConfig's default f32:
+# (a) the README's quick-start command (README.md:82-84: the GP prior at
+# lengthscale 0.6, noise 1e-4, outputscale 1, the 100-bucket bar head) at
+# bptt 1024, batch 8, 2 epochs of 2 updates, saved, then warm-started for 1
+# epoch; (b) the model options (a normalized-uniform encoder, a learned
+# positional table, SeqBN, dropout 0.1) on the ridge prior with the adaptive
+# bar head at bptt 512, batch 8, 2 epochs of 2 updates, and again stopped
+# after epoch 1 and resumed; (c) the stroke prior at 784 features with CE at
+# bptt 512, batch 8, 2 updates.
+FRONT_DOOR_WIDTH = ["--emsize", "512", "--nhead", "4", "--nhid", "1024", "--nlayers", "6"]
+FRONT_DOOR = {
+    "quickstart": ["gp", "--loss_function", "barnll", "--set", "prior.kwargs.lengthscale=0.6", "--set",
+                   "prior.kwargs.noise=1e-4", "--set", "prior.kwargs.outputscale=1.0", "--bptt", "1024",
+                   "--batch_size", "8", "--epochs", "2", "--steps_per_epoch", "2"],
+    "options": ["ridge", "--loss_function", "adaptivebarnll", "--set", "encoder=normalized_uniform", "--set",
+                "pos_encoder=learned", "--set", "train.input_normalization=true", "--set", "train.dropout=0.1",
+                "--bptt", "512", "--batch_size", "8", "--epochs", "2", "--steps_per_epoch", "2"],
+    "stroke": ["stroke", "--loss_function", "ce", "--set", "prior.kwargs.num_features=784", "--bptt", "512",
+               "--batch_size", "8", "--epochs", "1", "--steps_per_epoch", "2"],
+}
+FRONT_DOOR_TIMED_UPDATES = 4
 # Device kernels of the flash f32 bodies, as the profiler names them.
 FLASH_F32_KERNELS = {"pfn_flash_fwd": "fwd_f32", "pfn_flash_bwd_dq": "dq_f32", "pfn_flash_bwd_dkv": "dkv_f32"}
 TIMING_SEPS = [400, 1000, 2000]
@@ -526,6 +567,29 @@ def timed_request(fn):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end), (time.perf_counter() - t0) * 1e3, out
+
+
+def timed_updates(prior, criterion, cfg, model, device, n: int):
+    """A new optimizer state for ``model`` under ``cfg`` and 1 + n updates,
+    each timed on the host clock up to a sync: (step, state, the times in
+    ms, the median of all but the first)."""
+    import numpy as np
+    import torch
+
+    from pfn_tpu_torch.train import TrainState
+    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step
+
+    optimizer, _, schedule = _make_optimizer(cfg, model)
+    state = TrainState(model, optimizer, torch.Generator(device=device).manual_seed(1))
+    step = make_train_step(prior, criterion, cfg, schedule)
+    update_ms = []
+    for _ in range(1 + n):
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        float(step(state)["loss"])
+        torch.cuda.synchronize(device)
+        update_ms.append((time.perf_counter() - t1) * 1e3)
+    return step, state, update_ms, float(np.median(update_ms[1:]))
 
 
 @contextlib.contextmanager
@@ -1105,7 +1169,7 @@ def phase_train(device, smi: str, size: dict = FIG3A_TRAIN):
         state_dict_from_flax_params,
         train,
     )
-    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step, make_train_step_from_batch
+    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step_from_batch
 
     T, k = size["T"], size["agg"]
     prior = GPPrior(num_features=1, noise=1e-4, outputscale=1.0, lengthscale=0.6, grid=size["grid"])
@@ -1164,17 +1228,8 @@ def phase_train(device, smi: str, size: dict = FIG3A_TRAIN):
 
     # Update time, continuing from the trained weights: the first update of a
     # new optimizer state, then the median of the rest.
-    optimizer, _, schedule = _make_optimizer(cfg, result.model)
-    state = TrainState(result.model, optimizer, torch.Generator(device=device).manual_seed(1))
-    step = make_train_step(prior, criterion, cfg, schedule)
-    update_ms = []
-    for _ in range(1 + size["timed_updates"]):
-        torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
-        float(step(state)["loss"])
-        torch.cuda.synchronize(device)
-        update_ms.append((time.perf_counter() - t1) * 1e3)
-    median_ms = float(np.median(update_ms[1:]))
+    step, state, update_ms, median_ms = timed_updates(prior, criterion, cfg, result.model, device,
+                                                      size["timed_updates"])
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     profile = device_profile(lambda: float(step(state)["loss"]), top=10)
     # sep, the prior's draws and the clip stay on the device: an update
@@ -1964,14 +2019,12 @@ def phase_tabular(device, smi: str, size: dict = TABULAR):
     from pfn_tpu_torch.priors.hyper import UniformInt
     from pfn_tpu_torch.train import (
         TrainConfig,
-        TrainState,
         bce_criterion,
         build_model,
         seeded_flax_params,
         state_dict_from_flax_params,
         train,
     )
-    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step
 
     F, T, B = size["num_features"], size["bptt"], size["batch_size"]
     prior = MLPPrior(num_features=F, is_binary_classification=True, is_causal=False, categorical_x=True,
@@ -2022,17 +2075,8 @@ def phase_tabular(device, smi: str, size: dict = TABULAR):
 
     # 3. Update time and a device profile of one update, from the trained
     # weights: the first update of a new optimizer state, then the median.
-    optimizer, _, schedule = _make_optimizer(cfg, result.model)
-    state = TrainState(result.model, optimizer, torch.Generator(device=device).manual_seed(1))
-    step = make_train_step(prior, criterion, cfg, schedule)
-    update_ms = []
-    for _ in range(1 + size["timed_updates"]):
-        torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
-        float(step(state)["loss"])
-        torch.cuda.synchronize(device)
-        update_ms.append((time.perf_counter() - t1) * 1e3)
-    median_ms = float(np.median(update_ms[1:]))
+    step, state, update_ms, median_ms = timed_updates(prior, criterion, cfg, result.model, device,
+                                                      size["timed_updates"])
     kernels, wall_ms, _ = profiled_kernels(lambda: float(step(state)["loss"]), cpu=True)
     update_dev_ms = sum(k[1] for k in kernels)
     update_flash = _kernel_launches(kernels)
@@ -2218,6 +2262,57 @@ def f32_kernel_timing(device, smi: str, phase: str, shape: dict):
     return rows
 
 
+def one_update_vs_dense(prior, criterion, cfg, weights: dict, device):
+    """One update of ``cfg`` from ``weights`` through the flash f32 kernels
+    (attention_impl "auto", T >= 256) and through the dense f32 path, on the
+    same 2 microbatches of a seeded batch at sep T // 2. Returns ({path:
+    loss, grad norm, flash launches}; the relative difference of the loss,
+    the grad norm and the whole clipped gradient vector (L2); whether each
+    microbatch went through the kernels once per layer and the dense path
+    through none; the relative change of the same three on the dense path
+    when the attention output is scaled by 1 + F32_PATH_PROBE, which says
+    how large an error of the attention the comparison would see)."""
+    import torch
+
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.train import TrainState, build_model
+    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step_from_batch
+
+    T, B = cfg.bptt, cfg.batch_size
+    g = torch.Generator(device=device).manual_seed(5)
+    batch = [prior.sample(B, T, generator=g, device=device) for _ in range(2)]
+    xs, ys, tys = (torch.stack([b[i] for b in batch]) for i in range(3))
+    probe = {key: t.clone() for key, t in weights.items()}
+    for key, t in probe.items():
+        if key.endswith(("self_attn.in_proj_weight", "self_attn.in_proj_bias")):
+            t[2 * cfg.emsize:] *= 1 + F32_PATH_PROBE  # the value rows of qkv
+    one, grads = {}, {}
+    for name, impl, w in (("kernel_f32", "auto", weights), ("dense_f32", "dense", weights),
+                          ("dense_f32_probe", "dense", probe)):
+        pcfg = dataclasses.replace(cfg, aggregate_k_gradients=2, steps_per_epoch=2, eval_pos_sampler="fixed",
+                                   fixed_eval_pos=T // 2, attention_impl=impl)
+        model = build_model(prior, criterion, pcfg)
+        model.load_state_dict(w)
+        optimizer, _, schedule = _make_optimizer(pcfg, model)
+        state = TrainState(model, optimizer, torch.Generator(device=device).manual_seed(0))
+        _ext.reset_launch_counts()
+        m = make_train_step_from_batch(criterion, pcfg, schedule)(state, xs, ys, tys)
+        one[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "launches": {k: _ext.launch_counts[k] for k in FLASH_F32_KERNELS}}
+        grads[name] = torch.cat([p.grad.flatten() for p in model.parameters()])  # clipped, as applied
+
+    def rel_to_dense(other: str) -> dict:
+        ref = one["dense_f32"]
+        return {"loss": abs(one[other]["loss"] - ref["loss"]) / abs(ref["loss"]),
+                "grad_norm": abs(one[other]["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"]),
+                "grads": float((grads[other] - grads["dense_f32"]).norm() / grads["dense_f32"].norm())}
+
+    rel, reach = rel_to_dense("kernel_f32"), rel_to_dense("dense_f32_probe")
+    paths = (all(n == 2 * cfg.nlayers for n in one["kernel_f32"]["launches"].values())
+             and not any(one["dense_f32"]["launches"].values()))
+    return one, rel, paths, reach
+
+
 def phase_f32_path(device, smi: str, size: dict = F32_PATH):
     """The flash kernels' f32 bodies on a path a user runs: train(...) at the
     Fig-3a width in f32 (F32_PATH) for 2 epochs of 2 updates, then
@@ -2233,15 +2328,7 @@ def phase_f32_path(device, smi: str, size: dict = F32_PATH):
     from pfn_tpu_torch.inference import PFNRegressor
     from pfn_tpu_torch.ops import _ext
     from pfn_tpu_torch.priors import GPPrior
-    from pfn_tpu_torch.train import (
-        TrainConfig,
-        TrainState,
-        build_model,
-        seeded_flax_params,
-        state_dict_from_flax_params,
-        train,
-    )
-    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step, make_train_step_from_batch
+    from pfn_tpu_torch.train import TrainConfig, seeded_flax_params, state_dict_from_flax_params, train
 
     T, k, B = size["T"], size["agg"], size["batch_size"]
     prior = GPPrior(num_features=1, **GP_HP)
@@ -2281,37 +2368,14 @@ def phase_f32_path(device, smi: str, size: dict = F32_PATH):
     serve_launches = {name: _ext.launch_counts[name] for name in names}
     launches = {name: train_launches[name] + serve_launches[name] for name in names}
 
-    # One update on the kernel path and on the dense f32 path, from the same
-    # trained weights, batch (2 microbatches) and sep.
-    g = torch.Generator(device=device).manual_seed(5)
-    batch = [prior.sample(B, T, generator=g, device=device) for _ in range(2)]
-    xs, ys, tys = (torch.stack([b[i] for b in batch]) for i in range(3))
-    one = {}
-    for name, impl in (("kernel_f32", "auto"), ("dense_f32", "dense")):
-        pcfg = dataclasses.replace(cfg, aggregate_k_gradients=2, steps_per_epoch=2, eval_pos_sampler="fixed",
-                                   fixed_eval_pos=T // 2, attention_impl=impl)
-        model = build_model(prior, criterion, pcfg)
-        model.load_state_dict(result.model.state_dict())
-        optimizer, _, schedule = _make_optimizer(pcfg, model)
-        state = TrainState(model, optimizer, torch.Generator(device=device).manual_seed(0))
-        m = make_train_step_from_batch(criterion, pcfg, schedule)(state, xs, ys, tys)
-        one[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
-    rel = {key: abs(one["kernel_f32"][key] - one["dense_f32"][key]) / abs(one["dense_f32"][key])
-           for key in ("loss", "grad_norm")}
+    # One update on the kernel path and on the dense f32 path, from the
+    # trained weights.
+    one, rel, one_paths, reach = one_update_vs_dense(prior, criterion, cfg, result.model.state_dict(), device)
 
     # Update time from the trained weights: the first update of a new
     # optimizer state, then the median of the rest; a profile of one more.
-    optimizer, _, schedule = _make_optimizer(cfg, result.model)
-    state = TrainState(result.model, optimizer, torch.Generator(device=device).manual_seed(1))
-    step = make_train_step(prior, criterion, cfg, schedule)
-    update_ms = []
-    for _ in range(1 + size["timed_updates"]):
-        torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
-        float(step(state)["loss"])
-        torch.cuda.synchronize(device)
-        update_ms.append((time.perf_counter() - t1) * 1e3)
-    median_ms = float(np.median(update_ms[1:]))
+    step, state, update_ms, median_ms = timed_updates(prior, criterion, cfg, result.model, device,
+                                                      size["timed_updates"])
     kernels, wall_ms, _ = profiled_kernels(lambda: float(step(state)["loss"]), cpu=True)
     update_dev_ms = sum(kn[1] for kn in kernels)
     profiled = _kernel_launches(kernels)
@@ -2335,6 +2399,7 @@ def phase_f32_path(device, smi: str, size: dict = F32_PATH):
         "predict_finite": all(np.isfinite(mu).all() and np.isfinite(sd).all() and (sd > 0).all()
                               for mu, sd in served),
         "kernel_vs_dense_f32_update": all(r <= F32_PATH_TOL for r in rel.values()),
+        "one_update_paths": one_paths,
     }
     emit({
         "phase": "f32_path", "card": smi, "size": size, "dtype": "f32", "epoch_stats": stats,
@@ -2343,12 +2408,148 @@ def phase_f32_path(device, smi: str, size: dict = F32_PATH):
         "serve_ms": {"first": serve_ms[0], f"median_of_{len(serve_ms) - 1}": float(np.median(serve_ms[1:]))},
         "update_ms": {"first": update_ms[0], f"median_of_{size['timed_updates']}": median_ms},
         "datasets_per_s": B * k / (median_ms / 1e3), "peak_memory_gb": peak_gb, "one_update": one,
-        "one_update_rel_diff": rel, "tol": F32_PATH_TOL, "update_profile": profile, "checks": checks,
+        "one_update_rel_diff": rel, "tol": F32_PATH_TOL, "probe": F32_PATH_PROBE, "probe_rel_change": reach,
+        "update_profile": profile, "checks": checks,
     })
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"f32_path checks failed: {failed}")
     return launches
+
+
+def _front_door_run(argv: list, device):
+    """cli.main(argv) with its printing kept: (result, seconds, peak GB, the
+    flash launches of the run, the printed text)."""
+    import torch
+
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.train import cli
+
+    torch.cuda.reset_peak_memory_stats(device)
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    result, text = _quietly(cli.main, argv)
+    seconds = time.perf_counter() - t0
+    launches = {name: _ext.launch_counts[name] for name in FLASH_F32_KERNELS}
+    return result, seconds, torch.cuda.max_memory_allocated(device) / 1e9, launches, text
+
+
+def _front_door_prior(argv: list):
+    """The prior that cli.main builds from ``argv`` (cheap to build again;
+    the criterion, which may estimate its buckets, comes from the run's
+    TrainResult)."""
+    from pfn_tpu_torch import registries
+    from pfn_tpu_torch.train import cli
+
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    return registries.PRIORS.get(cfg.prior.name)(**cfg.prior.kwargs)
+
+
+def phase_front_door(device, smi: str):
+    """The front door on the card: python -m pfn_tpu_torch.train's main,
+    in process, at the Fig-3a width (FRONT_DOOR). (a) the README's
+    quick-start command, saved with --checkpoint and warm-started with
+    --warm_start: the f32 flash bodies launch at least once per layer per
+    update, the losses are finite, the warm start (one epoch, warmup epoch 0
+    at LR 0) ends on the saved weights bitwise; one update of its config
+    from seeded bridge weights (nonzero out_proj and linear2, so attention
+    reaches the loss) through the kernels against the dense f32 path within
+    F32_PATH_TOL. (b) the model options: the kernels launch, the losses are
+    finite, a run stopped after epoch 1 and resumed equals the
+    uninterrupted one bitwise (the dropout masks come from the training
+    generator). (c) the stroke prior: finite losses, the prior's device
+    time. Each run's median update time, datasets/s and peak memory.
+    Returns run (a)'s flash launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pfn_tpu_torch.train import restore_checkpoint, seeded_flax_params, state_dict_from_flax_params
+
+    tmp = Path(tempfile.mkdtemp(prefix="pfn_front_door_"))
+    runs, checks = {}, {}
+
+    def finite(result):
+        return all(np.isfinite(st["mean_loss"]) and np.isfinite(st["grad_norm"]) for st in result.epoch_stats)
+
+    def same_weights(a: dict, b: dict) -> bool:
+        return a.keys() == b.keys() and all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+    def record(name, argv, result, sec, peak, launches, **more):
+        prior = _front_door_prior(argv)
+        _, _, update_ms, median_ms = timed_updates(prior, result.criterion, result.config, result.model, device,
+                                                   FRONT_DOOR_TIMED_UPDATES)
+        cfg = result.config
+        runs[name] = {"argv": argv, "seconds": sec, "peak_memory_gb": peak, "launches": launches,
+                      "epoch_stats": result.epoch_stats, **more,
+                      "update_ms": {"first": update_ms[0], f"median_of_{FRONT_DOOR_TIMED_UPDATES}": median_ms},
+                      "datasets_per_s": cfg.batch_size * cfg.aggregate_k_gradients / (median_ms / 1e3)}
+        return prior
+
+    # (a) The quick start, saved, then warm-started.
+    argv_a = FRONT_DOOR["quickstart"] + FRONT_DOOR_WIDTH
+    ckpt = str(tmp / "quickstart")
+    res_a, sec, peak, launches_a, _ = _front_door_run(argv_a + ["--checkpoint", ckpt], device)
+    cfg_a = res_a.config
+    updates_a = cfg_a.epochs * cfg_a.steps_per_epoch // cfg_a.aggregate_k_gradients
+    saved = restore_checkpoint(ckpt, map_location="cpu")
+    res_w, sec_w, _, _, text_w = _front_door_run(argv_a + ["--warm_start", ckpt, "--epochs", "1"], device)
+    checks.update({
+        "quickstart_losses_finite": finite(res_a) and finite(res_w),
+        "quickstart_flash_every_layer_every_update": all(n >= cfg_a.nlayers * updates_a
+                                                         for n in launches_a.values()),
+        "quickstart_saved_is_the_model": same_weights(saved, res_a.model.state_dict()),
+        # At LR 0 the run ends where it starts: on the loaded weights.
+        "warm_start_at_lr_0_ends_on_the_saved_weights": (res_w.epoch_stats[0]["lr"] == 0.0
+                                                         and same_weights(res_w.model.state_dict(), saved)),
+        "warm_start_printed": "warm-started params from" in text_w,
+    })
+    prior_a = record("quickstart", argv_a, res_a, sec, peak, launches_a, warm_start_seconds=sec_w)
+
+    # One update of (a)'s config through the kernels and through the dense
+    # f32 path, from seeded bridge weights: the run's own weights are barely
+    # past a zero-initialised out_proj and linear2, through which attention
+    # would hardly reach the loss or the gradient norm.
+    seeded = state_dict_from_flax_params(
+        seeded_flax_params(prior_a.num_features, cfg_a.emsize, cfg_a.nhid, cfg_a.nlayers,
+                           res_a.criterion.n_out(prior_a.num_outputs), seed=0), cfg_a.nlayers)
+    one, rel, one_paths, reach = one_update_vs_dense(prior_a, res_a.criterion, cfg_a, seeded, device)
+    checks["quickstart_kernel_vs_dense_f32_update"] = all(r <= F32_PATH_TOL for r in rel.values())
+    checks["one_update_paths"] = one_paths
+
+    # (b) The model options: straight, then stopped after epoch 1 and resumed.
+    argv_b = FRONT_DOOR["options"] + FRONT_DOOR_WIDTH
+    res_b, sec, peak, launches_b, _ = _front_door_run(argv_b, device)
+    resumable = argv_b + ["--set", f"train.checkpoint_dir={tmp / 'options'}", "--set", "train.checkpoint_every=1"]
+    _front_door_run(resumable + ["--epochs", "1"], device)
+    res_r, _, _, _, text_r = _front_door_run(resumable, device)
+    checks.update({
+        "options_losses_finite": finite(res_b) and finite(res_r),
+        "options_flash_launched": all(n > 0 for n in launches_b.values()),
+        "options_resumed": "resumed from" in text_r and [st["epoch"] for st in res_r.epoch_stats] == [2],
+        "options_resume_bitwise": (res_r.final_loss == res_b.final_loss
+                                   and same_weights(res_r.model.state_dict(), res_b.model.state_dict())),
+    })
+    record("options", argv_b, res_b, sec, peak, launches_b)
+
+    # (c) The stroke prior, and its device time for one batch.
+    argv_c = FRONT_DOOR["stroke"] + FRONT_DOOR_WIDTH
+    res_c, sec, peak, launches_c, _ = _front_door_run(argv_c, device)
+    checks["stroke_losses_finite"] = finite(res_c)
+    stroke = record("stroke", argv_c, res_c, sec, peak, launches_c)
+    gs = torch.Generator(device=device).manual_seed(2)
+    runs["stroke"]["prior_ms"] = cuda_ms(lambda: stroke.sample(res_c.config.batch_size, res_c.config.bptt,
+                                                               generator=gs, device=device), iters=10)
+
+    emit({"phase": "front_door", "card": smi, "dtype": "f32", "runs": runs, "one_update": one,
+          "one_update_weights": "seeded_flax_params(seed=0) through state_dict_from_flax_params",
+          "one_update_rel_diff": rel, "tol": F32_PATH_TOL, "probe": F32_PATH_PROBE, "probe_rel_change": reach,
+          "checks": checks})
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"front_door checks failed: {failed}")
+    return launches_a
 
 
 def phase_dispatch(device, smi: str):
@@ -2603,12 +2804,17 @@ def main() -> int:
     f32_long = f32_kernel_timing(device, smi, "f32_long_timing", F32_LONG_SHAPE)
     # The f32 bodies' launches on their path: the f32 rows of the kernels line.
     f32_launches = phase_f32_path(device, smi)
+    # The front door's run (a) launches the f32 bodies too: its launches join
+    # both the f32 rows and the kernels' launches on the main paths.
+    front_launches = phase_front_door(device, smi)
     for name, kind in zip(FLASH_F32_KERNELS, ("fwd", "dq", "dkv")):
-        f32_long[kind]["launches"] = f32_launches[name]
+        f32_long[kind]["launches"] = f32_launches[name] + front_launches[name]
     fig3a_launches = phase_fig3a(device, smi)
-    # The flash kernels' launches on the main path: the train phase's and the
-    # fig3a phase's (the tabular path runs dense at T = 100).
-    flash_launches = {name: launches[name] + fig3a_launches[name] for name in FLASH_F32_KERNELS}
+    # The flash kernels' launches on the main paths: the train phase's, the
+    # fig3a phase's and the front door's run (a) (the tabular path runs dense
+    # at T = 100).
+    flash_launches = {name: launches[name] + fig3a_launches[name] + front_launches[name]
+                      for name in FLASH_F32_KERNELS}
     fwd = next(r for r in timing if r["sep"] == 1000)
     bwd = next(r for r in bwd_timing if r["sep"] == 1000)
     fused = next(r for r in fused_timing if r["sep"] == FLAGSHIP["sep"])

@@ -17,8 +17,11 @@ tabular classification slice (the MLP/BNN, GP-mix, binarized and mixture
 priors → BCE training → ``PFNClassifier`` → ``evals.tabular``'s PFN
 evaluation), and the Fig-3a scoring path (the linear-regression oracles, the
 MSE validator, and the experiments in ``experiments``, run as
-``python -m pfn_tpu_torch.experiments.<name>``). See ROADMAP.md for what
-remains.
+``python -m pfn_tpu_torch.experiments.<name>``), and the front door:
+``python -m pfn_tpu_torch.train`` over ``config`` (the experiment-config
+tree) and ``registries`` (priors, criterions, encoders, positional encodings,
+eval-position samplers), with the model options and the ridge, module and
+stroke priors they name. See ROADMAP.md for what remains.
 """
 
 __version__ = "0.1.0"

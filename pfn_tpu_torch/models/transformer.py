@@ -1,13 +1,25 @@
 """The PFN transformer.
 
-Port of ``pfn_tpu/models/transformer.py`` (dense FFN, no dropout, default
-encoders and decoder). Behaviour:
+Port of ``pfn_tpu/models/transformer.py`` (dense FFN; the MoE FFN and the
+device-mesh fields are not ported). Behaviour:
   * Train tokens are encoder(x) + y_encoder(y); eval tokens are encoder(x)
     only, via ``where(pos < sep)``, so shapes do not depend on sep.
   * PFN attention is a parameter of the attention op, never a mask.
   * Post-LN encoder layers with a GELU FFN; out_proj and linear2 start at
     zero, so the stack starts as the identity.
   * The decoder runs on every position.
+  * Options, as in the JAX model: ``encoder``, ``y_encoder``, ``pos_encoder``
+    and ``decoder`` factories (the port's protocols take the input width
+    too: see ``models/encoders.py``, ``positional.py``, ``decoders.py``),
+    SeqBN input normalization, dropout after the attention's out-proj, after
+    the FFN's GELU and after linear2, and the exact (erf) GELU.
+
+Dropout: the layer is deterministic exactly where the JAX train loop makes
+it so: in eval mode, or at ``dropout == 0``. Otherwise ``forward`` needs an
+explicit ``generator`` and draws every mask from it (the train loop passes
+its own, which its checkpoints save, so a resumed run stays bitwise equal to
+an uninterrupted one); it never draws from torch's global RNG. Dropout stays
+outside the attention kernels, as in the JAX package.
 
 Casting follows flax exactly (no autocast): x and y are cast to the compute
 dtype and promoted back to f32 by the f32 encoders, so embeddings are f32;
@@ -58,22 +70,25 @@ class TransformerConfig:
 
     def check_ported(self) -> None:
         """Raise for the options the port does not have yet."""
-        todo = {
-            "input_normalization": (self.input_normalization, "queue 1 item 9 (SeqBN)"),
-            "num_experts > 0": (self.num_experts > 0, "queue 1 item 14 (MoE)"),
-            "encoder": (self.encoder is not None, "queue 1 item 9 (encoders)"),
-            "y_encoder": (self.y_encoder is not None, "queue 1 item 9 (encoders)"),
-            "pos_encoder": (self.pos_encoder is not None, "queue 1 item 9 (positional encodings)"),
-            "decoder": (self.decoder is not None, "queue 1 item 9 (decoders)"),
-        }
-        for name, (used, item) in todo.items():
-            if used:
-                raise NotImplementedError(f"TransformerConfig.{name} is not ported yet (ROADMAP.md {item})")
+        if self.num_experts > 0:
+            raise NotImplementedError("TransformerConfig.num_experts > 0 is not ported yet "
+                                      "(ROADMAP.md queue 1 item 14 (MoE))")
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """flax Dense(dtype=dtype): inputs, kernel and bias cast to ``dtype``."""
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: each entry kept with probability 1 - p (a uniform
+    draw from ``generator`` below 1 - p) and scaled by 1 / (1 - p), the rest
+    zero. ``generator`` None (a deterministic layer) or p == 0: x as it is."""
+    if generator is None or p == 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class MultiheadPFNAttention(nn.Module):
@@ -112,9 +127,10 @@ class PFNEncoderLayer(nn.Module):
     of linear2."""
 
     def __init__(self, emsize: int, nhead: int, nhid: int, dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "auto", exact_gelu: bool = False):
+                 attention_impl: str = "auto", exact_gelu: bool = False, dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.dropout = dropout
         self.gelu_approximate = "none" if exact_gelu else "tanh"
         self.self_attn = MultiheadPFNAttention(emsize, nhead, dtype=dtype, attention_impl=attention_impl)
         self.linear1 = nn.Linear(emsize, nhid)
@@ -126,13 +142,37 @@ class PFNEncoderLayer(nn.Module):
         nn.init.zeros_(self.linear2.weight)
         nn.init.zeros_(self.linear2.bias)
 
-    def forward(self, x: torch.Tensor, single_eval_pos) -> torch.Tensor:
-        attn = self.self_attn(x, single_eval_pos)
+    def forward(self, x: torch.Tensor, single_eval_pos, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: the dropout masks' source; None for a
+        deterministic layer."""
+        p = self.dropout
+        attn = dropout(self.self_attn(x, single_eval_pos), p, generator)
         x = self.norm1((x + attn).float())
         h = _linear(x, self.linear1, self.dtype)
-        h = F.gelu(h, approximate=self.gelu_approximate)
-        h = _linear(h, self.linear2, self.dtype)
+        h = dropout(F.gelu(h, approximate=self.gelu_approximate), p, generator)
+        h = dropout(_linear(h, self.linear2, self.dtype), p, generator)
         return self.norm2((x + h).float())
+
+
+class SeqBN(nn.Module):
+    """Normalization over the flattened (B*T, D) tokens with a learned
+    affine (reference utils.py:76-86, transformer.py:24), as the JAX
+    package's SeqBN: always the current batch's statistics (biased
+    variance, eps 1e-5), no running averages, in train and eval mode alike.
+    Its parameters are ``weight`` and ``bias`` (flax ``scale``, ``bias``)."""
+
+    def __init__(self, d_model: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(d_model))
+        self.bias = nn.Parameter(torch.zeros(d_model))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, T, D = x.shape
+        flat = x.reshape(B * T, D)
+        mean = flat.mean(dim=0)
+        var = flat.var(dim=0, unbiased=False)
+        flat = (flat - mean) * torch.rsqrt(var + 1e-5) * self.weight + self.bias
+        return flat.reshape(B, T, D)
 
 
 class _EncoderStack(nn.Module):
@@ -149,7 +189,8 @@ class PFNTransformer(nn.Module):
     x: (B, T, F) features; y: (B, T) targets, read at positions <
     ``single_eval_pos`` only. ``single_eval_pos`` is an int or a one-element
     tensor. The output covers all positions; rows < single_eval_pos are train
-    tokens whose outputs callers ignore.
+    tokens whose outputs callers ignore. ``generator``: the dropout masks'
+    source, needed in training with dropout > 0 (module docstring).
     """
 
     def __init__(self, config: TransformerConfig):
@@ -157,28 +198,40 @@ class PFNTransformer(nn.Module):
         config.check_ported()
         self.config = config
         c = config
-        self.encoder = LinearEncoder(c.num_features, c.emsize)
-        self.y_encoder = LinearEncoder(1, c.emsize)
-        self.pos_encoder = NoPositionalEncoding(max_len=c.max_len)
+        self.encoder = (c.encoder or LinearEncoder)(c.num_features, c.emsize)
+        self.y_encoder = (c.y_encoder or LinearEncoder)(1, c.emsize)
+        if c.input_normalization:
+            self.input_ln = SeqBN(c.emsize)
+        self.pos_encoder = (c.pos_encoder or NoPositionalEncoding)(c.emsize, max_len=c.max_len)
         self.transformer_encoder = _EncoderStack(
             PFNEncoderLayer(c.emsize, c.nhead, c.nhid, dtype=c.dtype, attention_impl=c.attention_impl,
-                            exact_gelu=c.exact_gelu)
+                            exact_gelu=c.exact_gelu, dropout=c.dropout)
             for _ in range(c.nlayers)
         )
-        self.decoder = MLPDecoder(c.emsize, c.nhid, c.n_out, approximate=not c.exact_gelu)
+        if c.decoder is not None:
+            self.decoder = c.decoder(c.emsize, c.nhid, c.n_out)
+        else:
+            self.decoder = MLPDecoder(c.emsize, c.nhid, c.n_out, approximate=not c.exact_gelu)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor, single_eval_pos) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, y: torch.Tensor, single_eval_pos,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         c = self.config
-        if self.training and c.dropout > 0:
-            raise NotImplementedError("dropout > 0 in training is not ported yet (ROADMAP.md queue 1 item 9)")
+        deterministic = not self.training or c.dropout == 0.0
+        if not deterministic and generator is None:
+            raise ValueError("dropout > 0 in training draws its masks from an explicit torch.Generator: "
+                             "pass generator= (the train loop passes its own)")
         T = x.shape[1]
+        # The encoders take the compute-dtype-rounded inputs as f32 values.
         x_emb = self.encoder(x.to(c.dtype).float())
         y_emb = self.y_encoder(y[..., None].to(c.dtype).float())
         pos = torch.arange(T, device=x.device)[None, :, None]
         tokens = x_emb + torch.where(pos < single_eval_pos, y_emb, torch.zeros_like(y_emb))
-        tokens = self.pos_encoder(tokens)
+        if c.input_normalization:
+            tokens = self.input_ln(tokens)
+        tokens = self.pos_encoder(tokens, deterministic=deterministic)
+        masks = None if deterministic else generator
         for layer in self.transformer_encoder.layers:
-            tokens = layer(tokens, single_eval_pos)
+            tokens = layer(tokens, single_eval_pos, masks)
         return self.decoder(tokens.float())
 
 

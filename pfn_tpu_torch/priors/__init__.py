@@ -12,6 +12,9 @@ from pfn_tpu_torch.priors.gp import GPPrior
 from pfn_tpu_torch.priors.gp_mix import GPMixPrior
 from pfn_tpu_torch.priors.mixture import BatchMixture
 from pfn_tpu_torch.priors.mlp import MLPPrior
+from pfn_tpu_torch.priors.module import ModulePrior
+from pfn_tpu_torch.priors.ridge import RidgePrior
+from pfn_tpu_torch.priors.stroke import StrokePrior
 
 __all__ = [
     "BatchMixture",
@@ -19,7 +22,10 @@ __all__ = [
     "GPMixPrior",
     "GPPrior",
     "MLPPrior",
+    "ModulePrior",
     "Prior",
+    "RidgePrior",
+    "StrokePrior",
     "binarized_gp_mix_prior",
     "binarized_gp_prior",
     "default_group_size",

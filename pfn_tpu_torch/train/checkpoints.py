@@ -11,9 +11,11 @@
   * :func:`state_dict_from_flax_params` repeats the mapping and transposes of
     ``pfn_tpu.train.checkpoints.export_torch_state_dict`` without importing
     jax: it takes the flax params tree as nested dicts of numpy arrays and
-    returns the port's ``state_dict``, under the reference's torch names, so
+    returns the port's ``state_dict``, under the reference's torch names (and
+    the flax tree's names for the options the reference never exported), so
     that a ``PFNTransformer`` loaded from it with ``strict=True`` computes
-    what the JAX model computes.
+    what the JAX model computes, with any encoder, SeqBN, positional
+    encoding and head that the JAX model builds.
 """
 
 from __future__ import annotations
@@ -83,13 +85,57 @@ def _dense(sd: dict, name: str, p: dict) -> None:
     sd[name + ".bias"] = _tensor(p["bias"])
 
 
+def _encoder(sd: dict, name: str, p: dict) -> None:
+    """The x- or y-encoder's entries, by the flax tree's layout: LinearEncoder
+    (``linear``), NormalizedUniformEncoder (``inner/linear``), MLPEncoder
+    (``fc1``, ``fc2``), CanonicalEmbedding (``embedding``) or
+    EmbeddingEncoder (``emb/embedding``)."""
+    if "linear" in p:
+        _dense(sd, name, p["linear"])
+    elif "inner" in p:
+        _dense(sd, name + ".inner", p["inner"]["linear"])
+    elif "fc1" in p:
+        _dense(sd, name + ".fc1", p["fc1"])
+        _dense(sd, name + ".fc2", p["fc2"])
+    elif "embedding" in p:
+        sd[name + ".embedding"] = _tensor(p["embedding"])
+    elif "emb" in p:
+        sd[name + ".emb.embedding"] = _tensor(p["emb"]["embedding"])
+    else:
+        raise KeyError(f"unknown encoder layout under {name!r}: {sorted(p)}")
+
+
+def _decoder(sd: dict, p: dict) -> None:
+    """The head's entries: FixedScaledDecoder (``fc1``, ``fc2``, ``T``),
+    ScaledDecoder (``linear``, ``linear1``, ``linear2``) or the default
+    MLPDecoder (``fc1``, ``fc2`` as ``decoder.0``, ``decoder.2``)."""
+    if "T" in p:
+        _dense(sd, "decoder.fc1", p["fc1"])
+        _dense(sd, "decoder.fc2", p["fc2"])
+        sd["decoder.T"] = _tensor(p["T"])
+    elif "linear" in p:
+        for name in ("linear", "linear1", "linear2"):
+            _dense(sd, "decoder." + name, p[name])
+    else:
+        _dense(sd, "decoder.0", p["fc1"])
+        _dense(sd, "decoder.2", p["fc2"])
+
+
 def state_dict_from_flax_params(params: dict, nlayers: int) -> dict:
     """Map a ``PFNTransformer`` flax params tree ({"params": {...}} or the
-    inner dict) of numpy arrays to the port's state_dict of f32 tensors."""
+    inner dict) of numpy arrays to the port's state_dict of f32 tensors,
+    with every option's parameters: the encoders' layouts (:func:`_encoder`),
+    ``input_ln`` (SeqBN: scale, bias -> weight, bias), ``pos_encoder``'s
+    table, and the scaled heads (:func:`_decoder`)."""
     p = params.get("params", params)
     sd: dict = {}
-    _dense(sd, "encoder", p["encoder"]["linear"])
-    _dense(sd, "y_encoder", p["y_encoder"]["linear"])
+    _encoder(sd, "encoder", p["encoder"])
+    _encoder(sd, "y_encoder", p["y_encoder"])
+    if "input_ln" in p:
+        sd["input_ln.weight"] = _tensor(p["input_ln"]["scale"])
+        sd["input_ln.bias"] = _tensor(p["input_ln"]["bias"])
+    if "pos_encoder" in p:
+        sd["pos_encoder.pos_embedding"] = _tensor(p["pos_encoder"]["pos_embedding"])
     for i in range(nlayers):
         L = p[f"layer_{i}"]
         pre = f"transformer_encoder.layers.{i}."
@@ -101,17 +147,28 @@ def state_dict_from_flax_params(params: dict, nlayers: int) -> dict:
         for norm in ("norm1", "norm2"):
             sd[pre + norm + ".weight"] = _tensor(L[norm]["scale"])
             sd[pre + norm + ".bias"] = _tensor(L[norm]["bias"])
-    _dense(sd, "decoder.0", p["decoder"]["fc1"])
-    _dense(sd, "decoder.2", p["decoder"]["fc2"])
+    _decoder(sd, p["decoder"])
     return sd
 
 
-def seeded_flax_params(num_features: int, emsize: int, nhid: int, nlayers: int, n_out: int, seed: int = 0) -> dict:
+def seeded_flax_params(num_features: int, emsize: int, nhid: int, nlayers: int, n_out: int, seed: int = 0,
+                       encoder: str = "linear", y_encoder: str = "linear", input_normalization: bool = False,
+                       pos_encoder: str | None = None, max_len: int = 0, decoder: str = "mlp",
+                       num_classes: int = 2, num_embs: int = 100) -> dict:
     """A params tree in the JAX package's layout, every entry drawn from a
     numpy generator seeded with ``seed``: kernels N(0, 1/fan_in), biases
     N(0, 0.1^2), LayerNorm scales 1 + N(0, 0.1^2). Unlike a fresh init,
     out_proj and linear2 are nonzero, so attention reaches the output. For
-    parity tests and smoke runs with random weights."""
+    parity tests and smoke runs with random weights.
+
+    Opt-in options, by their registry names (each drawn after the default
+    tree, so the default tree's draws do not change): ``encoder`` and
+    ``y_encoder`` in linear / normalized_uniform / mlp / canonical
+    (``num_classes`` rows) / embedding (``num_embs`` bins);
+    ``input_normalization`` (SeqBN scale and bias, as the LayerNorms);
+    ``pos_encoder`` learned or paired_scrambled_learned (a (max_len, emsize)
+    table of N(0, 1/emsize)); ``decoder`` mlp / scaled / fixed_scaled (T 1 +
+    N(0, 0.1^2))."""
     rng = np.random.default_rng(seed)
 
     def dense(fan_in: int, fan_out: int) -> dict:
@@ -126,6 +183,20 @@ def seeded_flax_params(num_features: int, emsize: int, nhid: int, nlayers: int, 
             "bias": (0.1 * rng.standard_normal(emsize)).astype(np.float32),
         }
 
+    def embedding(rows: int, features: int) -> np.ndarray:
+        return rng.standard_normal((rows, features, emsize // features)).astype(np.float32)
+
+    def encoder_tree(kind: str, fan_in: int) -> dict:
+        if kind == "normalized_uniform":
+            return {"inner": {"linear": dense(fan_in, emsize)}}
+        if kind == "mlp":
+            return {"fc1": dense(fan_in, emsize), "fc2": dense(emsize, emsize)}
+        if kind == "canonical":
+            return {"embedding": embedding(num_classes, fan_in)}
+        if kind == "embedding":
+            return {"emb": {"embedding": embedding(num_embs, fan_in)}}
+        raise ValueError(f"unknown encoder {kind!r}")
+
     p: dict = {"encoder": {"linear": dense(num_features, emsize)}, "y_encoder": {"linear": dense(1, emsize)}}
     for i in range(nlayers):
         p[f"layer_{i}"] = {
@@ -136,4 +207,22 @@ def seeded_flax_params(num_features: int, emsize: int, nhid: int, nlayers: int, 
             "norm2": norm(),
         }
     p["decoder"] = {"fc1": dense(emsize, nhid), "fc2": dense(nhid, n_out)}
+    if encoder != "linear":
+        p["encoder"] = encoder_tree(encoder, num_features)
+    if y_encoder != "linear":
+        p["y_encoder"] = encoder_tree(y_encoder, 1)
+    if input_normalization:
+        p["input_ln"] = norm()
+    if pos_encoder in ("learned", "paired_scrambled_learned"):
+        p["pos_encoder"] = {"pos_embedding": (rng.standard_normal((max_len, emsize)) / np.sqrt(emsize))
+                            .astype(np.float32)}
+    elif pos_encoder not in (None, "none", "sinus"):
+        raise ValueError(f"unknown positional encoding {pos_encoder!r}")
+    if decoder == "scaled":
+        p["decoder"] = {"linear": dense(emsize, nhid), "linear1": dense(nhid, n_out), "linear2": dense(nhid, 10)}
+    elif decoder == "fixed_scaled":
+        p["decoder"] = {"fc1": dense(emsize, nhid), "fc2": dense(nhid, n_out),
+                        "T": np.float32(1.0 + 0.1 * rng.standard_normal())}
+    elif decoder != "mlp":
+        raise ValueError(f"unknown decoder {decoder!r}")
     return {"params": p}

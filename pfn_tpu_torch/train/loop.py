@@ -21,6 +21,11 @@ How it maps to PyTorch:
     microbatches. ``updates_per_call`` updates run between host syncs
     (``make_train_chunk``); capturing the step in a CUDA graph is left to a
     later change (ROADMAP.md, open cell i).
+  * With ``dropout > 0`` the model draws its dropout masks from the same
+    generator, after the microbatch's data and sep (the JAX package splits a
+    "dropout" key per microbatch), so a resumed run stays bitwise equal.
+  * ``eval_pos_sampler`` resolves through ``registries.EVAL_POS_SAMPLERS``
+    (unless "fixed"), so a user-registered sampler changes training.
   * ``attention_impl="fused"`` runs each microbatch's forward through
     ``models.fused_apply.fused_forward`` (the JAX package's
     ``_apply_with_aux``): every encoder layer is one fused-layer kernel call
@@ -52,19 +57,20 @@ from pfn_tpu_torch.train.checkpoints import (
 )
 from pfn_tpu_torch.train.losses import Criterion
 from pfn_tpu_torch.utils.profiling import StepTimers
-from pfn_tpu_torch.utils.samplers import draw_eval_pos, make_eval_pos_weights
+from pfn_tpu_torch.utils.samplers import draw_eval_pos
 from pfn_tpu_torch.utils.schedules import cosine_schedule_with_warmup, get_openai_lr
-
-_BUILTIN_SAMPLERS = ("weighted", "uniform", "mixture")
 
 
 @dataclasses.dataclass
 class TrainConfig:
     """The JAX package's TrainConfig (the reference train() signature), plus
     the training ``device`` (None: the current CUDA device, and an error
-    when there is no card; pass "cpu" to train on the CPU). The fields for
-    options the port does not have yet (a mesh, fsdp, experts, dropout,
-    custom modules) are kept and raise, naming their ROADMAP.md item.
+    when there is no card; pass "cpu" to train on the CPU) and
+    ``exact_gelu``, which the JAX config lacks (so a model the JAX loop
+    builds from an exact-GELU checkpoint runs the tanh GELU; here it reaches
+    ``TransformerConfig.exact_gelu``). The fields for options the port does
+    not have yet (fsdp, experts) are kept and raise, naming their ROADMAP.md
+    item. The module factories take the port's protocols (``models/``).
     ``attention_impl="fused"`` trains through the fused-layer kernels (module
     docstring)."""
 
@@ -106,6 +112,7 @@ class TrainConfig:
     y_encoder: Callable | None = None
     pos_encoder: Callable | None = None
     decoder: Callable | None = None
+    exact_gelu: bool = False
     device: str | torch.device | None = None
 
 
@@ -136,12 +143,6 @@ def _check_ported(cfg: TrainConfig, mesh=None) -> None:
         "a device mesh": (mesh is not None, "queue 1 item 14 (parallelism)"),
         "fsdp": (cfg.fsdp, "queue 1 item 14 (parallelism)"),
         "num_experts > 0": (cfg.num_experts > 0, "queue 1 item 14 (MoE)"),
-        "dropout > 0": (cfg.dropout > 0, "queue 1 item 9 (dropout)"),
-        "custom encoder, y_encoder, pos_encoder or decoder": (
-            any(m is not None for m in (cfg.encoder, cfg.y_encoder, cfg.pos_encoder, cfg.decoder)),
-            "queue 1 item 9 (encoders, positional encodings, decoders)"),
-        f"eval_pos_sampler={cfg.eval_pos_sampler!r}": (
-            cfg.eval_pos_sampler not in (*_BUILTIN_SAMPLERS, "fixed"), "queue 1 item 13 (the sampler registry)"),
     }
     for name, (used, item) in todo.items():
         if used:
@@ -178,6 +179,7 @@ def build_model(prior, criterion: Criterion, cfg: TrainConfig) -> PFNTransformer
         y_encoder=cfg.y_encoder,
         pos_encoder=cfg.pos_encoder,
         decoder=cfg.decoder,
+        exact_gelu=cfg.exact_gelu,
         num_experts=cfg.num_experts,
         max_len=max(cfg.bptt * 2, 16),
     )
@@ -204,11 +206,16 @@ def _make_optimizer(cfg: TrainConfig, model: PFNTransformer):
 
 
 def _eval_pos_weights(cfg: TrainConfig, device) -> torch.Tensor | None:
-    """Sampler weights on ``device`` for a built-in sampler; None for
-    ``fixed``."""
+    """The sampler's unnormalised weights over positions 0 .. max_len-1, on
+    ``device``, from the entry of ``registries.EVAL_POS_SAMPLERS`` that
+    ``cfg.eval_pos_sampler`` names (a ``max_len -> weights`` function); None
+    for ``fixed``."""
     if cfg.eval_pos_sampler == "fixed":
         return None
-    return make_eval_pos_weights(cfg.eval_pos_max or cfg.bptt, cfg.eval_pos_sampler, device=device)
+    from pfn_tpu_torch.registries import EVAL_POS_SAMPLERS
+
+    weights = EVAL_POS_SAMPLERS.get(cfg.eval_pos_sampler)(cfg.eval_pos_max or cfg.bptt)
+    return torch.as_tensor(weights, dtype=torch.float32).to(device)
 
 
 def _sample_eval_pos(generator: torch.Generator, cfg: TrainConfig, weights: torch.Tensor | None):
@@ -230,11 +237,15 @@ def _check_fused(model: PFNTransformer, cfg: TrainConfig) -> None:
         raise ValueError(f"fused path does not support this config: {reason}")
 
 
-def _masked_loss(model, criterion: Criterion, cfg: TrainConfig, x, y, target_y, sep) -> torch.Tensor:
+def _masked_loss(model, criterion: Criterion, cfg: TrainConfig, x, y, target_y, sep,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
     """Mean loss over the eval positions (>= sep) of one microbatch, the
     forward through the fused layers where ``cfg.attention_impl`` is
-    "fused"."""
-    out = fused_forward(model, x, y, sep) if cfg.attention_impl == "fused" else model(x, y, sep)
+    "fused"; dropout masks, if any, from ``generator``."""
+    if cfg.attention_impl == "fused":
+        out = fused_forward(model, x, y, sep)
+    else:
+        out = model(x, y, sep, generator=generator)
     losses = criterion.per_position(out, target_y)  # (B, T)
     eval_rows = (torch.arange(cfg.bptt, device=losses.device) >= sep).to(losses.dtype)
     mask = eval_rows.expand_as(losses) * criterion.valid_weight(target_y)
@@ -257,7 +268,7 @@ def _update(state: TrainState, criterion: Criterion, cfg: TrainConfig, schedule,
     optimizer.zero_grad(set_to_none=True)
     k = 0
     for x, y, target_y, sep in microbatches:
-        loss = _masked_loss(model, criterion, cfg, x, y, target_y, sep)
+        loss = _masked_loss(model, criterion, cfg, x, y, target_y, sep, state.generator)
         loss.backward()  # accumulates into .grad: the sum over microbatches
         loss = loss.detach()
         onehot = (positions == sep).to(torch.float32)
@@ -415,7 +426,7 @@ def train(prior, criterion: Criterion, cfg: TrainConfig, mesh=None, init_params:
         positional = (pos_loss_acc / pos_cnt_acc.clamp_min(1.0)).tolist()
         val_score = None
         if validate_fn is not None and epoch % cfg.validation_period == 0:
-            val_score = validate_fn(model)
+            val_score = validate_fn(model.eval())  # deterministic, as the JAX hook's apply
         lr_now = float(schedule((epoch - 1) * updates_per_epoch))
         stats = {
             "epoch": epoch,
