@@ -105,7 +105,12 @@ Phases, each printing one JSON line:
      TrainConfig's default dtype, f32, so the fused layer's f32 bodies run
      on a user's path: each launched 6 layers x 4 updates times, one update
      against the unfused f32 one within FUSED_TRAIN_F32_TOL, update times,
-     datasets/s, peak memory and the idle share of a profiled update.
+     datasets/s, peak memory and the idle share of a profiled update. Both
+     hold loss, grad norm and the whole clipped gradient vector (relative
+     L2), and each check must see a probe: the unfused f32 update with the
+     attention output scaled by 1 + F32_PATH_PROBE moves the vector past
+     the f32 tolerance, and scaled by 1 + FUSED_BF16_PROBE past the bf16
+     budget.
  14. library_timing: F.scaled_dot_product_attention with the boolean PFN
      mask, forward and backward, at the flash kernels' timing shapes (the
      library yardstick of the kernels line; the port never calls it), and
@@ -167,18 +172,39 @@ Phases, each printing one JSON line:
      to the uninterrupted run; (c) the stroke prior at 784 features with CE
      and the prior's device time; each run's update times, datasets/s and
      peak memory.
- 20. dkv_against_library: the dk/dv kernel at sep 1000, both variants,
+ 20. comparison: the Bayesian comparison at its driver's reference config
+     (COMPARISON: the BNN prior default_model_spec("small"), emsize 256, nhid
+     512, 5 layers, 4 heads of 64, bptt 300, batch 256, f32, seeded bridge
+     weights): train(...) for 2 epochs of 2 updates with a checkpoint and a
+     resume bitwise equal to an uninterrupted run, each flash f32 body at D
+     64 once per layer per update; update time and a profile of one update;
+     one update against the dense f32 path (F32_PATH_TOL on the whole
+     gradient vector, its reach at F32_PATH_PROBE); the fixed eval set of
+     100 datasets, eval_transformer (the forward once per layer) against the
+     dense path within 2e-5 x (1 + max) and its time by events; eval_svi
+     (1024 steps and draws) and eval_mcmc (512 + 512, 15 leapfrog steps)
+     batched over the datasets on the card: mean accuracy and NLL, seconds,
+     HMC's acceptance rate, both above chance; the idle share of 8 SVI steps
+     and of 2 HMC trajectories. Then f32_comparison_timing: the f32 bodies at
+     the comparison's training shape (B*H 1024, T 300, D 64, sep 150; the
+     44-row edge tile of 128-row tiles), as tabular_kernel_timing.
+ 21. tabular_baselines: bayes_net_metric (the BNN baseline, fitted by SVI on
+     the card) through evaluate(...) over one synthetic dataset of 400 rows,
+     4 windows at position 30: seconds per window and the AUC; the sklearn
+     baselines raise an ImportError naming sklearn (the card's machine has
+     none) without breaking the module's import.
+ 22. dkv_against_library: the dk/dv kernel at sep 1000, both variants,
      beside SDPA's backward less the dq kernel, from this run.
 Then the kernels line (each kernel's launches on its path, error, time,
 plain time, bound and library time, for the fused kernels also the library
 call's device time, for the flash kernels also their f32 rows at T 100 and
 T 2010 (and the prefix variant's at T 2010), the f32 rows at T 2010 with
-their launches on f32_path and front_door's run (a) (which the kernels'
-launches on the main paths count too), for the fused kernels their f32
-rows with
-their launches on fused_f32_train; its
-route, and the design of its bf16 body), the run's seconds, and
-last {"ok": true, "device": {...}}.
+their launches on f32_path and front_door's run (a), and the f32 rows at D
+64, T 300 (f32_comparison) with their launches on the comparison's path
+(both of which the kernels' launches on the main paths count too), for the
+fused kernels their f32 rows with their launches on fused_f32_train; its
+route, and the design of its bf16 body), the run's seconds, and last {"ok":
+true, "device": {...}}.
 
 Any failure raises, so the script exits nonzero and prints no result line.
 It also fails when there is no CUDA device, and when the package beside it
@@ -259,6 +285,32 @@ F32_PATH_TOL = 1e-4
 # layer's value projection scaled by 1 + F32_PATH_PROBE, which scales the
 # attention output by as much; the relative change it makes is reported.
 F32_PATH_PROBE = 1e-3
+# fused_train's bf16 budget (2x the unfused path's own bf16 difference of
+# the gradient vector + 1e-3, 1.49e-2 on an H100 at the flagship) lies above
+# what F32_PATH_PROBE moves (1.48e-3), so that budget has a probe of its own:
+# an attention output off by 2 %, which moves the vector ~1.5x as much
+# (~3e-2, about twice the budget). Should the budget grow past its reach,
+# the check is blind, and the phase fails.
+FUSED_BF16_PROBE = 2e-2
+# The Bayesian comparison at the reference config
+# (experiments/bayesian_models_custom_priors.py:97-107, the port's driver's
+# REFERENCE): the BNN prior default_model_spec("small") (3 features, embed
+# 5), emsize 256, nhid 512, 5 layers, 4 heads of 64, bptt 300, batch 256, lr
+# 2.006434e-5, TrainConfig's default f32 (the flash f32 bodies at D 64, T
+# 300), seeded weights through the weight bridge. Cut: 2 epochs of 2 updates
+# (the driver runs 160 of 100). The eval set: 100 datasets of T 300, 100 in
+# context; SVI 1024 steps and draws, HMC 512 warm-up and 512 draws of 15
+# leapfrog steps: the driver's non-quick settings, batched over the 100
+# datasets on the card.
+COMPARISON = dict(size="small", updates=2, timed_updates=4, eval_sets=100, n_train=100, svi_steps=1024,
+                  mcmc_steps=512)
+# The flash f32 bodies at the comparison's training shape: B*H = 256 x 4, T
+# 300, D 64, at sep T // 2.
+COMPARISON_KERNEL_SHAPE = dict(fwd_BH=1024, bwd_BH=1024, T=300, D=64, sep=150)
+# The tabular baselines on the card: bayes_net_metric (the one baseline
+# without sklearn) over one synthetic dataset of 400 rows and 5 features,
+# bptt 100, eval position 30, 4 windows.
+TABULAR_BASELINES = dict(rows=400, features=5, bptt=100, eval_position=30, windows=4)
 # The front door (python -m pfn_tpu_torch.train, called in process through
 # pfn_tpu_torch.train.cli.main) at the Fig-3a width (emsize 512, 4 heads of
 # 128, nhid 1024, 6 layers), fresh seeded init, TrainConfig's default f32:
@@ -1815,7 +1867,9 @@ def phase_fused_train(device, smi: str, size: dict = FLAGSHIP, updates: int = 2,
     the update times of both. In bf16 (phase fused_train), or with ``f32``
     at TrainConfig's default dtype, f32 (phase fused_f32_train: the fused
     layer's f32 bodies), where the one update is held to the unfused f32
-    update alone."""
+    update alone. The one update compares loss, grad norm and the whole
+    clipped gradient vector, and reports the reach of a probe of known size
+    (a check that sees none fails)."""
     import io
     import tempfile
 
@@ -1871,30 +1925,55 @@ def phase_fused_train(device, smi: str, size: dict = FLAGSHIP, updates: int = 2,
     after_epoch2 = _param_vector(result.model.state_dict())
 
     # One update fused and unfused (bf16), and both in f32, from the same
-    # params, batch and sep (the f32 phase: the f32 pair alone).
+    # params, batch and sep (the f32 phase: the f32 pair alone): loss, grad
+    # norm and the whole clipped gradient vector.
     g = torch.Generator(device=device).manual_seed(15)
     xs, ys, tys = (t[None] for t in prior.sample(B, T, generator=g, device=device))
-    one = {}
-    variants = {"fused_bf16": {}, "unfused_bf16": {"attention_impl": "auto"},
-                "fused_f32": {"dtype": torch.float32},
-                "unfused_f32": {"attention_impl": "auto", "dtype": torch.float32}}
-    for name, over in variants.items():
-        if f32 and name.endswith("bf16"):
-            continue
+    weights = result.model.state_dict()
+    one, grads = {}, {}
+
+    def one_update(name, over, w):
         pcfg = dataclasses.replace(cfg, eval_pos_sampler="fixed", fixed_eval_pos=size["sep"], checkpoint_dir=None,
                                    **over)
         model = build_model(prior, criterion, pcfg)
-        model.load_state_dict(result.model.state_dict())
+        model.load_state_dict(w)
         optimizer, _, schedule = _make_optimizer(pcfg, model)
         state = TrainState(model, optimizer, torch.Generator(device=device).manual_seed(0))
         m = make_train_step_from_batch(criterion, pcfg, schedule)(state, xs, ys, tys)
         one[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        return _grad_vector(model)
+
+    variants = {"fused_bf16": {}, "unfused_bf16": {"attention_impl": "auto"},
+                "fused_f32": {"dtype": torch.float32},
+                "unfused_f32": {"attention_impl": "auto", "dtype": torch.float32}}
+    for name, over in variants.items():
+        if not (f32 and name.endswith("bf16")):
+            grads[name] = one_update(name, over, weights)
     keys = ("loss", "grad_norm")
-    budget = {} if f32 else {key: 2 * abs(one["unfused_bf16"][key] - one["unfused_f32"][key])
-                             + 1e-3 * abs(one["unfused_f32"][key]) for key in keys}
-    diff = {key: abs(one["fused_bf16"][key] - one["unfused_bf16"][key]) for key in budget}
-    rel_f32 = {key: abs(one["fused_f32"][key] - one["unfused_f32"][key]) / abs(one["unfused_f32"][key])
-               for key in keys}
+    ref = grads["unfused_f32"]
+    # bf16: within 2x the unfused path's own bf16 error + 1e-3, the vector's
+    # relative to |unfused f32|.
+    budget = {} if f32 else {
+        **{key: 2 * abs(one["unfused_bf16"][key] - one["unfused_f32"][key]) + 1e-3 * abs(one["unfused_f32"][key])
+           for key in keys},
+        "grads": 2 * _rel_l2(grads["unfused_bf16"], ref) + 1e-3}
+    diff = {} if f32 else {**{key: abs(one["fused_bf16"][key] - one["unfused_bf16"][key]) for key in keys},
+                           "grads": float((grads["fused_bf16"] - grads["unfused_bf16"]).norm() / ref.norm())}
+    rel_f32 = {**{key: abs(one["fused_f32"][key] - one["unfused_f32"][key]) / abs(one["unfused_f32"][key])
+                  for key in keys}, "grads": _rel_l2(grads["fused_f32"], ref)}
+
+    # The checks' reach: the unfused f32 update again with the attention
+    # output scaled by 1 + scale; its relative change of the gradient vector.
+    # F32_PATH_PROBE backs the f32 tolerance, FUSED_BF16_PROBE the bf16
+    # budget.
+    def reach(scale: float) -> float:
+        probed = one_update(f"unfused_f32_probe_{scale:g}", variants["unfused_f32"],
+                            _value_probe(weights, cfg.emsize, scale))
+        return _rel_l2(probed, ref)
+
+    probes = (F32_PATH_PROBE,) if f32 else (F32_PATH_PROBE, FUSED_BF16_PROBE)
+    probe_reach = {scale: reach(scale) for scale in probes}
+    del grads
 
     # Update time from the trained weights, fused and unfused in turns: the
     # first update of each, then the median of the rest.
@@ -1935,8 +2014,12 @@ def phase_fused_train(device, smi: str, size: dict = FLAGSHIP, updates: int = 2,
         "no_flash_launch": all(launches[k] == 0 for k in launches if k not in fused_names),
         "fused_vs_unfused_update": all(diff[key] <= budget[key] for key in budget),
         "fused_vs_unfused_f32": all(rel_f32[key] <= FUSED_TRAIN_F32_TOL for key in rel_f32),
+        # A check that cannot see an attention error of known size is blind.
+        "f32_check_sees_the_probe": probe_reach[F32_PATH_PROBE] > FUSED_TRAIN_F32_TOL,
         "update_without_host_sync": no_host_sync,
     }
+    if not f32:
+        checks["bf16_check_sees_the_probe"] = probe_reach[FUSED_BF16_PROBE] > budget["grads"]
     emit({
         "phase": phase, "card": smi, "size": size, "dtype": "f32" if f32 else "bf16", "updates_per_epoch": updates,
         "epoch_stats": stats, "train_calls_s": train_s, "launches": launches, "expected_launches": expected,
@@ -1944,7 +2027,9 @@ def phase_fused_train(device, smi: str, size: dict = FLAGSHIP, updates: int = 2,
                       for name, ms in update_ms.items()},
         "datasets_per_s": {name: B / (float(np.median(ms[1:])) / 1e3) for name, ms in update_ms.items()},
         "peak_memory_gb": peak_gb, "one_update": one, "one_update_diff": diff, "one_update_budget": budget,
-        "f32_rel_diff": rel_f32, "tol_f32": FUSED_TRAIN_F32_TOL, "fused_update_profile": profile, "checks": checks,
+        "f32_rel_diff": rel_f32, "tol_f32": FUSED_TRAIN_F32_TOL,
+        "probe_rel_change": {f"{k:g}": v for k, v in probe_reach.items()},
+        "fused_update_profile": profile, "checks": checks,
     })
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
@@ -2262,6 +2347,30 @@ def f32_kernel_timing(device, smi: str, phase: str, shape: dict):
     return rows
 
 
+def _value_probe(weights: dict, emsize: int, scale: float) -> dict:
+    """A copy of a state_dict with every layer's value rows of in_proj
+    (weight and bias) scaled by 1 + scale: the attention output scaled by as
+    much."""
+    probe = {key: t.clone() for key, t in weights.items()}
+    for key, t in probe.items():
+        if key.endswith(("self_attn.in_proj_weight", "self_attn.in_proj_bias")):
+            t[2 * emsize:] *= 1 + scale
+    return probe
+
+
+def _grad_vector(model):
+    """Every parameter's .grad after an update (clipped, as applied), as one
+    vector."""
+    import torch
+
+    return torch.cat([p.grad.flatten() for p in model.parameters()])
+
+
+def _rel_l2(a, b) -> float:
+    """|a - b| / |b| in the L2 norm."""
+    return float((a - b).norm() / b.norm())
+
+
 def one_update_vs_dense(prior, criterion, cfg, weights: dict, device):
     """One update of ``cfg`` from ``weights`` through the flash f32 kernels
     (attention_impl "auto", T >= 256) and through the dense f32 path, on the
@@ -2282,10 +2391,7 @@ def one_update_vs_dense(prior, criterion, cfg, weights: dict, device):
     g = torch.Generator(device=device).manual_seed(5)
     batch = [prior.sample(B, T, generator=g, device=device) for _ in range(2)]
     xs, ys, tys = (torch.stack([b[i] for b in batch]) for i in range(3))
-    probe = {key: t.clone() for key, t in weights.items()}
-    for key, t in probe.items():
-        if key.endswith(("self_attn.in_proj_weight", "self_attn.in_proj_bias")):
-            t[2 * cfg.emsize:] *= 1 + F32_PATH_PROBE  # the value rows of qkv
+    probe = _value_probe(weights, cfg.emsize, F32_PATH_PROBE)
     one, grads = {}, {}
     for name, impl, w in (("kernel_f32", "auto", weights), ("dense_f32", "dense", weights),
                           ("dense_f32_probe", "dense", probe)):
@@ -2299,13 +2405,13 @@ def one_update_vs_dense(prior, criterion, cfg, weights: dict, device):
         m = make_train_step_from_batch(criterion, pcfg, schedule)(state, xs, ys, tys)
         one[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                      "launches": {k: _ext.launch_counts[k] for k in FLASH_F32_KERNELS}}
-        grads[name] = torch.cat([p.grad.flatten() for p in model.parameters()])  # clipped, as applied
+        grads[name] = _grad_vector(model)
 
     def rel_to_dense(other: str) -> dict:
         ref = one["dense_f32"]
         return {"loss": abs(one[other]["loss"] - ref["loss"]) / abs(ref["loss"]),
                 "grad_norm": abs(one[other]["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"]),
-                "grads": float((grads[other] - grads["dense_f32"]).norm() / grads["dense_f32"].norm())}
+                "grads": _rel_l2(grads[other], grads["dense_f32"])}
 
     rel, reach = rel_to_dense("kernel_f32"), rel_to_dense("dense_f32_probe")
     paths = (all(n == 2 * cfg.nlayers for n in one["kernel_f32"]["launches"].values())
@@ -2550,6 +2656,201 @@ def phase_front_door(device, smi: str):
     if failed:
         raise AssertionError(f"front_door checks failed: {failed}")
     return launches_a
+
+
+def phase_comparison(device, smi: str, size: dict = COMPARISON):
+    """The Bayesian comparison (the PFN against SVI and HMC) at the reference
+    config of its driver (COMPARISON): the PFN trained through train(...)
+    for 2 epochs of 2 updates with a checkpoint and a resume bitwise equal to
+    an uninterrupted run, the flash f32 bodies at D 64 once per layer per
+    update; update time and a profile of one update; one update through the
+    kernels against the dense f32 path (F32_PATH_TOL, its reach at
+    F32_PATH_PROBE); the fixed eval set of 100 datasets; eval_transformer
+    (the forward kernel once per layer) against the dense path within the
+    f32 rule 2e-5 x (1 + max); eval_svi and eval_mcmc at the driver's
+    non-quick settings, batched over the datasets on the card, each timed on
+    the host clock up to a sync; the idle share of 8 SVI steps and of 2 HMC
+    trajectories (both loops launch-bound). Returns the flash launches of
+    the path (training and the eval's forward)."""
+    import argparse
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pfn_tpu_torch.evals import comparison
+    from pfn_tpu_torch.experiments import bayesian_models_custom_priors as driver
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.train import bce_criterion, build_model, seeded_flax_params, state_dict_from_flax_params, train
+
+    spec = comparison.default_model_spec(size["size"])
+    prior, criterion = spec.as_prior(), bce_criterion()
+    args = argparse.Namespace(quick=False, bptt=None, epochs=None, training_samples=size["n_train"])
+    ref_cfg, n_train, _ = driver.train_config(args, device)
+    cfg = dataclasses.replace(ref_cfg, epochs=2, steps_per_epoch=size["updates"], seed=0, checkpoint_every=1,
+                              checkpoint_dir=tempfile.mkdtemp(prefix="pfn_comparison_"))
+    if cfg.dtype != torch.float32 or cfg.bptt != 300 or cfg.emsize // cfg.nhead != 64:
+        raise AssertionError(f"the reference config is not f32 at T 300 and head dim 64: {cfg}")
+    init = state_dict_from_flax_params(seeded_flax_params(spec.num_features, cfg.emsize, cfg.nhid, cfg.nlayers, 1,
+                                                          seed=0), cfg.nlayers)
+
+    # 1. Training: epoch 1 into a checkpoint, then a resumed call for epoch 2.
+    torch.cuda.reset_peak_memory_stats(device)
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = train(prior, criterion, dataclasses.replace(cfg, epochs=1), init_params=init)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        result = train(prior, criterion, cfg, init_params=init)
+    train_s = time.perf_counter() - t0
+    print(log.getvalue(), end="", flush=True)
+    train_launches = {name: _ext.launch_counts[name] for name in FLASH_F32_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    stats = first.epoch_stats + result.epoch_stats
+
+    # 2. The eval set and the amortized eval on the kernel path.
+    X, y = comparison.generate_toy_data(spec, cfg.bptt, torch.Generator(device=device).manual_seed(0),
+                                        n_samples=size["eval_sets"])
+    _ext.reset_launch_counts()
+    pfn_acc, pfn_nll, pfn_s = comparison.eval_transformer(X, y, result.model, n_train)
+    eval_launches = {name: _ext.launch_counts[name] for name in FLASH_F32_KERNELS}
+    launches = {name: train_launches[name] + eval_launches[name] for name in FLASH_F32_KERNELS}
+
+    uninterrupted = train(prior, criterion, dataclasses.replace(cfg, checkpoint_dir=None, verbose=False),
+                          init_params=init)
+    resume_bitwise = all(torch.equal(a, b) for a, b in zip(uninterrupted.model.state_dict().values(),
+                                                           result.model.state_dict().values()))
+    step, state, update_ms, median_ms = timed_updates(prior, criterion, cfg, result.model, device,
+                                                      size["timed_updates"])
+    kernels, wall_ms, busy_ms = profiled_kernels(lambda: float(step(state)["loss"]), cpu=True)
+    profiled = _kernel_launches(kernels)
+    kernels.sort(key=lambda kn: -kn[1])
+    update_profile = {"wall_ms": wall_ms, "device_ms": busy_ms if kernels else "not measured",
+                      "idle_share": 1.0 - busy_ms / wall_ms if kernels else "not measured",
+                      "kernels": kernels[:10], "flash_f32_launches": profiled}
+
+    # 3. One update through the kernels against the dense f32 path.
+    one, rel, one_paths, reach = one_update_vs_dense(prior, criterion, cfg, init, device)
+
+    # 4. The eval's probabilities, kernel path against dense, and its time.
+    dense = build_model(prior, criterion, dataclasses.replace(cfg, attention_impl="dense"))
+    dense.load_state_dict(result.model.state_dict())
+    dense.eval()
+    probs, _ = comparison.transformer_probs(X, y, result.model, n_train)
+    probs_dense, _ = comparison.transformer_probs(X, y, dense, n_train)
+    err_probs = max_abs(probs, probs_dense)
+    tol_probs = F32_TOL * (1 + float(probs_dense.abs().max()))
+    eval_ms = cuda_ms(lambda: comparison.transformer_probs(X, y, result.model, n_train), iters=10)
+
+    # 5. The fits, batched over the datasets on the card.
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    svi_nll, svi_acc = comparison.eval_svi(X, y, spec, n_train, size["svi_steps"], size["svi_steps"])
+    torch.cuda.synchronize(device)
+    svi_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    mcmc_nll, mcmc_acc, accept = comparison._mcmc_scores(X, y, spec, n_train, size["mcmc_steps"],
+                                                          size["mcmc_steps"])
+    torch.cuda.synchronize(device)
+    mcmc_s = time.perf_counter() - t1
+    idle = {"svi_8_steps": device_profile(lambda: comparison.eval_svi(X, y, spec, n_train, 8, 8)),
+            "hmc_2_trajectories": device_profile(lambda: comparison._mcmc_scores(X, y, spec, n_train, 1, 1))}
+
+    methods = {
+        "transformer": {"acc": float(np.mean(pfn_acc)), "nll": float(np.mean(pfn_nll)), "seconds": pfn_s,
+                        "eval_ms": eval_ms},
+        "svi": {"acc": float(np.mean(svi_acc)), "nll": float(np.mean(svi_nll)), "seconds": svi_s,
+                "steps": size["svi_steps"]},
+        "mcmc": {"acc": float(np.mean(mcmc_acc)), "nll": float(np.mean(mcmc_nll)), "seconds": mcmc_s,
+                 "steps": size["mcmc_steps"], "accept_rate": float(np.mean(accept))},
+    }
+    updates = 2 * size["updates"]
+    checks = {
+        "resumed": "resumed from" in log.getvalue(),
+        "epochs": [st["epoch"] for st in stats] == [1, 2],
+        "losses_finite": all(np.isfinite(st["mean_loss"]) and np.isfinite(st["grad_norm"]) for st in stats),
+        "resume_bitwise_equal": resume_bitwise,
+        # T 300 >= 256: every f32 body once per layer per update, the forward
+        # once per layer in the eval.
+        "train_launches": all(n == cfg.nlayers * updates for n in train_launches.values()),
+        "eval_launches": eval_launches == {"pfn_flash_fwd": cfg.nlayers, "pfn_flash_bwd_dq": 0,
+                                           "pfn_flash_bwd_dkv": 0},
+        "profile_f32_bodies": not kernels or all(n == cfg.nlayers for n in profiled.values()),
+        "kernel_vs_dense_f32_update": all(r <= F32_PATH_TOL for r in rel.values()),
+        "one_update_paths": one_paths,
+        "update_check_sees_the_probe": reach["grads"] > F32_PATH_TOL,
+        "eval_probs_kernel_vs_dense": err_probs <= tol_probs,
+        "pfn_finite": bool(np.isfinite(pfn_acc).all() and np.isfinite(pfn_nll).all()),
+        "fits_finite": bool(np.isfinite(np.concatenate([svi_nll, svi_acc, mcmc_nll, mcmc_acc, accept])).all()),
+        "svi_above_chance": methods["svi"]["acc"] > 0.5,
+        "mcmc_above_chance": methods["mcmc"]["acc"] > 0.5,
+    }
+    emit({
+        "phase": "comparison", "card": smi, "size": size, "dtype": "f32",
+        "config": {k: getattr(cfg, k) for k in ("emsize", "nhid", "nlayers", "nhead", "bptt", "batch_size", "lr")},
+        "epoch_stats": stats, "train_calls_s": train_s, "launches": launches, "train_launches": train_launches,
+        "eval_launches": eval_launches, "peak_memory_gb": peak_gb,
+        "update_ms": {"first": update_ms[0], f"median_of_{size['timed_updates']}": median_ms},
+        "datasets_per_s": cfg.batch_size / (median_ms / 1e3), "update_profile": update_profile,
+        "one_update": one, "one_update_rel_diff": rel, "tol": F32_PATH_TOL, "probe": F32_PATH_PROBE,
+        "probe_rel_change": reach, "eval_probs_max_abs": err_probs, "eval_probs_tol": tol_probs,
+        "methods": methods, "loop_profiles": idle, "checks": checks,
+    })
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"comparison checks failed: {failed}")
+    return launches
+
+
+def phase_tabular_baselines(device, smi: str, size: dict = TABULAR_BASELINES):
+    """The tabular baselines on the card's machine, which has no sklearn:
+    bayes_net_metric (the BNN fitted by SVI, on the card) through
+    evaluate(...) over one synthetic dataset (TABULAR_BASELINES, numpy from a
+    seed): seconds per window and the AUC. The sklearn baselines raise an
+    ImportError naming sklearn when called, and the module imported without
+    it (where sklearn is present, they score the window instead)."""
+    import functools
+    import importlib.util
+
+    import numpy as np
+
+    from pfn_tpu_torch.evals import tabular
+
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((size["rows"], size["features"])).astype(np.float32)
+    y = (X @ rng.standard_normal(size["features"]) + 0.5 * rng.standard_normal(size["rows"]) > 0).astype(np.float32)
+    t0 = time.perf_counter()
+    res = tabular.evaluate([("synthetic", X, y, [])], functools.partial(tabular.bayes_net_metric, device=device),
+                           "bayes_net", size["bptt"], [size["eval_position"]], max_samples=size["windows"])
+    seconds = time.perf_counter() - t0
+    windows = res[f"synthetic_num_windows_at_{size['eval_position']}"]
+
+    wx, wy = tabular.build_windows(X, y, size["bptt"], 1)
+    args = (wx[0, :size["eval_position"]], wy[0, :size["eval_position"]], wx[0, size["eval_position"]:],
+            wy[0, size["eval_position"]:], [])
+    sklearn_present = importlib.util.find_spec("sklearn") is not None
+    others = {}
+    for name in ("logistic", "knn", "gp", "hgb", "xgb", "catboost"):
+        try:
+            others[name] = {"auc": float(tabular.BASELINES[name](*args)[0])}
+        except ImportError as e:
+            others[name] = {"import_error": str(e)}
+    checks = {
+        "windows_scored": windows == size["windows"],
+        "auc_finite": bool(np.isfinite(res["mean_metric"])),
+        "sklearn_baselines": all(("auc" in others[n]) if sklearn_present
+                                 else ("sklearn" in others[n].get("import_error", ""))
+                                 for n in ("logistic", "knn", "gp", "hgb")),
+    }
+    emit({"phase": "tabular_baselines", "card": smi, "size": size, "seconds": seconds,
+          "seconds_per_window": res["synthetic_time"] / max(windows, 1), "auc": res["mean_metric"],
+          "per_window_auc": res[f"synthetic_per_ds_metric_at_{size['eval_position']}"].tolist(),
+          "sklearn_present": sklearn_present, "other_baselines": others, "checks": checks})
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"tabular_baselines checks failed: {failed}")
+    return res
 
 
 def phase_dispatch(device, smi: str):
@@ -2809,11 +3110,18 @@ def main() -> int:
     front_launches = phase_front_door(device, smi)
     for name, kind in zip(FLASH_F32_KERNELS, ("fwd", "dq", "dkv")):
         f32_long[kind]["launches"] = f32_launches[name] + front_launches[name]
+    # The Bayesian comparison's path runs the f32 bodies at D 64, T 300: its
+    # launches are the f32_comparison rows'.
+    comparison_launches = phase_comparison(device, smi)
+    comparison_timing = f32_kernel_timing(device, smi, "f32_comparison_timing", COMPARISON_KERNEL_SHAPE)
+    for name, kind in zip(FLASH_F32_KERNELS, ("fwd", "dq", "dkv")):
+        comparison_timing[kind]["launches"] = comparison_launches[name]
+    phase_tabular_baselines(device, smi)
     fig3a_launches = phase_fig3a(device, smi)
     # The flash kernels' launches on the main paths: the train phase's, the
-    # fig3a phase's and the front door's run (a) (the tabular path runs dense
-    # at T = 100).
-    flash_launches = {name: launches[name] + fig3a_launches[name] + front_launches[name]
+    # fig3a phase's, the front door's run (a) and the comparison's (the
+    # tabular path runs dense at T = 100).
+    flash_launches = {name: launches[name] + fig3a_launches[name] + front_launches[name] + comparison_launches[name]
                       for name in FLASH_F32_KERNELS}
     fwd = next(r for r in timing if r["sep"] == 1000)
     bwd = next(r for r in bwd_timing if r["sep"] == 1000)
@@ -2835,18 +3143,20 @@ def main() -> int:
          "replaces": "pfn_tpu/ops/flash_attention.py:255", "launches": flash_launches["pfn_flash_fwd"],
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"],
          **flash_bound("fwd", 32, 2010, 128, 1000), "library_ms": library["sdpa_fwd_ms"],
-         "f32_tabular": tabular_timing["fwd"], "f32_long": f32_long["fwd"], "f32_long_prefix": f32_long["fwd_prefix"]},
+         "f32_tabular": tabular_timing["fwd"], "f32_long": f32_long["fwd"], "f32_long_prefix": f32_long["fwd_prefix"],
+         "f32_comparison": comparison_timing["fwd"]},
         {"name": "pfn_flash_bwd_dq", "route": "cuda", "design": SM90_DESIGN, "source": bwd_source,
          "replaces": "pfn_tpu/ops/flash_attention.py:315", "launches": flash_launches["pfn_flash_bwd_dq"],
          "max_abs_err": bwd["max_abs_err"]["dq"], "ms": bwd["dq_ms"], "plain_ms": bwd["plain_ms"],
          **flash_bound("dq", 16, 2010, 128, 1000), "library_ms": library["sdpa_bwd_ms"],
-         "f32_tabular": tabular_timing["dq"], "f32_long": f32_long["dq"], "f32_long_prefix": f32_long["dq_prefix"]},
+         "f32_tabular": tabular_timing["dq"], "f32_long": f32_long["dq"], "f32_long_prefix": f32_long["dq_prefix"],
+         "f32_comparison": comparison_timing["dq"]},
         {"name": "pfn_flash_bwd_dkv", "route": "cuda", "design": SM90_DESIGN, "source": bwd_source,
          "replaces": "pfn_tpu/ops/flash_attention.py:340", "launches": flash_launches["pfn_flash_bwd_dkv"],
          "max_abs_err": max(bwd["max_abs_err"]["dk"], bwd["max_abs_err"]["dv"]), "ms": bwd["dkv_ms"],
          "plain_ms": bwd["plain_ms"], **flash_bound("dkv", 16, 2010, 128, 1000),
          "library_ms": library["sdpa_bwd_ms"], "f32_tabular": tabular_timing["dkv"], "f32_long": f32_long["dkv"],
-         "f32_long_prefix": f32_long["dkv_prefix"]},
+         "f32_long_prefix": f32_long["dkv_prefix"], "f32_comparison": comparison_timing["dkv"]},
         {"name": "pfn_fused_layer_fwd", "route": "cuda", "design": SM90_DESIGN,
          "source": "pfn_tpu_torch/ops/csrc/pfn_fused_layer_fwd.cu",
          "replaces": "pfn_tpu/ops/fused_layer.py:324", "launches": fused_launches,

@@ -1,6 +1,8 @@
 """Evaluation harness and validator, exact-posterior oracles (GP and linear
-regression) and the tabular PFN evaluation."""
+regression), the tabular evaluation with its baselines, the approximate
+inference oracles (SVI, HMC, SVGD) and the Bayesian-comparison harness."""
 
+from pfn_tpu_torch.evals import comparison, inference, tabular
 from pfn_tpu_torch.evals.harness import (
     draw_validation_batch,
     eval_positional_logits_per_dataset,
@@ -21,6 +23,7 @@ from pfn_tpu_torch.evals.tabular import build_windows, evaluate_position_pfn, ro
 __all__ = [
     "bayes_linreg_posterior",
     "build_windows",
+    "comparison",
     "draw_validation_batch",
     "eval_positional_logits_per_dataset",
     "eval_positional_loss",
@@ -28,9 +31,11 @@ __all__ = [
     "evaluate_position_pfn",
     "gp_exact_evaluate",
     "gp_exact_posterior_moments",
+    "inference",
     "make_mean_mse_validator",
     "mean_mse",
     "pfn_predict",
     "ridge_evaluate",
     "roc_auc",
+    "tabular",
 ]

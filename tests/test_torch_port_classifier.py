@@ -138,8 +138,10 @@ def test_evaluate_pfn_matches_jax_and_caches(tmp_path):
         assert res[f"mean_metric_at_{p}"] == pytest.approx(want)
     assert len(list(tmp_path.iterdir())) == 2
     assert tabular.evaluate(datasets, model, "pfn", 20, [8, 12], **kw)["mean_metric"] == res["mean_metric"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tabular.evaluate(datasets, model, "logistic", 20, [8])
+    # The PFN branch follows the argument's type (a torch module), not the
+    # method's name, which only names the cache files.
+    again = tabular.evaluate(datasets, model, "another_name", 20, [8, 12], max_samples=10, num_features=NFEAT)
+    assert again["mean_metric"] == res["mean_metric"]
 
 
 @pytest.mark.parametrize("seed", range(6))

@@ -3,7 +3,8 @@
   * Every pfn_tpu_torch module imports with jax blocked, and importing
     builds, loads or launches nothing.
   * No source of the port, and not chip_smoke.py, imports jax or pfn_tpu;
-    the Fig-3a experiments run with both blocked.
+    the experiments run with both blocked, and the evaluation modules import
+    without sklearn, pandas, matplotlib and scipy (the card's machine).
   * The kernel wrappers refuse CPU tensors (they never fall back).
   * A library's build hash covers every header under csrc/, so an edited
     header rebuilds the libraries that include it.
@@ -54,7 +55,12 @@ def test_every_module_imports_with_jax_blocked():
     assert int(proc.stdout.strip()) >= 20
 
 
-_EXPERIMENTS = ("gp_fitting", "fig3a_longrun", "fig3a_analytic_gap", "fig3a_robust_eval", "grid_fidelity")
+_EXPERIMENTS = ("gp_fitting", "fig3a_longrun", "fig3a_analytic_gap", "fig3a_robust_eval", "grid_fidelity",
+                "bayesian_models_custom_priors", "tabular_eval", "tabular_hgb_baseline")
+# The device flag each takes: the Fig-3a ones --device, the evaluation
+# drivers the JAX drivers' --cpu; the hgb baseline, host only as its JAX
+# script, neither.
+_DEVICE_FLAG = {"bayesian_models_custom_priors": "--cpu", "tabular_eval": "--cpu", "tabular_hgb_baseline": None}
 
 _RUN_EXPERIMENT_HELP = """
 import runpy, sys
@@ -75,15 +81,41 @@ assert "pfn_tpu_torch.evals.oracles" in sys.modules
 
 @pytest.mark.parametrize("name", _EXPERIMENTS)
 def test_experiments_run_with_jax_and_pfn_tpu_blocked(name):
-    """Each Fig-3a experiment, as ``python -m pfn_tpu_torch.experiments.<name>``,
-    loads with jax and the JAX package blocked (its evals and experiments
-    modules import neither), and its sources are among the files
-    test_no_jax_import reads."""
+    """Each experiment (the Fig-3a ones and the evaluation drivers), as
+    ``python -m pfn_tpu_torch.experiments.<name>``, loads with jax and the
+    JAX package blocked (its evals and experiments modules import neither),
+    and its sources are among the files test_no_jax_import reads."""
     assert PACKAGE / "experiments" / f"{name}.py" in set(PACKAGE.rglob("*.py"))
     proc = subprocess.run([sys.executable, "-c", _RUN_EXPERIMENT_HELP, name], cwd=ROOT, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert "--device" in proc.stdout
+    flag = _DEVICE_FLAG.get(name, "--device")
+    assert all((f == flag) == (f in proc.stdout) for f in ("--cpu", "--device"))
+
+
+_IMPORT_WITHOUT_HOST_PACKAGES = """
+import sys
+for name in ("jax", "pfn_tpu", "sklearn", "pandas", "matplotlib", "scipy", "seaborn", "openml", "xgboost",
+             "catboost"):
+    sys.modules[name] = None
+import pfn_tpu_torch.data, pfn_tpu_torch.evals.tabular, pfn_tpu_torch.evals.comparison, pfn_tpu_torch.presentation
+from pfn_tpu_torch.evals import tabular
+try:
+    tabular.logistic_metric(None, None, None, None, [])
+except ImportError as e:
+    print("ImportError:", e)
+"""
+
+
+def test_eval_modules_import_without_sklearn_pandas_matplotlib_scipy():
+    """As on the card's machine: the data loaders, the tabular evaluation,
+    the comparison harness and the heatmaps import with sklearn, pandas,
+    matplotlib, scipy and seaborn hidden, and a baseline that needs sklearn
+    raises ImportError only when it is called."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_WITHOUT_HOST_PACKAGES], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "ImportError:" in proc.stdout and "sklearn" in proc.stdout
 
 
 def _imported_roots(path: Path) -> set:
