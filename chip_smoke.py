@@ -193,7 +193,48 @@ Phases, each printing one JSON line:
      4 windows at position 30: seconds per window and the AUC; the sklearn
      baselines raise an ImportError naming sklearn (the card's machine has
      none) without breaking the module's import.
- 22. dkv_against_library: the dk/dv kernel at sep 1000, both variants,
+ 22. fewshot: pfn_tpu_torch.experiments.fewshot_omniglot's full config
+     (FEWSHOT: emsize 1024, nhid 2048, 6 layers, 8 heads, bptt 26, batch
+     64, 5-way 5-shot, 28 x 28 images): stroke pretraining through train(...)
+     cut to 2 epochs of 2 updates, the weights saved and loaded back bitwise,
+     the synthetic class bank (40 x 20, 30 classes for training) and its
+     episodes on the card, zero-shot accuracy on 4 x 32 test episodes, 2
+     finetune updates warm-started from the saved weights, their accuracy
+     (reported, not gated); dense attention (T 26), no flash launch; update
+     times, datasets/s, peak memory, a profile of one update, the episode
+     prior's device ms per batch.
+ 23. bayesopt: pfn_tpu_torch.experiments.bayesopt_eval's full config
+     (BAYESOPT), training cut to 2 epochs of 2 steps, the BO loop uncut (32
+     functions x 25 iterations x EI and UCB over 128 candidates, random
+     search): the regret table, ms per BO iteration, one iteration by events
+     and its idle share; then one scoring request at 2048 candidates (T
+     2076) on the auto path: the flash forward's f32 body at head dim 32,
+     launched once per layer, its scores against the dense f32 path within
+     2e-5 x (1 + max); the body alone at B*H 4, T 2076, D 32, sep 28 against
+     its plain version, a repeat call bitwise equal, its ms, bound and SDPA
+     f32's ms (the kernels line's f32_bayesopt row).
+ 24. gp_mix_oracles: GPMixPrior(num_features=1), 16 datasets at T 100
+     (GP_MIX_ORACLES): gp_map_evaluate at every position 1-99 (150 Adam
+     steps, 1 584 fits in one batch) and gp_hyper_mcmc_predictive (64 draws
+     after 128, context 50, 50 queries, the 16 datasets batched): seconds,
+     idle shares, HMC's acceptance; every MAP fit finite and their mean NLL
+     falling from the first ten positions to the last ten, and the mixture
+     predictive beating fixed bad hyperparameters.
+ 25. compat: pfn_tpu_torch.compat's docstring workflow through compat.train
+     at its widths (bptt 2010, batch 4, 25 microbatches, f32; COMPAT), cut to
+     2 updates: each flash f32 body launched 6 x 25 x 2 times; one update on
+     the kernel path against the dense f32 path (one_update_vs_dense, its
+     probe).
+ 26. native_cache: the C++ batch cache built with g++, 50 stroke-prior
+     batches at the few-shot shape written, and read back through
+     training_iter(prefetch=2) with each batch dropped once read (GB/s), 2 few-shot
+     updates on the card from CachedPrior.training_iter(prefetch=2) equal
+     bitwise to the same batches fed from memory (NATIVE_CACHE).
+ 27. debug_checks: one update at the Fig-3a width of a prior whose targets
+     leave the bar support: a finite loss without the checks,
+     FloatingPointError under pfn_debug_checks(), and with the flag off no
+     host sync, where an update under the checks makes some.
+ 28. dkv_against_library: the dk/dv kernel at sep 1000, both variants,
      beside SDPA's backward less the dq kernel, from this run.
 Then the kernels line (each kernel's launches on its path, error, time,
 plain time, bound and library time, for the fused kernels also the library
@@ -201,8 +242,10 @@ call's device time, for the flash kernels also their f32 rows at T 100 and
 T 2010 (and the prefix variant's at T 2010), the f32 rows at T 2010 with
 their launches on f32_path and front_door's run (a), and the f32 rows at D
 64, T 300 (f32_comparison) with their launches on the comparison's path
-(both of which the kernels' launches on the main paths count too), for the
-fused kernels their f32 rows with their launches on fused_f32_train; its
+(both of which the kernels' launches on the main paths count too; the
+f32_long launches also the compat workflow's), the forward's f32 row at the
+BO scoring shape (f32_bayesopt: D 32, T 2076, with its launches there), for
+the fused kernels their f32 rows with their launches on fused_f32_train; its
 route, and the design of its bf16 body), the run's seconds, and last {"ok":
 true, "device": {...}}.
 
@@ -334,6 +377,38 @@ FRONT_DOOR = {
                "--batch_size", "8", "--epochs", "1", "--steps_per_epoch", "2"],
 }
 FRONT_DOOR_TIMED_UPDATES = 4
+# The few-shot path (pfn_tpu_torch/experiments/fewshot_omniglot.py FULL, the
+# notebook's config: emsize 1024, nhid 2048, 6 layers, 8 heads, bptt 26,
+# batch 64, 28 x 28 images, 5-way 5-shot; the synthetic bank of 40 classes x
+# 20 images, 30 for training). Cut: 2 epochs of 2 stroke-pretraining
+# updates, 2 finetune updates; accuracy on 4 x 32 test episodes.
+FEWSHOT = dict(epochs=2, updates=2, finetune_updates=2, timed_updates=4)
+# Bayesian optimisation (pfn_tpu_torch/experiments/bayesopt_eval.py's full
+# config: emsize 128, nhid 256, 4 layers, 4 heads, bptt 64, 256 buckets on
+# (-4, 4), the GP prior at noise 1e-2, outputscale 1, lengthscale 0.3).
+# Training cut to 2 epochs of 2 steps; the BO loop uncut: 32 functions x 25
+# iterations x (EI, UCB) over 128 candidates, 3 initial points. Then one
+# scoring request at 2048 candidates (T 2076: the flash forward, f32, head
+# dim 32).
+BAYESOPT = dict(epochs=2, steps=2, functions=32, wide_candidates=2048)
+# The GP-mix oracles: GPMixPrior(num_features=1) with the JAX defaults, 16
+# datasets at T 100; the MAP fit at every position 1-99 (150 Adam steps, lr
+# 0.05; a 10-step run profiled); HMC with 64 draws after 128 of warm-up,
+# context 50 and 50 queries.
+GP_MIX_ORACLES = dict(datasets=16, T=100, map_steps=150, map_lr=0.05, profile_steps=10, context=50,
+                      mcmc_samples=64, mcmc_warmup=128)
+# The reference-API workflow of pfn_tpu_torch/compat.py's docstring (the
+# GP-fitting notebook's hyperparameters), cut to 2 updates of 25 microbatches.
+COMPAT = dict(emsize=512, nhead=4, nhid=1024, nlayers=6, bptt=2010, batch_size=4, agg=25, max_sep=2000, updates=2,
+              buckets=1000, bucket_draws=100_000,
+              hyperparameters={"noise": 1e-4, "outputscale": 1.0, "lengthscale": 0.6,
+                               "fast_computations": (False, False, False)})
+# The batch cache: 50 stroke-prior batches at the few-shot shape (64 x 26 x
+# 784 f32), then 2 updates of the few-shot model fed from it.
+NATIVE_CACHE = dict(batches=50, updates=2)
+# The debug checks: a prior whose targets leave the support of 10 buckets on
+# (-3, 3), one update at the Fig-3a width, f32, T 100, batch 8.
+DEBUG_CHECKS = dict(buckets=10, T=100, batch_size=8)
 # Device kernels of the flash f32 bodies, as the profiler names them.
 FLASH_F32_KERNELS = {"pfn_flash_fwd": "fwd_f32", "pfn_flash_bwd_dq": "dq_f32", "pfn_flash_bwd_dkv": "dkv_f32"}
 TIMING_SEPS = [400, 1000, 2000]
@@ -3070,6 +3145,551 @@ def phase_fig3a(device, smi: str, size: dict = FIG3A_EXPERIMENTS):
     return launches
 
 
+def _timed_s(fn):
+    """(seconds on the host clock from a sync to a sync, fn())."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _update_profile(step, state) -> dict:
+    """A profile of one update: wall and device ms, idle share, the top
+    kernels."""
+    kernels, wall_ms, busy_ms = profiled_kernels(lambda: float(step(state)["loss"]), cpu=True)
+    kernels.sort(key=lambda kn: -kn[1])
+    return {"wall_ms": wall_ms, "device_ms": busy_ms if kernels else "not measured",
+            "idle_share": 1.0 - busy_ms / wall_ms if kernels else "not measured", "kernels": kernels[:8]}
+
+
+def phase_fewshot(device, smi: str, size: dict = FEWSHOT):
+    """The few-shot path of experiments/fewshot_omniglot at its full
+    configuration (FEWSHOT): stroke pretraining through train(...), the
+    weights saved and loaded back bitwise, the synthetic class bank and its
+    episodes on the card, zero-shot accuracy, a warm-started finetune on
+    the bank's train classes and its accuracy (reported, not gated); T 26:
+    dense attention, no flash launch. Update time, datasets/s, peak memory,
+    a profile of one update, the episode prior's device ms per batch."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pfn_tpu_torch.experiments import fewshot_omniglot as driver
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.priors import OmniglotPrior, StrokePrior, omniglot_accuracy
+    from pfn_tpu_torch.train import build_model, ce_criterion, restore_checkpoint, save_checkpoint, train
+
+    scratch = tempfile.TemporaryDirectory(prefix="pfn_fewshot_")
+    # No Omniglot files under the root: the synthetic bank stands in.
+    args = driver.build_parser().parse_args(["--omniglot_root", scratch.name])
+    imgsz, n_way, T = 28, args.n_way, args.n_way * args.k_shot + 1
+    cfg = dataclasses.replace(driver.pretrain_config(args, device), epochs=size["epochs"],
+                              steps_per_epoch=size["updates"], seed=0)
+    crit = ce_criterion(n_way)
+    stroke = StrokePrior(num_features=imgsz * imgsz, num_outputs=n_way, only_train_for_last_idx=True)
+    torch.cuda.reset_peak_memory_stats(device)
+    _ext.reset_launch_counts()
+    pre_s, (result, _) = _timed_s(lambda: _quietly(lambda: train(stroke, crit, cfg)))
+    pre_launches = dict(_ext.launch_counts)
+
+    # The weights saved and loaded back, bitwise.
+    ck = Path(scratch.name) / "pretrained"
+    save_checkpoint(str(ck), {"model": result.model.state_dict()})
+    loaded = restore_checkpoint(str(ck), map_location=device)["model"]
+    scratch.cleanup()
+    reloaded = build_model(stroke, crit, cfg)
+    reloaded.load_state_dict(loaded)
+    load_bitwise = all(torch.equal(a, b) for a, b in zip(result.model.state_dict().values(),
+                                                         reloaded.state_dict().values()))
+
+    train_bank, test_bank, source = driver.episode_banks(args, imgsz, device)
+    test_prior = OmniglotPrior(test_bank, num_outputs=n_way)
+    acc = dict(seq_len=T, **driver.ACCURACY)
+    acc_zero = omniglot_accuracy(reloaded, test_prior, **acc)
+    ft_prior = OmniglotPrior(train_bank, num_outputs=n_way)
+    ft_cfg = dataclasses.replace(driver.finetune_config(cfg, args), epochs=1, steps_per_epoch=size["finetune_updates"])
+    _ext.reset_launch_counts()
+    ft_s, (ft, _) = _timed_s(lambda: _quietly(lambda: train(ft_prior, crit, ft_cfg, init_params=loaded)))
+    ft_launches = dict(_ext.launch_counts)
+    acc_ft = omniglot_accuracy(ft.model, test_prior, **acc)
+
+    g = torch.Generator(device=device).manual_seed(3)
+    x, y, t = ft_prior.sample(cfg.batch_size, T, generator=g, device=device)
+    prior_ms = cuda_ms(lambda: ft_prior.sample(cfg.batch_size, T, generator=g, device=device))
+    stroke_ms = cuda_ms(lambda: stroke.sample(cfg.batch_size, T, generator=g, device=device))
+    step, state, update_ms, median_ms = timed_updates(ft_prior, crit, ft_cfg, ft.model, device,
+                                                      size["timed_updates"])
+    profile = _update_profile(step, state)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    stats = result.epoch_stats + ft.epoch_stats
+    checks = {
+        "losses_finite": all(np.isfinite(s["mean_loss"]) for s in stats),
+        "weights_load_bitwise": load_bitwise,
+        "synthetic_bank": source == "synthetic",
+        "bank_on_card": train_bank.images.is_cuda and test_bank.images.is_cuda,
+        "episodes_on_card": x.is_cuda and y.is_cuda and t.is_cuda,
+        "episode_shape": tuple(x.shape) == (cfg.batch_size, T, imgsz * imgsz),
+        "targets": bool((t[:, :-1] == -100).all()) and torch.equal(t[:, -1], y[:, -1]),
+        "dense_at_T26": not any(pre_launches.values()) and not any(ft_launches.values()),
+        "accuracies_in_range": 0.0 <= acc_zero <= 1.0 and 0.0 <= acc_ft <= 1.0,
+    }
+    emit({
+        "phase": "fewshot", "card": smi, "size": size, "source": source,
+        "config": {k: getattr(cfg, k) for k in ("emsize", "nhid", "nlayers", "nhead", "bptt", "batch_size", "lr")},
+        "bank": {"train_classes": train_bank.num_classes, "test_classes": test_bank.num_classes,
+                 "per_class": int(train_bank.images.shape[1]), "imgsz": imgsz},
+        "epoch_stats": stats, "pretrain_s": pre_s, "finetune_s": ft_s,
+        "zero_shot_acc": acc_zero, "finetuned_acc": acc_ft, "chance": 1 / n_way,
+        "update_ms": {"first": update_ms[0], f"median_of_{size['timed_updates']}": median_ms},
+        "datasets_per_s": cfg.batch_size / (median_ms / 1e3), "peak_memory_gb": peak_gb,
+        "update_profile": profile, "omniglot_prior_ms_per_batch": prior_ms, "stroke_prior_ms_per_batch": stroke_ms,
+        "checks": checks,
+    })
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"fewshot checks failed: {failed}")
+
+
+def f32_fwd_timing(device, shape: dict) -> dict:
+    """The flash forward's f32 body alone at ``shape`` (B*H, T, D, sep),
+    against its plain version (F32_TOL), a repeat call bitwise equal; its
+    ms, the plain version's, SDPA f32's with the PFN mask, and its f32
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from pfn_tpu_torch.ops.attention import pfn_mask
+    from pfn_tpu_torch.ops.flash_attention import _flash_fwd, _flash_fwd_plain
+
+    BH, T, D, sep = shape["BH"], shape["T"], shape["D"], shape["sep"]
+    g = torch.Generator(device=device).manual_seed(11)
+    q, k, v = (torch.randn(BH, T, D, generator=g, device=device) for _ in range(3))
+    q = q * D ** -0.5
+    sep_t = torch.full((1,), sep, dtype=torch.int32, device=device)
+    o, lse = _flash_fwd(q, k, v, sep_t, True)
+    o_plain, lse_plain = _flash_fwd_plain(q, k, v, sep, T, True)
+    err = max(max_abs(o, o_plain), max_abs(lse, lse_plain))
+    ok = (torch.allclose(o, o_plain, atol=F32_TOL, rtol=F32_TOL)
+          and torch.allclose(lse, lse_plain, atol=F32_TOL, rtol=F32_TOL))
+    o2, lse2 = _flash_fwd(q, k, v, sep_t, True)
+    repeat = torch.equal(o, o2) and torch.equal(lse, lse2)
+    mask = pfn_mask(T, sep, device=device)
+    q4, k4, v4 = (t.reshape(BH // 4, 4, T, D) for t in (q, k, v))
+    with torch.no_grad():
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=1.0))
+    ms = cuda_ms(lambda: _flash_fwd(q, k, v, sep_t, True))
+    plain_ms = cuda_ms(lambda: _flash_fwd_plain(q, k, v, sep_t, T, True))
+    b = flash_bound("fwd", BH, T, D, sep, dtype="f32")
+    return {"shape": shape, "max_abs_err": err, "agrees": ok, "repeat_bitwise_equal": repeat, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": sdpa_ms, **b, "pct_of_bound": 100.0 * b["bound_ms"] / ms,
+            "gflop": flash_flops("fwd", BH, T, D, sep) / 1e9}
+
+
+def phase_bayesopt(device, smi: str, size: dict = BAYESOPT):
+    """experiments/bayesopt_eval at its full configuration (BAYESOPT): the
+    surrogate trained through train(...) (cut to 2 epochs of 2 steps), then
+    the BO loop uncut: 32 GP-prior functions x 25 iterations x (EI, UCB)
+    over 128 candidates, and random search; the regret table; ms per BO
+    iteration on the host clock, one iteration's time by CUDA events and its
+    idle share. Then one scoring request at 2048 candidates (T 2076) on the
+    auto path, which runs the flash forward's f32 body at head dim 32: its
+    scores against the dense f32 path (F32_TOL x (1 + max)), launched once
+    per layer; and the body alone at that shape against its plain version
+    (f32_fwd_timing). Returns (the body's row, its launches on the path)."""
+    import numpy as np
+    import torch
+
+    from pfn_tpu_torch.bayesopt import PFNOptimizer
+    from pfn_tpu_torch.distributions import get_bucket_limits
+    from pfn_tpu_torch.experiments import bayesopt_eval as driver
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.priors import GPPrior
+    from pfn_tpu_torch.train import bar_criterion, build_model, train
+
+    args = driver.build_parser().parse_args([])
+    cfg = dataclasses.replace(driver.train_config(args, device), epochs=size["epochs"],
+                              steps_per_epoch=size["steps"], updates_per_call=1, seed=0)
+    prior = GPPrior(num_features=1, **driver.GP_HP)
+    crit = bar_criterion(get_bucket_limits(driver.NUM_BUCKETS, full_range=driver.BUCKET_RANGE))
+    train_s, (result, _) = _timed_s(lambda: _quietly(lambda: train(prior, crit, cfg)))
+    model, bar = result.model, result.criterion.bar
+    optimizers = {"ei": PFNOptimizer(model, bar, acquisition="ei"),
+                  "ucb": PFNOptimizer(model, bar, acquisition="ucb", beta=driver.UCB_BETA)}
+
+    # The BO loop, uncut.
+    M, iters, fns = args.num_candidates, args.num_iterations, size["functions"]
+    regrets = {"ei": [], "ucb": [], "random": []}
+    _ext.reset_launch_counts()
+    loop_s = 0.0
+    for f in range(fns):
+        seconds, r = _timed_s(lambda: driver.run_function(f, optimizers, M, iters, device))
+        loop_s += seconds
+        for name, row in r.items():
+            regrets[name].append(row)
+    loop_launches = dict(_ext.launch_counts)
+    summary = driver.summarize(regrets)
+    table = driver.regret_table(summary, iters)
+
+    # One iteration (score every candidate, the argmax on the host) by
+    # events, and its idle share.
+    xs, ys, _ = driver.objective_table(0, M, device)
+    N = driver.NUM_INIT + iters
+    x_obs, y_obs = xs[:N].clone(), ys[:N].clone()
+
+    def iteration():
+        return int(torch.argmax(optimizers["ei"].scores(x_obs, y_obs, xs, num_obs=N - 1)))
+
+    iter_ms = [timed_request(iteration)[0] for _ in range(10)]
+    iter_profile = device_profile(iteration)
+
+    # Scoring 2048 candidates: T = 28 + 2048 >= 256, the flash forward.
+    wide = torch.linspace(0.0, 1.0, size["wide_candidates"], device=device)[:, None]
+    dense = build_model(prior, crit, dataclasses.replace(cfg, attention_impl="dense"))
+    dense.load_state_dict(model.state_dict())
+    dense.eval()
+    scores, dense_scores, launches = {}, {}, {}
+    for name, opt in optimizers.items():
+        _ext.reset_launch_counts()
+        scores[name] = opt.scores(x_obs, y_obs, wide, num_obs=N)
+        launches[name] = dict(_ext.launch_counts)
+        dense_scores[name] = PFNOptimizer(dense, bar, opt.acquisition, opt.maximize, opt.beta).scores(
+            x_obs, y_obs, wide, num_obs=N)
+    errs = {name: max_abs(scores[name], dense_scores[name]) for name in scores}
+    tols = {name: F32_TOL * (1 + float(dense_scores[name].abs().max())) for name in scores}
+    wide_ms = cuda_ms(lambda: optimizers["ei"].scores(x_obs, y_obs, wide, num_obs=N), iters=10)
+    body = f32_fwd_timing(device, {"BH": cfg.nhead, "T": N + size["wide_candidates"], "D": cfg.emsize // cfg.nhead,
+                                   "sep": N})
+    wide_launches = sum(launches[name]["pfn_flash_fwd"] for name in launches)
+    checks = {
+        "losses_finite": all(np.isfinite(s["mean_loss"]) for s in result.epoch_stats),
+        "regrets_finite": all(np.isfinite(np.stack(r)).all() for r in regrets.values()),
+        "loop_dense_at_T156": not any(loop_launches.values()),
+        "wide_auto_is_flash": all(launches[n] == {**dict.fromkeys(launches[n], 0), "pfn_flash_fwd": cfg.nlayers}
+                                  for n in launches),
+        "wide_scores_vs_dense": all(errs[n] <= tols[n] for n in errs),
+        "fwd_f32_vs_plain": body["agrees"],
+        "fwd_f32_repeat_bitwise": body["repeat_bitwise_equal"],
+    }
+    emit({
+        "phase": "bayesopt", "card": smi, "size": size,
+        "config": {k: getattr(cfg, k) for k in ("emsize", "nhid", "nlayers", "nhead", "bptt", "batch_size", "lr")},
+        "train_s": train_s, "epoch_stats": result.epoch_stats,
+        "bo": {"functions": fns, "iterations": iters, "candidates": M, "acquisitions": list(optimizers),
+               "loop_s": loop_s, "ms_per_iteration": 1e3 * loop_s / (fns * len(optimizers) * iters),
+               "iteration_event_ms": {"first": iter_ms[0], "median_of_9": float(np.median(iter_ms[1:]))},
+               "iteration_profile": iter_profile},
+        "summary": summary, "regret_table": table.splitlines(),
+        "wide": {"candidates": size["wide_candidates"], "T": N + size["wide_candidates"], "launches": launches,
+                 "max_abs_vs_dense": errs, "tol": tols, "ms": wide_ms},
+        "fwd_f32_bayesopt": body, "checks": checks,
+    })
+    print(table, flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"bayesopt checks failed: {failed}")
+    return body, wide_launches
+
+
+def phase_gp_mix_oracles(device, smi: str, size: dict = GP_MIX_ORACLES):
+    """The GP-mix oracles on the card (GP_MIX_ORACLES): GPMixPrior(num_features
+    =1) with the JAX defaults, 16 datasets at T 100; gp_map_evaluate over
+    every position 1-99 (150 Adam steps, lr 0.05: 1 584 fits in one batch)
+    and gp_hyper_mcmc_predictive (64 draws after 128 of warm-up, context 50
+    and 50 queries, the 16 datasets batched), each timed on the host clock
+    up to a sync with the idle share of a short run; HMC's acceptance. Every
+    MAP fit is finite (the oracles' f64 marginal likelihood), and their mean
+    NLL falls from the first ten positions to the last ten; the mixture
+    predictive's NLL is at or below that of fixed bad hyperparameters (JAX's
+    test_hyper_mcmc_predictive_beats_bad_hypers)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from pfn_tpu_torch.evals import gp_mix_oracles as oracles
+    from pfn_tpu_torch.ops.gp_sample import gp_posterior
+    from pfn_tpu_torch.priors import GPMixPrior
+
+    prior = GPMixPrior(num_features=1)
+    B, T, ctx = size["datasets"], size["T"], size["context"]
+    draws = prior.draw(B, T, generator=torch.Generator(device=device).manual_seed(0), device=device)
+    x, y = prior.from_draws(draws)
+    true_hp = [h.reshape(B, -1)[:, 0].tolist() for h in prior.hypers(draws, B)]
+    map_s, (all_losses, _) = _timed_s(lambda: oracles.gp_map_evaluate(x, y, prior, steps=size["map_steps"],
+                                                                                 lr=size["map_lr"]))
+    map_profile = device_profile(lambda: oracles.gp_map_evaluate(x, y, prior, steps=size["profile_steps"]))
+    mask = torch.arange(T, device=device) < ctx
+    g = torch.Generator(device=device).manual_seed(1)
+    mcmc_s, (nll, accept) = _timed_s(lambda: oracles.gp_hyper_mcmc_predictive(
+        x[:, :ctx], y[:, :ctx], x[:, ctx:], y[:, ctx:], prior, g, num_samples=size["mcmc_samples"],
+        num_warmup=size["mcmc_warmup"]))
+    mcmc_profile = device_profile(lambda: oracles.gp_hyper_mcmc_predictive(
+        x[:, :ctx], y[:, :ctx], x[:, ctx:], y[:, ctx:], prior, g, num_samples=1, num_warmup=1))
+    mean, var = gp_posterior(x, y, x, lengthscale=5.0, outputscale=0.01, noise=1.0, kernel=oracles.matern52_kernel,
+                             context_mask=mask)
+    bad = 0.5 * (math.log(2 * math.pi) + torch.log(var) + (y - mean) ** 2 / var)[:, ctx:]
+    losses = all_losses.cpu().numpy()
+    finite = np.isfinite(losses)
+    curve = losses.mean(axis=1)
+    checks = {
+        "map_shape": tuple(all_losses.shape) == (T - 1, B),
+        "map_all_finite": bool(finite.all()),
+        "map_nll_falls": float(curve[:10].mean()) > float(curve[-10:].mean()),
+        "mcmc_finite": bool(torch.isfinite(nll).all()),
+        "mcmc_accepts": bool(((accept > 0.05) & (accept <= 1.0)).all()),
+        "mcmc_beats_bad_hypers": float(nll.mean()) <= float(bad.mean()),
+    }
+    emit({
+        "phase": "gp_mix_oracles", "card": smi, "size": size,
+        "map": {"fits": (T - 1) * B, "nonfinite_fits": int((~finite).sum()), "seconds": map_s,
+                "nll_first_10": float(curve[:10].mean()), "nll_last_10": float(curve[-10:].mean()),
+                "nll_mean": float(curve.mean()), "nll_median_first_10": float(np.median(losses[:10])),
+                "nll_median_last_10": float(np.median(losses[-10:])),
+                f"profile_{size['profile_steps']}_steps": map_profile},
+        "datasets_hypers": dict(zip(("noise", "lengthscale", "outputscale"), true_hp)),
+        "mcmc": {"seconds": mcmc_s, "nll": float(nll.mean()), "bad_hypers_nll": float(bad.mean()),
+                 "nll_per_dataset": nll.mean(1).tolist(), "bad_hypers_nll_per_dataset": bad.mean(1).tolist(),
+                 "accept_per_dataset": accept.tolist(),
+                 "accept_mean": float(accept.mean()), "accept_min": float(accept.min()),
+                 "profile_2_trajectories": mcmc_profile},
+        "checks": checks,
+    })
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"gp_mix_oracles checks failed: {failed}")
+
+
+def phase_compat(device, smi: str, size: dict = COMPAT):
+    """The reference-API shim's workflow (pfn_tpu_torch/compat.py's
+    docstring) through compat.train on the card at its widths (emsize 512,
+    4 heads, nhid 1024, 6 layers, bptt 2010, batch 4, 25 microbatches, the
+    weighted sampler up to 2000, 1000 buckets from 100 000 get_batch draws,
+    f32; COMPAT), cut to 2 updates: the flash f32 bodies launched 6 layers x
+    25 microbatches x 2 updates times each; one update from seeded weights on
+    the kernel path against the dense f32 path (one_update_vs_dense,
+    F32_PATH_TOL, its reach at F32_PATH_PROBE). Returns the launches."""
+    import numpy as np
+    import torch
+
+    from pfn_tpu_torch import compat as ref
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.train import seeded_flax_params, state_dict_from_flax_params
+
+    hps = size["hyperparameters"]
+    ys_s, ys = _timed_s(lambda: ref.priors.fast_gp.get_batch(size["bucket_draws"], 20, 1, hyperparameters=hps,
+                                                                     device=device)[1])
+    criterion = ref.bar_distribution.FullSupportBarDistribution(
+        ref.bar_distribution.get_bucket_limits(size["buckets"], ys=ys))
+    torch.cuda.reset_peak_memory_stats(device)
+    _ext.reset_launch_counts()
+    train_s, (total_loss, pos_losses, result) = _timed_s(lambda: ref.train(
+        ref.priors.fast_gp.DataLoader, criterion, ref.encoders.Linear,
+        emsize=size["emsize"], nhead=size["nhead"], nhid=size["nhid"], nlayers=size["nlayers"],
+        y_encoder_generator=ref.encoders.Linear,
+        pos_encoder_generator=ref.positional_encodings.NoPositionalEncoding,
+        extra_prior_kwargs_dict={"num_features": 1, "fuse_x_y": False, "hyperparameters": hps},
+        single_eval_pos_gen=ref.utils.get_weighted_single_eval_pos_sampler(size["max_sep"]),
+        bptt=size["bptt"], batch_size=size["batch_size"], aggregate_k_gradients=size["agg"], epochs=1,
+        steps_per_epoch=size["agg"] * size["updates"], lr=1e-4, scheduler=ref.utils.get_cosine_schedule_with_warmup,
+        gpu_device=device, verbose=False))
+    launches = {name: _ext.launch_counts[name] for name in FLASH_F32_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    cfg = result.config
+    prior = ref.priors.fast_gp.DataLoader.make(num_features=1, hyperparameters=hps)
+    init = state_dict_from_flax_params(seeded_flax_params(1, cfg.emsize, cfg.nhid, cfg.nlayers, size["buckets"],
+                                                          seed=0), cfg.nlayers)
+    one, rel, one_paths, reach = one_update_vs_dense(prior, result.criterion, cfg, init, device)
+    expected = cfg.nlayers * cfg.aggregate_k_gradients * size["updates"]
+    checks = {
+        "f32": cfg.dtype == torch.float32,
+        "loss_finite": bool(np.isfinite(total_loss)),
+        "launches": all(n == expected for n in launches.values()),
+        "kernel_vs_dense_f32_update": all(r <= F32_PATH_TOL for r in rel.values()),
+        "one_update_paths": one_paths,
+        "update_check_sees_the_probe": reach["grads"] > F32_PATH_TOL,
+    }
+    emit({
+        "phase": "compat", "card": smi, "size": {k: v for k, v in size.items() if k != "hyperparameters"},
+        "hyperparameters": {k: v for k, v in hps.items() if k != "fast_computations"},
+        "get_batch_s": ys_s, "train_s": train_s, "total_loss": total_loss,
+        "step_ms": 1e3 * result.epoch_stats[0]["step_time"], "peak_memory_gb": peak_gb,
+        "launches": launches, "expected_launches": expected, "one_update": one, "one_update_rel_diff": rel,
+        "tol": F32_PATH_TOL, "probe": F32_PATH_PROBE, "probe_rel_change": reach, "checks": checks,
+    })
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"compat checks failed: {failed}")
+    return launches
+
+
+def phase_native_cache(device, smi: str, size: dict = NATIVE_CACHE):
+    """The C++ mmap batch cache on the card's machine (NATIVE_CACHE): the
+    library built with g++, 50 stroke-prior batches at the few-shot shape
+    (64 x 26 x 784 f32, ~260 MB) written under a temporary directory (write
+    GB/s) and read back through CachedPrior.training_iter(prefetch=2) into
+    pinned host tensors, each batch dropped once read, as the train loop
+    drops it (read GB/s); then 2 updates of the few-shot model on the card
+    from that stream, equal bitwise in loss and parameters to the same
+    batches fed from memory."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pfn_tpu_torch.experiments import fewshot_omniglot as fewshot
+    from pfn_tpu_torch.native import cache
+    from pfn_tpu_torch.priors import StrokePrior
+    from pfn_tpu_torch.train import build_model, ce_criterion, train
+
+    build_s, available = _timed_s(cache.native_available)
+    n_way, T, imgsz = 5, 26, 28
+    prior = StrokePrior(num_features=imgsz * imgsz, num_outputs=n_way, only_train_for_last_idx=True)
+    B, n = fewshot.FULL["batch_size"], size["batches"]
+    tmp = Path(tempfile.mkdtemp(prefix="pfn_cache_"))
+    try:
+        path = str(tmp / "stroke")
+        write_s, written = _timed_s(lambda: cache.write_prior_cache(path, prior, n, B, T,
+                                                                    torch.Generator(device=device).manual_seed(0)))
+        nbytes = Path(path).stat().st_size
+        cached = cache.CachedPrior(path, num_outputs=n_way)
+        stream = cached.training_iter(seed=1, prefetch=2)
+        pinned = True
+        t0 = time.perf_counter()
+        for _ in range(n):
+            pinned &= all(a.is_pinned() for a in next(stream))
+        read_s = time.perf_counter() - t0
+        stream.close()
+
+        args = fewshot.build_parser().parse_args([])
+        cfg = dataclasses.replace(fewshot.pretrain_config(args, device), epochs=1, steps_per_epoch=size["updates"],
+                                  warmup_epochs=0, seed=0, verbose=False)
+        crit = ce_criterion(n_way)
+        fed_stream = cached.training_iter(seed=2, prefetch=2)
+        fed = train(cached, crit, cfg, data_iter=fed_stream)
+        fed_stream.close()
+        rng = np.random.RandomState(2)
+        picks = [rng.randint(len(cached.reader)) for _ in range(size["updates"])]
+        memory = iter([tuple(torch.from_numpy(cached.reader.record(i, copy=True)[k]).to(device)
+                             for k in ("x", "y", "target_y")) for i in picks])
+        ref = train(cached, crit, cfg, data_iter=memory)
+        cached.reader.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bitwise = ([s["mean_loss"] for s in fed.epoch_stats] == [s["mean_loss"] for s in ref.epoch_stats]
+               and all(torch.equal(a, b) for a, b in zip(fed.model.state_dict().values(),
+                                                         ref.model.state_dict().values())))
+    init = build_model(cached, crit, cfg).state_dict()
+    moved = not all(torch.equal(a, init[k]) for k, a in fed.model.state_dict().items())
+    checks = {"library": available, "records": written == n, "pinned": pinned,
+              "loss_finite": bool(np.isfinite(fed.final_loss)), "cache_fed_equals_memory_fed_bitwise": bitwise,
+              "updates_moved_the_weights": moved}
+    emit({
+        "phase": "native_cache", "card": smi, "size": size, "record_shape": {"x": [B, T, imgsz * imgsz]},
+        "build_s": build_s, "bytes": nbytes, "write_s": write_s, "write_gb_per_s": nbytes / write_s / 1e9,
+        "read_s": read_s, "read_gb_per_s": nbytes / read_s / 1e9, "final_loss": fed.final_loss, "checks": checks,
+    })
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"native_cache checks failed: {failed}")
+
+
+@dataclasses.dataclass
+class _MisScaledPrior:
+    """A prior whose targets lie far outside the bar head's support (y ~ 100
+    + N(0, 1)): what pfn_debug_checks exists to catch."""
+
+    num_features: int = 1
+    num_outputs: int = 1
+
+    def sample(self, batch_size, seq_len, generator=None, device=None):
+        import torch
+
+        x = torch.rand((batch_size, seq_len, 1), generator=generator, device=device)
+        y = 100.0 + torch.randn((batch_size, seq_len), generator=generator, device=device)
+        return x, y, y
+
+
+def _host_syncs(fn) -> list:
+    """The host syncs fn() makes, caught by CUDA's sync debug mode: their
+    warnings' first lines."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message).splitlines()[0] for w in caught if "called a synchronizing" in str(w.message)]
+
+
+def phase_debug_checks(device, smi: str, size: dict = DEBUG_CHECKS):
+    """The debug checks on the card (DEBUG_CHECKS): one update of a prior
+    whose targets leave the bar support, at the Fig-3a width in f32 at T 100.
+    Without the checks the loss is finite (the targets clamp); under
+    pfn_debug_checks() train(...) raises FloatingPointError; with the flag
+    off an update makes no host sync, while one under the checks makes some
+    (the anomaly mode's NaN tests): CUDA's sync debug mode counts them."""
+    import numpy as np
+    import torch
+
+    from pfn_tpu_torch.distributions import get_bucket_limits
+    from pfn_tpu_torch.train import TrainConfig, TrainState, bar_criterion, build_model, train
+    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step
+    from pfn_tpu_torch.utils.profiling import pfn_debug_checks
+
+    prior = _MisScaledPrior()
+    crit = bar_criterion(get_bucket_limits(size["buckets"], full_range=(-3.0, 3.0)))
+    cfg = TrainConfig(emsize=512, nhid=1024, nlayers=6, nhead=4, bptt=size["T"], batch_size=size["batch_size"],
+                      epochs=1, steps_per_epoch=1, lr=1e-4, warmup_epochs=0, verbose=False, device=device)
+    plain = train(prior, crit, cfg).final_loss
+    raised = ""
+    try:
+        with pfn_debug_checks():
+            train(prior, crit, cfg)
+    except FloatingPointError as e:
+        raised = str(e)
+
+    model = build_model(prior, crit, cfg)
+    optimizer, _, schedule = _make_optimizer(cfg, model)
+    state = TrainState(model, optimizer, torch.Generator(device=device).manual_seed(1))
+    step = make_train_step(prior, crit.to(device), cfg, schedule)
+    for _ in range(3):  # the optimizer's state and the allocator's blocks in place
+        float(step(state)["loss"])
+
+    def flag_off():
+        with pfn_debug_checks(False):
+            step(state)
+
+    def checks_on():  # last: the update raises before the optimizer steps
+        with pfn_debug_checks():
+            try:
+                step(state)
+            except FloatingPointError:
+                pass
+
+    syncs = {"flag_off": _host_syncs(flag_off), "checks_on": _host_syncs(checks_on)}
+    torch.cuda.synchronize(device)
+    checks = {"loss_finite_without_checks": bool(np.isfinite(plain)), "raises_under_checks": bool(raised),
+              "update_without_host_sync": not syncs["flag_off"],
+              "counter_sees_the_checks_syncs": bool(syncs["checks_on"])}
+    emit({"phase": "debug_checks", "card": smi, "size": size, "loss_without_checks": plain,
+          "raised": raised[:200],
+          "host_syncs": {k: {"count": len(v), "first": v[:3]} for k, v in syncs.items()}, "checks": checks})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"debug_checks checks failed: {failed}")
+
+
 def main() -> int:
     import torch
 
@@ -3118,11 +3738,25 @@ def main() -> int:
         comparison_timing[kind]["launches"] = comparison_launches[name]
     phase_tabular_baselines(device, smi)
     fig3a_launches = phase_fig3a(device, smi)
+    phase_fewshot(device, smi)
+    # Scoring 2048 candidates runs the flash forward's f32 body at head dim
+    # 32: the f32_bayesopt row of the kernels line.
+    bayesopt_row, bayesopt_launches = phase_bayesopt(device, smi)
+    phase_gp_mix_oracles(device, smi)
+    # The compat workflow trains at T 2010 in f32: its launches join the
+    # f32_long rows and the kernels' launches on the main paths.
+    compat_launches = phase_compat(device, smi)
+    for name, kind in zip(FLASH_F32_KERNELS, ("fwd", "dq", "dkv")):
+        f32_long[kind]["launches"] += compat_launches[name]
+    phase_native_cache(device, smi)
+    phase_debug_checks(device, smi)
     # The flash kernels' launches on the main paths: the train phase's, the
-    # fig3a phase's, the front door's run (a) and the comparison's (the
-    # tabular path runs dense at T = 100).
+    # fig3a phase's, the front door's run (a), the comparison's, the compat
+    # workflow's and the forward's in the BO scoring at 2048 candidates (the
+    # tabular, few-shot and BO-loop paths run dense at T < 256).
     flash_launches = {name: launches[name] + fig3a_launches[name] + front_launches[name] + comparison_launches[name]
-                      for name in FLASH_F32_KERNELS}
+                      + compat_launches[name] for name in FLASH_F32_KERNELS}
+    flash_launches["pfn_flash_fwd"] += bayesopt_launches
     fwd = next(r for r in timing if r["sep"] == 1000)
     bwd = next(r for r in bwd_timing if r["sep"] == 1000)
     fused = next(r for r in fused_timing if r["sep"] == FLAGSHIP["sep"])
@@ -3144,7 +3778,10 @@ def main() -> int:
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"],
          **flash_bound("fwd", 32, 2010, 128, 1000), "library_ms": library["sdpa_fwd_ms"],
          "f32_tabular": tabular_timing["fwd"], "f32_long": f32_long["fwd"], "f32_long_prefix": f32_long["fwd_prefix"],
-         "f32_comparison": comparison_timing["fwd"]},
+         "f32_comparison": comparison_timing["fwd"],
+         "f32_bayesopt": {**{k: bayesopt_row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                        "bound_by", "library_ms", "pct_of_bound", "gflop")},
+                          "launches": bayesopt_launches}},
         {"name": "pfn_flash_bwd_dq", "route": "cuda", "design": SM90_DESIGN, "source": bwd_source,
          "replaces": "pfn_tpu/ops/flash_attention.py:315", "launches": flash_launches["pfn_flash_bwd_dq"],
          "max_abs_err": bwd["max_abs_err"]["dq"], "ms": bwd["dq_ms"], "plain_ms": bwd["plain_ms"],

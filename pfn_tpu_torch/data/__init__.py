@@ -1,7 +1,7 @@
-"""Real-data loaders (host-side numpy): the tabular benchmark's datasets.
+"""Real-data loaders: the tabular benchmark's datasets (host-side numpy) and
+the Omniglot class banks (one tensor on the device; the synthetic stand-in).
 
-The datasets part of ``pfn_tpu/data/__init__.py``; the Omniglot class banks
-are not ported yet (ROADMAP.md queue 1 item 11)."""
+Port of ``pfn_tpu/data/__init__.py``."""
 
 from pfn_tpu_torch.data.datasets import (
     class_balance_interleave,
@@ -20,8 +20,10 @@ from pfn_tpu_torch.data.datasets import (
     test_dids_classification,
     valid_dids_classification,
 )
+from pfn_tpu_torch.data.omniglot import ClassBank, load_omniglot_class_bank, synthetic_class_bank
 
 __all__ = [
+    "ClassBank",
     "class_balance_interleave",
     "get_2class_iris",
     "get_2class_wine",
@@ -32,9 +34,11 @@ __all__ = [
     "get_linnerud",
     "get_wine",
     "load_local_benchmark",
+    "load_omniglot_class_bank",
     "load_openml_list",
     "load_reference_benchmark",
     "load_svmlight",
+    "synthetic_class_bank",
     "test_dids_classification",
     "valid_dids_classification",
 ]

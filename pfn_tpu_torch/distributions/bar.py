@@ -17,6 +17,8 @@ import math
 import numpy as np
 import torch
 
+from pfn_tpu_torch.utils.profiling import debug_checks_enabled
+
 _HALF_LOG_2_OVER_PI = 0.5 * math.log(2.0 / math.pi)
 # Standard half-normal inverse CDF at 0.5: sqrt(2) * erfinv(0.5).
 _STD_HALFNORMAL_ICDF_05 = math.sqrt(2.0) * 0.47693627620446987
@@ -78,9 +80,21 @@ class BarDistribution:
 
     def nll(self, logits, y):
         """Negative log density of y; targets outside the support are clamped
-        to the end buckets. logits (..., num_bars), y (...) -> (...)."""
+        to the end buckets (the reference asserts, bar_distribution.py:27-28).
+        Under ``utils.profiling.pfn_debug_checks`` they poison the NLL with
+        NaN instead, so that the debug mode raises. logits (..., num_bars),
+        y (...) -> (...)."""
         idx = self.map_to_bucket_idx(y).clamp(0, self.num_bars - 1)
-        return -_pick(self._bucket_log_probs(logits), idx.expand(logits.shape[:-1]))
+        picked = _pick(self._bucket_log_probs(logits), idx.expand(logits.shape[:-1]))
+        if debug_checks_enabled():  # read at call time; off, the path adds no op
+            picked = torch.where(self.check_support(y), picked, torch.full_like(picked, float("nan")))
+        return -picked
+
+    def check_support(self, y) -> torch.Tensor:
+        """Boolean tensor: is y inside the modeled support [borders[0],
+        borders[-1]]?"""
+        y = torch.as_tensor(y, dtype=self.borders.dtype, device=self.borders.device)
+        return (y >= self.borders[0]) & (y <= self.borders[-1])
 
     def mean(self, logits):
         return torch.softmax(logits, dim=-1) @ self.bucket_means

@@ -1,8 +1,9 @@
 """Evaluation harness and validator, exact-posterior oracles (GP and linear
 regression), the tabular evaluation with its baselines, the approximate
-inference oracles (SVI, HMC, SVGD) and the Bayesian-comparison harness."""
+inference oracles (SVI, HMC, SVGD), the Bayesian-comparison harness and the
+GP-mix MAP and hyper-MCMC oracles."""
 
-from pfn_tpu_torch.evals import comparison, inference, tabular
+from pfn_tpu_torch.evals import comparison, gp_mix_oracles, inference, tabular
 from pfn_tpu_torch.evals.harness import (
     draw_validation_batch,
     eval_positional_logits_per_dataset,
@@ -24,6 +25,7 @@ __all__ = [
     "bayes_linreg_posterior",
     "build_windows",
     "comparison",
+    "gp_mix_oracles",
     "draw_validation_batch",
     "eval_positional_logits_per_dataset",
     "eval_positional_loss",

@@ -276,7 +276,9 @@ def gp_posterior(x_train, y_train, x_query, lengthscale, outputscale, noise, ker
     shapes: their rows and columns of the train covariance become identity and
     their cross-covariances zero, so the Cholesky solves the sub-system
     exactly. ``dtype=torch.float64`` gives the large-T oracle accuracy, on
-    either device.
+    either device. The hyperparameters are scalars (or an (F,) ARD
+    lengthscale), or per dataset in :func:`per_dataset_hypers`' layout:
+    lengthscale (..., 1, F), outputscale and noise (..., 1, 1).
     """
     xt = x_train.to(dtype)
     xq = x_query.to(dtype)
@@ -296,7 +298,13 @@ def gp_posterior(x_train, y_train, x_query, lengthscale, outputscale, noise, ker
     alpha = torch.cholesky_solve(y[..., None], L)
     mean = torch.matmul(k_star.transpose(-1, -2), alpha)[..., 0]
     v = torch.linalg.solve_triangular(L, k_star, upper=False)
-    # diag(K(xq, xq)) from per-row self-evaluations, without the (M, M) matrix.
-    kqq_diag = kernel(xq[..., :, None, :], xq[..., :, None, :], lengthscale, outputscale)[..., 0, 0]
+    # diag(K(xq, xq)) from per-row self-evaluations, without the (M, M)
+    # matrix; per-dataset hyperparameters gain the axis of those rows.
+    def rows(h):
+        return h.unsqueeze(-3) if isinstance(h, torch.Tensor) and h.ndim >= 2 else h
+
+    kqq_diag = kernel(xq[..., :, None, :], xq[..., :, None, :], rows(lengthscale), rows(outputscale))[..., 0, 0]
     var_f = kqq_diag - (v * v).sum(dim=-2)
+    if isinstance(noise, torch.Tensor) and noise.ndim >= 2:
+        noise = noise[..., 0]
     return mean, var_f.clamp_min(0.0) + noise

@@ -13,6 +13,7 @@ from pfn_tpu_torch.priors.gp_mix import GPMixPrior
 from pfn_tpu_torch.priors.mixture import BatchMixture
 from pfn_tpu_torch.priors.mlp import MLPPrior
 from pfn_tpu_torch.priors.module import ModulePrior
+from pfn_tpu_torch.priors.omniglot import OmniglotPrior, omniglot_accuracy, translate_image
 from pfn_tpu_torch.priors.ridge import RidgePrior
 from pfn_tpu_torch.priors.stroke import StrokePrior
 
@@ -23,6 +24,7 @@ __all__ = [
     "GPPrior",
     "MLPPrior",
     "ModulePrior",
+    "OmniglotPrior",
     "Prior",
     "RidgePrior",
     "StrokePrior",
@@ -30,6 +32,8 @@ __all__ = [
     "binarized_gp_prior",
     "default_group_size",
     "hyper",
+    "omniglot_accuracy",
     "sample_y_for_buckets",
     "transforms",
+    "translate_image",
 ]

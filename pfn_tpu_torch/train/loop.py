@@ -56,7 +56,7 @@ from pfn_tpu_torch.train.checkpoints import (
     save_checkpoint,
 )
 from pfn_tpu_torch.train.losses import Criterion
-from pfn_tpu_torch.utils.profiling import StepTimers
+from pfn_tpu_torch.utils.profiling import StepTimers, raise_on_nan
 from pfn_tpu_torch.utils.samplers import draw_eval_pos
 from pfn_tpu_torch.utils.schedules import cosine_schedule_with_warmup, get_openai_lr
 
@@ -318,11 +318,19 @@ def make_train_step_from_batch(criterion: Criterion, cfg: TrainConfig, schedule)
 
     def train_step(state: TrainState, xs, ys, target_ys) -> dict:
         g = state.generator
-        xs, ys, target_ys = (torch.as_tensor(a, device=g.device) for a in (xs, ys, target_ys))
+        # From pinned host memory the copy is asynchronous.
+        xs, ys, target_ys = (torch.as_tensor(a).to(g.device, non_blocking=True) for a in (xs, ys, target_ys))
         microbatches = ((xs[i], ys[i], target_ys[i], _sample_eval_pos(g, cfg, weights)) for i in range(xs.shape[0]))
         return _update(state, criterion, cfg, schedule, microbatches)
 
     return train_step
+
+
+def _stack_host(arrays) -> torch.Tensor:
+    """The k host arrays of one field of k microbatches as one (k, ...)
+    tensor; a single one keeps its buffer, so a pinned batch stays pinned."""
+    ts = [torch.as_tensor(a) for a in arrays]
+    return ts[0][None] if len(ts) == 1 else torch.stack(ts)
 
 
 def make_train_chunk(train_step, updates_per_call: int):
@@ -414,11 +422,13 @@ def train(prior, criterion: Criterion, cfg: TrainConfig, mesh=None, init_params:
             with timers.channel("fused_step", device=device):
                 if data_iter is not None:
                     batches = [next(data_iter) for _ in range(cfg.aggregate_k_gradients)]
-                    xs, ys, tys = (torch.stack([torch.as_tensor(b[i]) for b in batches]) for i in range(3))
+                    xs, ys, tys = (_stack_host([b[i] for b in batches]) for i in range(3))
                     metrics = step_fn(state, xs, ys, tys)
                 else:
                     metrics = step_fn(state)
-                loss_acc += float(metrics["loss"])  # the host sync of the call
+                loss = float(metrics["loss"])  # the host sync of the call
+                raise_on_nan(loss)  # under utils.profiling.debug_nans
+                loss_acc += loss
             pos_loss_acc += metrics["pos_loss"]
             pos_cnt_acc += metrics["pos_cnt"]
             grad_norm_acc += metrics["grad_norm"]

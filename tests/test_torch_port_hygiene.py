@@ -40,6 +40,8 @@ for name in names:
     importlib.import_module(name)
 from pfn_tpu_torch.ops import _ext
 assert not _ext._libs, "a library was loaded at import"
+from pfn_tpu_torch.native import cache
+assert cache._lib is None and cache._lib_error is None, "the batch cache was built or loaded at import"
 assert sum(_ext.launch_counts.values()) == 0
 bad = sorted(m for m, mod in sys.modules.items()
              if mod is not None and (m == "pfn_tpu" or m.startswith(("pfn_tpu.", "jax", "triton"))))
@@ -56,11 +58,13 @@ def test_every_module_imports_with_jax_blocked():
 
 
 _EXPERIMENTS = ("gp_fitting", "fig3a_longrun", "fig3a_analytic_gap", "fig3a_robust_eval", "grid_fidelity",
-                "bayesian_models_custom_priors", "tabular_eval", "tabular_hgb_baseline")
-# The device flag each takes: the Fig-3a ones --device, the evaluation
-# drivers the JAX drivers' --cpu; the hgb baseline, host only as its JAX
-# script, neither.
-_DEVICE_FLAG = {"bayesian_models_custom_priors": "--cpu", "tabular_eval": "--cpu", "tabular_hgb_baseline": None}
+                "bayesian_models_custom_priors", "tabular_eval", "tabular_hgb_baseline", "fewshot_omniglot",
+                "bayesopt_eval")
+# The device flag each takes: the Fig-3a ones --device, the evaluation,
+# few-shot and Bayesian-optimisation drivers the JAX drivers' --cpu; the hgb
+# baseline, host only as its JAX script, neither.
+_DEVICE_FLAG = {"bayesian_models_custom_priors": "--cpu", "tabular_eval": "--cpu", "tabular_hgb_baseline": None,
+                "fewshot_omniglot": "--cpu", "bayesopt_eval": "--cpu"}
 
 _RUN_EXPERIMENT_HELP = """
 import runpy, sys
@@ -81,7 +85,8 @@ assert "pfn_tpu_torch.evals.oracles" in sys.modules
 
 @pytest.mark.parametrize("name", _EXPERIMENTS)
 def test_experiments_run_with_jax_and_pfn_tpu_blocked(name):
-    """Each experiment (the Fig-3a ones and the evaluation drivers), as
+    """Each experiment (the Fig-3a ones, the evaluation, few-shot and
+    Bayesian-optimisation drivers), as
     ``python -m pfn_tpu_torch.experiments.<name>``, loads with jax and the
     JAX package blocked (its evals and experiments modules import neither),
     and its sources are among the files test_no_jax_import reads."""
