@@ -234,7 +234,27 @@ Phases, each printing one JSON line:
      leave the bar support: a finite loss without the checks,
      FloatingPointError under pfn_debug_checks(), and with the flag off no
      host sync, where an update under the checks makes some.
- 28. dkv_against_library: the dk/dv kernel at sep 1000, both variants,
+ 28. mesh: the parallel layer (pfn_tpu_torch.parallel) at the Fig-3a width
+     (MESH: T 2010, 1000 buckets, seeded weights, a global batch of 4, 8 on
+     the pipeline, sep 1000) on four ranks started with spawn that share the
+     one card through a gloo group carrying CUDA tensors (their times are
+     not a collective's speed): dp2 x sp2, dp2 x tp2, fsdp over dp4, dp2 x
+     ep2 (4 experts) and pp2 x dp2 (4 microbatches, attention_impl
+     "prefix"), one f32 update each, the whole clipped gradient vector and
+     the parameter vector within MESH_TOL of the one-rank update on the
+     card, the probe (F32_PATH_PROBE) moving the gradient vector past it;
+     dp2 x sp2 in bf16 under the bf16 rule against the f32 gold; every
+     rank's flash launches by variant (sp and pp: only the prefix variant,
+     6 layers a microbatch, 3 a pp stage), the update's host and event
+     times, peak memory per rank, rank 0's profile and idle share. Then
+     mesh_nccl: world size 1 on NCCL from torchrun's environment variables,
+     the dp path's update bitwise equal to the one-rank update, NCCL's
+     all_gather and all_to_all on the card. Then moe: 4 experts at the
+     Fig-3a width in bf16 through train(...) (MOE), 2 epochs of 2 updates,
+     a checkpoint resumed bitwise, the flash kernels 6 a update, the
+     load-balancing loss finite, a forward against the dense path by the
+     bf16 rule, update time, datasets/s, peak memory.
+ 29. dkv_against_library: the dk/dv kernel at sep 1000, both variants,
      beside SDPA's backward less the dq kernel, from this run.
 Then the kernels line (each kernel's launches on its path, error, time,
 plain time, bound and library time, for the fused kernels also the library
@@ -242,7 +262,9 @@ call's device time, for the flash kernels also their f32 rows at T 100 and
 T 2010 (and the prefix variant's at T 2010), the f32 rows at T 2010 with
 their launches on f32_path and front_door's run (a), and the f32 rows at D
 64, T 300 (f32_comparison) with their launches on the comparison's path
-(both of which the kernels' launches on the main paths count too; the
+(both of which the kernels' launches on the main paths count too, as
+they count the mesh and moe phases'; the flash entries' launches_prefix are
+the mesh phase's prefix-variant launches; the
 f32_long launches also the compat workflow's), the forward's f32 row at the
 BO scoring shape (f32_bayesopt: D 32, T 2076, with its launches there), for
 the fused kernels their f32 rows with their launches on fused_f32_train; its
@@ -409,6 +431,35 @@ NATIVE_CACHE = dict(batches=50, updates=2)
 # The debug checks: a prior whose targets leave the support of 10 buckets on
 # (-3, 3), one update at the Fig-3a width, f32, T 100, batch 8.
 DEBUG_CHECKS = dict(buckets=10, T=100, batch_size=8)
+# The parallel layer at the Fig-3a width (emsize 512, 4 heads of 128, nhid
+# 1024, 6 layers), T 2010, 1000 buckets (gp_fitting's), seeded weights
+# through the bridge, a global batch of 4 datasets from the parent (8 on the
+# pipeline, whose 4 microbatches split each dp rank's rows), sep 1000, one
+# update in f32 (and dp2 x sp2 also in bf16). Four ranks share the one card
+# through a gloo group that carries CUDA tensors; their times are not a
+# collective's speed. MESH_LAYOUTS: name -> (mesh axes, num_experts, dtype).
+MESH = dict(T=2010, emsize=512, nhead=4, nhid=1024, nlayers=6, buckets=1000, batch_size=4, pp_batch=8, pp_micro=4,
+            sep=1000, lr=1e-4, experts=4, world=4)
+MESH_LAYOUTS = {
+    "dp2_sp2": ({"dp": 2, "sp": 2}, 0, "f32"),
+    "dp2_tp2": ({"dp": 2, "tp": 2}, 0, "f32"),
+    "fsdp_dp4": ({"dp": 4}, 0, "f32"),
+    "dp2_ep2": ({"dp": 2, "ep": 2}, 4, "f32"),
+    "pp2_dp2": ({"dp": 2, "pp": 2}, 0, "f32"),
+    "dp2_sp2_bf16": ({"dp": 2, "sp": 2}, 0, "bf16"),
+}
+# A mesh update against the one-rank update of the same weights and batch on
+# the card: the whole clipped gradient vector and the parameter vector,
+# relative L2 (f32 summation order through 6 layers, as F32_PATH_TOL); the
+# probe (F32_PATH_PROBE on the one-rank update) must move the gradient
+# vector past it.
+MESH_TOL = 1e-4
+# Seconds the mesh phase's ranks may take in all before they are killed.
+MESH_TIMEOUT_S = 300
+# MoE at the Fig-3a width on one card through train(...): 4 experts, bf16,
+# T 2010, batch 4, the exact GP prior, 1000 buckets, 2 epochs of 2 updates.
+MOE = dict(T=2010, emsize=512, nhead=4, nhid=1024, nlayers=6, buckets=1000, batch_size=4, experts=4, updates=2,
+           lr=1e-4, timed_updates=4)
 # Device kernels of the flash f32 bodies, as the profiler names them.
 FLASH_F32_KERNELS = {"pfn_flash_fwd": "fwd_f32", "pfn_flash_bwd_dq": "dq_f32", "pfn_flash_bwd_dkv": "dkv_f32"}
 TIMING_SEPS = [400, 1000, 2000]
@@ -562,25 +613,11 @@ def profiled_kernels(fn, calls: int = 1, cpu: bool = False):
             wall_ms = (time.perf_counter() - t0) * 1e3
             time.sleep(PROFILE_PAD_S)
             prof.step()
-        kernels = []
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0.0)
-            if e.device_type == torch.autograd.DeviceType.CUDA and us > 0 and not getattr(e, "is_user_annotation", False):
-                kernels.append([e.key[:120], us / 1e3, e.count])
+        kernels, busy_ms = _kernel_table(prof)
         if kernels:
             break
         profile_misses += 1
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-                   and e.time_range.end > e.time_range.start)
-    busy_us, reached = 0.0, float("-inf")
-    for start, end in spans:
-        if end > reached:
-            busy_us += end - max(start, reached)
-            reached = end
-    return kernels, wall_ms, busy_us / 1e3
+    return kernels, wall_ms, busy_ms
 
 
 def device_ms(fn, calls: int = 20):
@@ -3690,6 +3727,512 @@ def phase_debug_checks(device, smi: str, size: dict = DEBUG_CHECKS):
         raise AssertionError(f"debug_checks checks failed: {failed}")
 
 
+class _BatchPrior:
+    """A prior whose every draw is one given global batch (the pipeline's
+    train step draws from its prior)."""
+
+    num_features, num_outputs = 1, 1
+
+    def __init__(self, x, y, ty):
+        self.batch = (x, y, ty)
+
+    def sample(self, batch_size, seq_len, generator=None, device=None):
+        return self.batch
+
+
+def _mesh_weights(size: dict, experts: int) -> dict:
+    from pfn_tpu_torch.train import seeded_flax_params, state_dict_from_flax_params
+
+    flax = seeded_flax_params(1, size["emsize"], size["nhid"], size["nlayers"], size["buckets"], seed=0,
+                              num_experts=experts)
+    return state_dict_from_flax_params(flax, size["nlayers"])
+
+
+def _mesh_criterion(size: dict, device):
+    import torch
+
+    from pfn_tpu_torch.train import bar_criterion
+
+    return bar_criterion(torch.linspace(-4.0, 4.0, size["buckets"] + 1)).to(device)
+
+
+def _mesh_cfg(size: dict, experts: int, dtype: str, fsdp: bool = False, impl: str = "auto"):
+    import torch
+
+    from pfn_tpu_torch.train import TrainConfig
+
+    return TrainConfig(emsize=size["emsize"], nhid=size["nhid"], nlayers=size["nlayers"], nhead=size["nhead"],
+                       bptt=size["T"], batch_size=size["batch_size"], epochs=2, steps_per_epoch=1, lr=size["lr"],
+                       warmup_epochs=0, eval_pos_sampler="fixed", fixed_eval_pos=size["sep"], num_experts=experts,
+                       dtype=torch.bfloat16 if dtype == "bf16" else torch.float32, fsdp=fsdp,
+                       attention_impl=impl, verbose=False)
+
+
+def _vector(named: dict, names) -> "torch.Tensor":
+    import torch
+
+    return torch.cat([named[n].detach().float().flatten().cpu() for n in names])
+
+
+def _kernel_table(prof):
+    """([name, ms, launches] of each device kernel, busy ms: the union of
+    their intervals) of a finished torch.profiler session."""
+    import torch
+
+    kernels = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0 and not getattr(e, "is_user_annotation", False):
+            kernels.append([e.key[:120], us / 1e3, e.count])
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+                   and e.time_range.end > e.time_range.start)
+    busy_us, reached = 0.0, float("-inf")
+    for start, end in spans:
+        if end > reached:
+            busy_us += end - max(start, reached)
+            reached = end
+    return kernels, busy_us / 1e3
+
+
+def _one_rank_update(size: dict, experts: int, dtype: str, weights: dict, batch, device, impl: str = "auto"):
+    """The one-rank update the mesh layouts are held to: the clipped
+    gradients and the parameters after it, by name."""
+    import torch
+
+    from pfn_tpu_torch.train import TrainState, build_model
+    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step_from_batch
+
+    cfg = _mesh_cfg(size, experts, dtype, impl=impl)
+    cfg.device = device
+    crit = _mesh_criterion(size, device)
+    model = build_model(_BatchPrior, crit, cfg)
+    model.load_state_dict(weights)
+    optimizer, _, schedule = _make_optimizer(cfg, model)
+    state = TrainState(model, optimizer, torch.Generator(device=device).manual_seed(0))
+    m = make_train_step_from_batch(crit, cfg, schedule)(state, *batch)
+    names = [n for n, _ in model.named_parameters()]
+    return {"loss": float(m["loss"]), "names": names,
+            "grads": _vector({n: p.grad for n, p in model.named_parameters()}, names),
+            "params": _vector(dict(model.named_parameters()), names)}
+
+
+def _one_rank_pp_update(size: dict, weights: dict, batch, device):
+    """The pipeline's yardstick: the unpipelined model, the same masked loss
+    and Adam without a clip (make_pp_train_step's update)."""
+    import torch
+
+    from pfn_tpu_torch.models import PFNTransformer, TransformerConfig
+    from pfn_tpu_torch.train.loop import _loss_terms
+
+    model = PFNTransformer(TransformerConfig(num_features=1, n_out=size["buckets"], emsize=size["emsize"],
+                                             nhead=size["nhead"], nhid=size["nhid"], nlayers=size["nlayers"]))
+    model.load_state_dict(weights)
+    model.to(device)
+    optimizer = torch.optim.Adam(model.parameters(), lr=size["lr"])
+    x, y, ty = (t.to(device) for t in batch)
+    sep = torch.full((1,), size["sep"], dtype=torch.int32, device=device)
+    num, den = _loss_terms(_mesh_criterion(size, device), model(x, y, sep), ty, sep, None)
+    (num / den).backward()
+    names = [n for n, _ in model.named_parameters()]
+    grads = _vector({n: p.grad for n, p in model.named_parameters()}, names)
+    optimizer.step()
+    return {"loss": float(num / den), "names": names, "grads": grads,
+            "params": _vector(dict(model.named_parameters()), names)}
+
+
+def _mesh_layout(name: str, payload: dict, device, out_dir: str) -> dict:
+    """One layout on this rank: the compared update (its flash launches by
+    variant; its gathered gradients and parameters written by the ranks that
+    hold them), one more timed by the host clock and CUDA events, and one
+    more profiled on rank 0."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from pfn_tpu_torch.models import TransformerConfig
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.parallel import PipelinedPFN, make_mesh, make_pp_mesh, make_pp_train_step, to_pipeline_params
+    from pfn_tpu_torch.parallel.mesh import blocks_of, gathered_state_dict, load_full_state_dict_, unshard
+    from pfn_tpu_torch.parallel.pipeline import from_pipeline_params
+    from pfn_tpu_torch.train import TrainConfig, TrainState, build_model
+    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step_from_batch
+
+    size = payload["size"]
+    axes, experts, dtype = MESH_LAYOUTS[name]
+    weights = _mesh_weights(size, experts)
+    crit = _mesh_criterion(size, device)
+    if "pp" in axes:
+        mesh = make_pp_mesh(dp=axes["dp"], pp=axes["pp"], device=device)
+        mcfg = TransformerConfig(num_features=1, n_out=size["buckets"], emsize=size["emsize"], nhead=size["nhead"],
+                                 nhid=size["nhid"], nlayers=size["nlayers"], attention_impl="prefix")
+        model = PipelinedPFN(mcfg, mesh, size["pp_micro"]).to(device)
+        model.load_state_dict(to_pipeline_params(weights, model), strict=True)
+        optimizer = torch.optim.Adam(model.parameters(), lr=size["lr"])
+        tcfg = TrainConfig(batch_size=size["pp_batch"], bptt=size["T"], eval_pos_sampler="fixed",
+                           fixed_eval_pos=size["sep"], device=device)
+        prior = _BatchPrior(*(t.to(device) for t in payload["pp_batch"]))
+        step = make_pp_train_step(model, prior, crit, tcfg, optimizer)
+        generator = torch.Generator(device=device).manual_seed(0)
+
+        def run():
+            return step(generator)
+
+        def gathered():
+            holds = mesh.axis_index("dp") == 0
+            return (holds, from_pipeline_params({n: p.grad for n, p in model.named_parameters()}, model),
+                    from_pipeline_params(dict(model.named_parameters()), model))
+    else:
+        mesh = make_mesh(**axes, device=device)
+        cfg = _mesh_cfg(size, experts, dtype, fsdp=name.startswith("fsdp"))
+        cfg.device = device
+        model = build_model(_BatchPrior, crit, cfg, mesh=mesh)
+        load_full_state_dict_(model, weights)
+        optimizer, _, schedule = _make_optimizer(cfg, model)
+        state = TrainState(model, optimizer, torch.Generator(device=device).manual_seed(0))
+        step = make_train_step_from_batch(crit, cfg, schedule)
+
+        def run():
+            return step(state, *payload["batch"])
+
+        def gathered():
+            specs = model.param_specs
+            grads = {n: (unshard(p.grad, mesh, specs[n], blocks_of(n)) if n in specs else p.grad)
+                     for n, p in model.named_parameters()}
+            return dist.get_rank() == 0, grads, gathered_state_dict(model)
+
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    _ext.reset_launch_counts()
+    loss = float(run()["loss"])
+    torch.cuda.synchronize(device)
+    launches = {k: _ext.launch_counts[k] for k in FLASH_F32_KERNELS}
+    prefix = dict(_ext.prefix_launch_counts)
+    holds, grads, params = gathered()
+    if holds:
+        torch.save({part: {n: t.detach().float().cpu() for n, t in named.items()}
+                    for part, named in (("grads", grads), ("params", params))},
+                   os.path.join(out_dir, f"{name}.{dist.get_rank()}.pt"))
+    del grads, params
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    dist.barrier()
+    t0 = time.perf_counter()
+    start.record()
+    float(run()["loss"])
+    end.record()
+    torch.cuda.synchronize(device)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    event_ms = start.elapsed_time(end)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    profile = None
+    dist.barrier()
+    if dist.get_rank() == 0:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            float(run()["loss"])
+            torch.cuda.synchronize(device)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels, busy_ms = _kernel_table(prof)
+        kernels.sort(key=lambda kn: -kn[1])
+        profile = {"wall_ms": wall_ms, "device_ms": busy_ms if kernels else "not measured",
+                   "idle_share": 1.0 - busy_ms / wall_ms if kernels else "not measured",
+                   "flash_kernels": [kn for kn in kernels if "f32<" in kn[0] or "sm90<" in kn[0]][:6],
+                   "kernels": kernels[:8]}
+    else:
+        float(run()["loss"])
+    return {"rank": dist.get_rank(), "coords": dict(mesh.coords), "loss": loss, "launches": launches,
+            "launches_prefix": prefix, "host_ms": host_ms, "event_ms": event_ms, "peak_memory_gb": peak_gb,
+            "profile": profile}
+
+
+def _mesh_rank(rank: int, world: int, port: int, payload: dict, out_dir: str) -> None:
+    """A rank of the mesh phase: a gloo group on the one card, every layout
+    in turn; its results to ``out_dir``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from pfn_tpu_torch.parallel import init_distributed
+
+    device = init_distributed(backend="gloo", device=payload["device_type"], init_method=f"tcp://127.0.0.1:{port}",
+                              world_size=world, rank=rank)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        results = {name: _mesh_layout(name, payload, device, out_dir) for name in MESH_LAYOUTS}
+        torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh(device, smi: str, size: dict = MESH):
+    """Every layout of MESH_LAYOUTS on four ranks that share the one card (a
+    gloo group carrying CUDA tensors, the ranks started with spawn, one
+    spawn for all layouts), each update held against the one-rank update of
+    the same weights and batch on the card. Returns (the one-rank f32
+    reference of the dense layouts, the flash launches of all ranks by
+    kernel, the prefix variant's of them)."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from pfn_tpu_torch.experiments.common import GP_HP
+    from pfn_tpu_torch.priors import GPPrior
+
+    T, B = size["T"], size["batch_size"]
+    prior = GPPrior(num_features=1, **GP_HP)
+    g = torch.Generator(device=device).manual_seed(23)
+    x, y, ty = prior.sample(B, T, generator=g, device=device)
+    batch = tuple(t[None].cpu() for t in (x, y, ty))  # one microbatch
+    pp_batch = tuple(t.cpu() for t in prior.sample(size["pp_batch"], T, generator=g, device=device))
+
+    dense, moe = _mesh_weights(size, 0), _mesh_weights(size, size["experts"])
+    t0 = time.perf_counter()
+    refs = {"dense": _one_rank_update(size, 0, "f32", dense, batch, device),
+            "moe": _one_rank_update(size, size["experts"], "f32", moe, batch, device),
+            "pp": _one_rank_pp_update(size, dense, pp_batch, device),
+            "probe": _one_rank_update(size, 0, "f32", _value_probe(dense, size["emsize"], F32_PATH_PROBE), batch,
+                                      device),
+            "dense_bf16": _one_rank_update(size, 0, "bf16", dense, batch, device, impl="dense")}
+    refs_s = time.perf_counter() - t0
+    del dense, moe
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="pfn_mesh_") as out_dir:
+        payload = {"size": size, "batch": batch, "pp_batch": pp_batch, "device_type": device.type}
+        ctx = mp.start_processes(_mesh_rank, args=(size["world"], _free_port(), payload, out_dir),
+                                 nprocs=size["world"], join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        while not ctx.join(timeout=1):  # a failing rank raises here, with its traceback
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"mesh ranks ran past {MESH_TIMEOUT_S} s")
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(size["world"])]
+        vectors = {}
+        for name in MESH_LAYOUTS:  # the gathered state, merged over the ranks that wrote a part (pp: each stage)
+            merged = {"grads": {}, "params": {}}
+            for f in sorted(f for f in os.listdir(out_dir) if f.startswith(name + ".")):
+                for part, named in torch.load(os.path.join(out_dir, f), weights_only=True).items():
+                    merged[part].update(named)
+            vectors[name] = merged
+    spawn_s = time.perf_counter() - t0
+
+    def rel(a, b) -> float:
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    def layout_vectors(name: str, ref: dict):
+        """(grads, params) of a layout in the reference's name order."""
+        return tuple(_vector(vectors[name][part], ref["names"]) for part in ("grads", "params"))
+
+    reach = rel(refs["probe"]["grads"], refs["dense"]["grads"])
+    gold = refs["dense"]["grads"]
+    dense_bf16_err = rel(refs["dense_bf16"]["grads"], gold)
+    per_layer = size["nlayers"]
+    layouts, checks = {}, {"probe_shows": reach > MESH_TOL}
+    for name, (axes, experts, dtype) in MESH_LAYOUTS.items():
+        ref = refs["pp" if "pp" in axes else "moe" if experts else "dense"]
+        grads, params = layout_vectors(name, ref)
+        rows = [r[name] for r in ranks]
+        if "pp" in axes:
+            want = {k: per_layer // axes["pp"] * size["pp_micro"] for k in FLASH_F32_KERNELS}
+            want_prefix = want
+        else:
+            want = {k: per_layer for k in FLASH_F32_KERNELS}
+            want_prefix = want if "sp" in axes else {k: 0 for k in FLASH_F32_KERNELS}
+        entry = {"axes": axes, "experts": experts, "dtype": dtype, "loss": [r["loss"] for r in rows],
+                 "launches_per_rank": rows[0]["launches"], "launches_prefix_per_rank": rows[0]["launches_prefix"],
+                 "host_ms": [r["host_ms"] for r in rows], "event_ms": [r["event_ms"] for r in rows],
+                 "peak_memory_gb": [r["peak_memory_gb"] for r in rows], "profile_rank0": rows[0]["profile"]}
+        if dtype == "f32":
+            entry.update(grads_rel=rel(grads, ref["grads"]), params_rel=rel(params, ref["params"]),
+                         one_rank_loss=ref["loss"])
+            ok = entry["grads_rel"] <= MESH_TOL and entry["params_rel"] <= MESH_TOL
+        else:
+            entry.update(grads_err=rel(grads, gold), dense_bf16_err=dense_bf16_err,
+                         budget=2 * dense_bf16_err + 1e-3)
+            ok = entry["grads_err"] <= entry["budget"]
+        checks[f"{name}_matches_one_rank"] = ok
+        checks[f"{name}_launches"] = all(r["launches"] == want and r["launches_prefix"] == want_prefix for r in rows)
+        checks[f"{name}_loss_replicated"] = len({r["loss"] for r in rows}) == 1
+        layouts[name] = entry
+    launches = {k: sum(r[name]["launches"][k] for r in ranks for name in MESH_LAYOUTS) for k in FLASH_F32_KERNELS}
+    prefix = {k: sum(r[name]["launches_prefix"][k] for r in ranks for name in MESH_LAYOUTS) for k in FLASH_F32_KERNELS}
+    emit({"phase": "mesh", "card": smi, "size": size, "ranks_share_one_card": True, "backend": "gloo",
+          "note": "four ranks on one card: times are not a collective's speed", "tol": MESH_TOL,
+          "probe": F32_PATH_PROBE, "probe_rel_change": reach, "one_rank_s": refs_s, "spawn_s": spawn_s,
+          "layouts": layouts, "launches_compared_updates": launches, "launches_prefix": prefix, "checks": checks})
+    failed = [n for n, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"mesh checks failed: {failed}")
+    return refs["dense"], batch, launches, prefix
+
+
+def phase_mesh_nccl(device, smi: str, reference: dict, batch, size: dict = MESH):
+    """World size 1 on NCCL, started from torchrun's environment variables:
+    the dp path's update at the mesh phase's dense f32 config, against the
+    one-rank update the mesh phase made; NCCL's all_gather and all_to_all on
+    the card. The process group ends with the phase, and the environment is
+    restored."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from pfn_tpu_torch.parallel import init_distributed, make_mesh
+    from pfn_tpu_torch.parallel.mesh import gathered_state_dict, load_full_state_dict_
+    from pfn_tpu_torch.train import TrainState, build_model
+    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step_from_batch
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()), "WORLD_SIZE": "1", "RANK": "0",
+           "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        rank_device = init_distributed()
+        try:
+            mesh = make_mesh()
+            cfg = _mesh_cfg(size, 0, "f32")
+            cfg.device = rank_device
+            crit = _mesh_criterion(size, rank_device)
+            model = build_model(_BatchPrior, crit, cfg, mesh=mesh)
+            load_full_state_dict_(model, _mesh_weights(size, 0))
+            optimizer, _, schedule = _make_optimizer(cfg, model)
+            state = TrainState(model, optimizer, torch.Generator(device=rank_device).manual_seed(0))
+            t0 = time.perf_counter()
+            loss = float(make_train_step_from_batch(crit, cfg, schedule)(state, *batch)["loss"])
+            update_ms = (time.perf_counter() - t0) * 1e3
+            names = reference["names"]
+            grads = _vector({n: p.grad for n, p in model.named_parameters()}, names)
+            params = _vector(gathered_state_dict(model), names)
+            t = torch.arange(4.0, device=rank_device)
+            out = [torch.empty_like(t)]
+            dist.all_gather(out, t)
+            a2a = torch.empty_like(t)
+            dist.all_to_all_single(a2a, t)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    checks = {
+        "backend_nccl": backend == "nccl",
+        "mesh_shape": mesh.shape == {"dp": 1, "sp": 1, "tp": 1, "ep": 1},
+        "device": rank_device.type == "cuda",
+        "grads_equal": bool(torch.equal(grads, reference["grads"])),
+        "params_equal": bool(torch.equal(params, reference["params"])),
+        "loss_equal": loss == reference["loss"],
+        "nccl_all_gather": bool(torch.equal(out[0], t)),
+        "nccl_all_to_all": bool(torch.equal(a2a, t)),
+    }
+    emit({"phase": "mesh_nccl", "card": smi, "backend": backend, "world_size": 1, "update_ms": update_ms,
+          "loss": loss, "checks": checks})
+    failed = [n for n, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"mesh_nccl checks failed: {failed}")
+
+
+def phase_moe(device, smi: str, size: dict = MOE):
+    """MoE at the Fig-3a width on one card, bf16, no mesh, through
+    train(...): 2 epochs of 2 updates straight (no warmup: epoch 1 trains),
+    and epoch 1 into a checkpoint then a resumed epoch 2, bitwise equal; the flash kernels
+    launched once per layer per update; the load-balancing loss finite; a
+    forward on the kernel path against the dense path (the bf16 rule
+    against an f32 gold); update time, datasets/s, peak memory. Returns the
+    flash launches of the straight run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pfn_tpu_torch.experiments.common import GP_HP, bucket_criterion
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.priors import GPPrior
+    from pfn_tpu_torch.train import TrainConfig, build_model, train
+
+    T, B = size["T"], size["batch_size"]
+    prior = GPPrior(num_features=1, **GP_HP)
+    criterion = bucket_criterion(prior, size["buckets"], T, device)
+    cfg = TrainConfig(emsize=size["emsize"], nhid=size["nhid"], nlayers=size["nlayers"], nhead=size["nhead"], bptt=T,
+                      batch_size=B, epochs=2, steps_per_epoch=size["updates"], lr=size["lr"], warmup_epochs=0,
+                      eval_pos_sampler="weighted", eval_pos_max=min(2000, T), dtype=torch.bfloat16,
+                      num_experts=size["experts"], device=device, seed=0)
+    init = _mesh_weights(size, size["experts"])
+    torch.cuda.reset_peak_memory_stats(device)
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    straight, _ = _quietly(lambda: train(prior, criterion, cfg, init_params=init))
+    train_s = time.perf_counter() - t0
+    launches = {k: _ext.launch_counts[k] for k in FLASH_F32_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    ckdir = tempfile.mkdtemp(prefix="pfn_moe_")
+    ck = dataclasses.replace(cfg, checkpoint_dir=ckdir, checkpoint_every=1)
+    _quietly(lambda: train(prior, criterion, dataclasses.replace(ck, epochs=1), init_params=init))
+    resumed, log = _quietly(lambda: train(prior, criterion, ck, init_params=init))
+    bitwise = all(torch.equal(a, b) for a, b in zip(straight.model.state_dict().values(),
+                                                   resumed.model.state_dict().values()))
+
+    # The load-balancing loss and a forward, kernel path against dense.
+    x, y, _ = prior.sample(B, T, generator=torch.Generator(device=device).manual_seed(3), device=device)
+    sep = torch.full((1,), T // 2, dtype=torch.int32, device=device)
+    outs = {}
+    for name, over in (("kernel_bf16", {}), ("dense_bf16", {"attention_impl": "dense"}),
+                       ("dense_f32", {"attention_impl": "dense", "dtype": torch.float32})):
+        model = build_model(prior, criterion, dataclasses.replace(cfg, **over))
+        model.load_state_dict(straight.model.state_dict())
+        with torch.no_grad():
+            outs[name] = model.eval()(x, y, sep, return_aux=True)
+    aux = float(outs["kernel_bf16"][1])
+    err = {name: float((outs[name][0].float() - outs["dense_f32"][0]).norm() / outs["dense_f32"][0].norm())
+           for name in ("kernel_bf16", "dense_bf16")}
+
+    step, state, update_ms, median_ms = timed_updates(prior, criterion, cfg, straight.model, device,
+                                                      size["timed_updates"])
+    expected = cfg.nlayers * 2 * size["updates"]
+    stats = straight.epoch_stats
+    checks = {
+        "epochs": [st["epoch"] for st in stats] == [1, 2],
+        "losses_finite": all(np.isfinite(st["mean_loss"]) and np.isfinite(st["grad_norm"]) for st in stats),
+        "launches": all(n == expected for n in launches.values()),
+        # Epoch 1 trains at a nonzero lr, so the checkpoint holds moved weights and Adam moments.
+        "epoch_1_lr_nonzero": stats[0]["lr"] > 0,
+        "resumed": "resumed from" in log,
+        "resume_bitwise": bitwise,
+        "aux_finite": bool(np.isfinite(aux)) and aux > 0,
+        "kernel_vs_dense_forward": err["kernel_bf16"] <= 2 * err["dense_bf16"] + 1e-3,
+    }
+    emit({"phase": "moe", "card": smi, "size": size, "dtype": "bf16", "epoch_stats": stats, "train_s": train_s,
+          "launches": launches, "expected_launches": expected, "aux_loss": aux, "forward_rel_err_vs_f32": err,
+          "update_ms": {"first": update_ms[0], f"median_of_{size['timed_updates']}": median_ms},
+          "datasets_per_s": B / (median_ms / 1e3), "peak_memory_gb": peak_gb, "checks": checks})
+    failed = [n for n, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"moe checks failed: {failed}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3750,12 +4293,20 @@ def main() -> int:
         f32_long[kind]["launches"] += compat_launches[name]
     phase_native_cache(device, smi)
     phase_debug_checks(device, smi)
+    # The parallel layer: four ranks sharing the card (the prefix variants'
+    # first path launches), NCCL at world size 1, and MoE on one card.
+    mesh_reference, mesh_batch, mesh_launches, mesh_prefix = phase_mesh(device, smi)
+    phase_mesh_nccl(device, smi, mesh_reference, mesh_batch)
+    moe_launches = phase_moe(device, smi)
     # The flash kernels' launches on the main paths: the train phase's, the
     # fig3a phase's, the front door's run (a), the comparison's, the compat
-    # workflow's and the forward's in the BO scoring at 2048 candidates (the
-    # tabular, few-shot and BO-loop paths run dense at T < 256).
+    # workflow's, the mesh layouts' compared updates (all ranks), the MoE
+    # run's and the forward's in the BO scoring at 2048 candidates (the
+    # tabular, few-shot and BO-loop paths run dense at T < 256). The prefix
+    # variant's launches (launches_prefix) come from the mesh phase's sp and
+    # pp layouts.
     flash_launches = {name: launches[name] + fig3a_launches[name] + front_launches[name] + comparison_launches[name]
-                      + compat_launches[name] for name in FLASH_F32_KERNELS}
+                      + compat_launches[name] + mesh_launches[name] + moe_launches[name] for name in FLASH_F32_KERNELS}
     flash_launches["pfn_flash_fwd"] += bayesopt_launches
     fwd = next(r for r in timing if r["sep"] == 1000)
     bwd = next(r for r in bwd_timing if r["sep"] == 1000)
@@ -3775,6 +4326,7 @@ def main() -> int:
         {"name": "pfn_flash_fwd", "route": "cuda", "design": SM90_DESIGN,
          "source": "pfn_tpu_torch/ops/csrc/pfn_flash_fwd.cu",
          "replaces": "pfn_tpu/ops/flash_attention.py:255", "launches": flash_launches["pfn_flash_fwd"],
+         "launches_prefix": mesh_prefix["pfn_flash_fwd"],
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["kernel_ms"], "plain_ms": fwd["plain_ms"],
          **flash_bound("fwd", 32, 2010, 128, 1000), "library_ms": library["sdpa_fwd_ms"],
          "f32_tabular": tabular_timing["fwd"], "f32_long": f32_long["fwd"], "f32_long_prefix": f32_long["fwd_prefix"],
@@ -3784,12 +4336,14 @@ def main() -> int:
                           "launches": bayesopt_launches}},
         {"name": "pfn_flash_bwd_dq", "route": "cuda", "design": SM90_DESIGN, "source": bwd_source,
          "replaces": "pfn_tpu/ops/flash_attention.py:315", "launches": flash_launches["pfn_flash_bwd_dq"],
+         "launches_prefix": mesh_prefix["pfn_flash_bwd_dq"],
          "max_abs_err": bwd["max_abs_err"]["dq"], "ms": bwd["dq_ms"], "plain_ms": bwd["plain_ms"],
          **flash_bound("dq", 16, 2010, 128, 1000), "library_ms": library["sdpa_bwd_ms"],
          "f32_tabular": tabular_timing["dq"], "f32_long": f32_long["dq"], "f32_long_prefix": f32_long["dq_prefix"],
          "f32_comparison": comparison_timing["dq"]},
         {"name": "pfn_flash_bwd_dkv", "route": "cuda", "design": SM90_DESIGN, "source": bwd_source,
          "replaces": "pfn_tpu/ops/flash_attention.py:340", "launches": flash_launches["pfn_flash_bwd_dkv"],
+         "launches_prefix": mesh_prefix["pfn_flash_bwd_dkv"],
          "max_abs_err": max(bwd["max_abs_err"]["dk"], bwd["max_abs_err"]["dv"]), "ms": bwd["dkv_ms"],
          "plain_ms": bwd["plain_ms"], **flash_bound("dkv", 16, 2010, 128, 1000),
          "library_ms": library["sdpa_bwd_ms"], "f32_tabular": tabular_timing["dkv"], "f32_long": f32_long["dkv"],

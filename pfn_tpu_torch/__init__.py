@@ -21,12 +21,15 @@ MSE validator, and the experiments in ``experiments``, run as
 ``python -m pfn_tpu_torch.train`` over ``config`` (the experiment-config
 tree) and ``registries`` (priors, criterions, encoders, positional encodings,
 eval-position samplers), with the model options and the ridge, module and
-stroke priors they name. See ROADMAP.md for what remains.
+stroke priors they name, and the parallel layer (``parallel``: the device
+mesh over ``torch.distributed``, sequence-sharded attention, fsdp, the MoE
+FFN with expert parallelism, the GPipe pipeline). See ROADMAP.md for what
+remains.
 """
 
 __version__ = "0.1.0"
 
-from pfn_tpu_torch import distributions, evals, inference, models, ops, priors, train, utils
+from pfn_tpu_torch import distributions, evals, inference, models, ops, parallel, priors, train, utils
 from pfn_tpu_torch.inference import PFNClassifier, PFNRegressor
 
 __all__ = [
@@ -37,6 +40,7 @@ __all__ = [
     "inference",
     "models",
     "ops",
+    "parallel",
     "priors",
     "train",
     "utils",

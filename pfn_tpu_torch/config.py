@@ -9,9 +9,11 @@ and builds into (prior, criterion, train_cfg, mesh) through
 
 Two differences from the JAX module, both about torch: ``train.dtype`` is a
 ``torch.dtype``, rendered by name in :func:`to_dict` ("float32") and read
-back from a name by :func:`from_dict` and :func:`build`; and
-``mesh.enabled`` raises ``NotImplementedError`` in :func:`build`, since the
-port has no device mesh yet (ROADMAP.md queue 1 item 14).
+back from a name by :func:`from_dict` and :func:`build`; and the mesh is a
+world of processes, one a rank: with ``mesh.enabled`` :func:`build` starts
+this process's rank (``parallel.init_distributed``, from ``torchrun``'s
+environment, or a world of one, on NCCL) unless the caller has started it
+(gloo, where ranks share a card or run on the CPU).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ class CriterionConfig:
 
 @dataclasses.dataclass
 class MeshConfig:
-    """dp=None means "all remaining devices"; enabled=False disables the
+    """dp=None means "all remaining ranks"; enabled=False disables the
     mesh. sp/ep are the sequence- and expert-parallel axes."""
 
     dp: int | None = None
@@ -159,13 +161,26 @@ def to_dict(cfg: ExperimentConfig) -> dict:
 
 
 def build(cfg: ExperimentConfig):
-    """Materialize (prior, criterion, train_cfg, mesh) from the config
-    tree; mesh is always None (``mesh.enabled`` raises)."""
-    from pfn_tpu_torch import registries
+    """Materialize (prior, criterion, train_cfg, mesh) from the config tree.
+    With ``mesh.enabled`` the mesh spans the world's ranks, dp taking the
+    ranks the other axes leave unless set; the process group is started here
+    where the caller has not (``parallel.init_distributed``: NCCL on
+    ``train.device``, None the card)."""
+    import torch.distributed as dist
 
+    from pfn_tpu_torch import registries
+    from pfn_tpu_torch.parallel import init_distributed, make_mesh
+
+    mesh = None
     if cfg.mesh.enabled:
-        raise NotImplementedError("mesh.enabled: training on a device mesh is not ported yet "
-                                  "(ROADMAP.md queue 1 item 14 (parallelism))")
+        m = cfg.mesh
+        if dist.is_initialized():
+            device = cfg.train.device
+        else:
+            device = init_distributed(device=cfg.train.device)
+        denom = m.tp * m.sp * m.ep
+        dp = m.dp or max(1, dist.get_world_size() // denom)
+        mesh = make_mesh(dp=dp, tp=m.tp, sp=m.sp, ep=m.ep, device=device)
     prior = registries.PRIORS.get(cfg.prior.name)(**cfg.prior.kwargs)
     crit_kwargs = dict(cfg.criterion.kwargs)
     crit_kwargs.setdefault("seq_len", cfg.train.bptt)
@@ -178,4 +193,4 @@ def build(cfg: ExperimentConfig):
         train_cfg.y_encoder = registries.ENCODERS.get(cfg.y_encoder)
     if cfg.pos_encoder is not None:
         train_cfg.pos_encoder = registries.POS_ENCODERS.get(cfg.pos_encoder)
-    return prior, criterion, train_cfg, None
+    return prior, criterion, train_cfg, mesh

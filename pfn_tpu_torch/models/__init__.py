@@ -9,6 +9,7 @@ from pfn_tpu_torch.models.encoders import (
     Normalize,
     NormalizedUniformEncoder,
 )
+from pfn_tpu_torch.models.moe import MoEFFN
 from pfn_tpu_torch.models.positional import (
     LearnedPositionalEncoding,
     NoPositionalEncoding,
@@ -32,6 +33,7 @@ __all__ = [
     "LinearEncoder",
     "MLPDecoder",
     "MLPEncoder",
+    "MoEFFN",
     "MultiheadPFNAttention",
     "NoPositionalEncoding",
     "Normalize",

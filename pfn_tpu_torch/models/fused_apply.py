@@ -13,7 +13,8 @@ as the JAX package's ``_fwd_call`` and ``_bwd_call`` do, so the weight
 gradients reach the parameters as f32 sums, not rounded through a bf16 copy.
 
 Supported subset: the flagship configs (default Linear x/y encoders, no
-positional encoding, no SeqBN, dropout 0, dense FFN, tanh GELU), T <= 512,
+positional encoding, no SeqBN, dropout 0, dense FFN, tanh GELU, no device
+mesh), T <= 512,
 as in the JAX package; on the card, also the widths the kernels are built
 for (``_ext.fused_shape_error``). The plain version on the CPU takes any
 width. Anything else raises.
@@ -48,6 +49,7 @@ def fused_supported(cfg: TransformerConfig, device=None) -> str | None:
         (cfg.dropout == 0.0, "dropout > 0"),
         (cfg.num_experts == 0, "MoE FFN"),
         (not cfg.exact_gelu, "exact (erf) GELU — kernel implements tanh"),
+        (cfg.mesh is None, "multi-device mesh"),
         (cfg.emsize % cfg.nhead == 0, "emsize % nhead != 0"),
     ]
     for ok, reason in checks:

@@ -13,8 +13,9 @@ from torch import nn
 _TRUNC_STD = 0.87962566103423978
 
 
-def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
+def lecun_normal_(weight: torch.Tensor, fan_in: int | None = None) -> torch.Tensor:
     """flax.linen.Dense's default kernel init: truncated normal with
-    variance 1 / fan_in. ``weight`` is torch-shaped (out, in)."""
-    std = math.sqrt(1.0 / weight.shape[1]) / _TRUNC_STD
+    variance 1 / fan_in. ``weight`` is torch-shaped (out, in), whose fan_in
+    is ``in``, unless ``fan_in`` is given."""
+    std = math.sqrt(1.0 / (fan_in or weight.shape[1])) / _TRUNC_STD
     return nn.init.trunc_normal_(weight, std=std, a=-2.0 * std, b=2.0 * std)

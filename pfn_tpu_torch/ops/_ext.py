@@ -63,9 +63,11 @@ def fused_param_shapes(D: int, F: int) -> dict:
     return {"wqkv": (D, 3 * D), "bqkv": (3 * D,), "wout": (D, D), "bout": (D,), "ln1_g": (D,), "ln1_b": (D,),
             "w1": (D, F), "b1": (F,), "w2": (F, D), "b2": (D,), "ln2_g": (D,), "ln2_b": (D,)}
 
-# Kernel launches since the last reset_launch_counts(), by kernel name.
+# Kernel launches since the last reset_launch_counts(), by kernel name; and
+# of those the flash kernels' prefix variant's (include_diag False).
 launch_counts = {"pfn_flash_fwd": 0, "pfn_flash_bwd_dq": 0, "pfn_flash_bwd_dkv": 0, "pfn_fused_layer_fwd": 0,
                  "pfn_fused_layer_bwd_ffn": 0, "pfn_fused_layer_bwd_attn": 0}
+prefix_launch_counts = {"pfn_flash_fwd": 0, "pfn_flash_bwd_dq": 0, "pfn_flash_bwd_dkv": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of each entry point: pointers, then int sizes and flags, then the stream.
@@ -82,8 +84,9 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, prefix_launch_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -189,14 +192,17 @@ def _check_rows(name: str, q, **rows) -> None:
             raise ValueError(f"{name}: {rname} must be a contiguous float32 {tuple(q.shape[:2])} tensor on q's device")
 
 
-def _launch(name: str, q, *args) -> None:
-    """Launch entry point ``name`` on q's device and current stream."""
+def _launch(name: str, q, *args, prefix: bool = False) -> None:
+    """Launch entry point ``name`` on q's device and current stream;
+    ``prefix``: a flash kernel's prefix variant."""
     fn = _entry(name)
     with torch.cuda.device(q.device):
         err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
     launch_counts[name] += 1
+    if prefix:
+        prefix_launch_counts[name] += 1
 
 
 def _flags(q, k, include_diag: bool) -> tuple:
@@ -219,7 +225,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sep: torch.Tens
     if q.numel() == 0:
         return o, lse
     _launch("pfn_flash_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            sep.data_ptr(), *_flags(q, k, include_diag))
+            sep.data_ptr(), *_flags(q, k, include_diag), prefix=not include_diag)
     return o, lse
 
 
@@ -237,7 +243,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, sep, include_diag: bool) -> torch.Tens
     if q.numel() == 0:
         return dq
     _launch("pfn_flash_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), sep.data_ptr(), *_flags(q, k, include_diag))
+            delta.data_ptr(), dq.data_ptr(), sep.data_ptr(), *_flags(q, k, include_diag), prefix=not include_diag)
     return dq
 
 
@@ -250,7 +256,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, sep, include_diag: bool) -> tuple[tor
     if k.numel() == 0:
         return dk, dv
     _launch("pfn_flash_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), sep.data_ptr(), *_flags(q, k, include_diag))
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), sep.data_ptr(), *_flags(q, k, include_diag),
+            prefix=not include_diag)
     return dk, dv
 
 

@@ -15,7 +15,9 @@
     the flax tree's names for the options the reference never exported), so
     that a ``PFNTransformer`` loaded from it with ``strict=True`` computes
     what the JAX model computes, with any encoder, SeqBN, positional
-    encoding and head that the JAX model builds.
+    encoding and head that the JAX model builds, and MoE layers.
+    :func:`state_dict_from_flax_pipeline_params` does the same for one stage
+    of a JAX ``PipelinedPFN``'s params.
 """
 
 from __future__ import annotations
@@ -121,40 +123,79 @@ def _decoder(sd: dict, p: dict) -> None:
         _dense(sd, "decoder.2", p["fc2"])
 
 
+def _layer(sd: dict, pre: str, L: dict) -> None:
+    """One encoder layer's entries under ``pre``. An MoE layer's FFN
+    (``moe``) maps to ``moe.router.weight`` / ``.bias`` (the router's Dense,
+    transposed) and ``moe.w1``, ``moe.b1``, ``moe.w2``, ``moe.b2`` as they
+    are ((E, D, nhid), (E, nhid), (E, nhid, D), (E, D): the port keeps the
+    JAX layout for the batched experts)."""
+    sd[pre + "self_attn.in_proj_weight"] = _tensor(np.asarray(L["self_attn"]["qkv"]["kernel"]).T)
+    sd[pre + "self_attn.in_proj_bias"] = _tensor(L["self_attn"]["qkv"]["bias"])
+    _dense(sd, pre + "self_attn.out_proj", L["self_attn"]["out_proj"])
+    if "moe" in L:
+        _dense(sd, pre + "moe.router", L["moe"]["router"])
+        for name in ("w1", "b1", "w2", "b2"):
+            sd[pre + "moe." + name] = _tensor(L["moe"][name])
+    else:
+        _dense(sd, pre + "linear1", L["linear1"])
+        _dense(sd, pre + "linear2", L["linear2"])
+    for norm in ("norm1", "norm2"):
+        sd[pre + norm + ".weight"] = _tensor(L[norm]["scale"])
+        sd[pre + norm + ".bias"] = _tensor(L[norm]["bias"])
+
+
+def _embed(sd: dict, pre: str, p: dict) -> None:
+    _encoder(sd, pre + "encoder", p["encoder"])
+    _encoder(sd, pre + "y_encoder", p["y_encoder"])
+    if "pos_encoder" in p:
+        sd[pre + "pos_encoder.pos_embedding"] = _tensor(p["pos_encoder"]["pos_embedding"])
+
+
 def state_dict_from_flax_params(params: dict, nlayers: int) -> dict:
     """Map a ``PFNTransformer`` flax params tree ({"params": {...}} or the
     inner dict) of numpy arrays to the port's state_dict of f32 tensors,
     with every option's parameters: the encoders' layouts (:func:`_encoder`),
     ``input_ln`` (SeqBN: scale, bias -> weight, bias), ``pos_encoder``'s
-    table, and the scaled heads (:func:`_decoder`)."""
+    table, MoE layers (:func:`_layer`) and the scaled heads
+    (:func:`_decoder`)."""
     p = params.get("params", params)
     sd: dict = {}
-    _encoder(sd, "encoder", p["encoder"])
-    _encoder(sd, "y_encoder", p["y_encoder"])
+    _embed(sd, "", p)
     if "input_ln" in p:
         sd["input_ln.weight"] = _tensor(p["input_ln"]["scale"])
         sd["input_ln.bias"] = _tensor(p["input_ln"]["bias"])
-    if "pos_encoder" in p:
-        sd["pos_encoder.pos_embedding"] = _tensor(p["pos_encoder"]["pos_embedding"])
     for i in range(nlayers):
-        L = p[f"layer_{i}"]
-        pre = f"transformer_encoder.layers.{i}."
-        sd[pre + "self_attn.in_proj_weight"] = _tensor(np.asarray(L["self_attn"]["qkv"]["kernel"]).T)
-        sd[pre + "self_attn.in_proj_bias"] = _tensor(L["self_attn"]["qkv"]["bias"])
-        _dense(sd, pre + "self_attn.out_proj", L["self_attn"]["out_proj"])
-        _dense(sd, pre + "linear1", L["linear1"])
-        _dense(sd, pre + "linear2", L["linear2"])
-        for norm in ("norm1", "norm2"):
-            sd[pre + norm + ".weight"] = _tensor(L[norm]["scale"])
-            sd[pre + norm + ".bias"] = _tensor(L[norm]["bias"])
+        _layer(sd, f"transformer_encoder.layers.{i}.", p[f"layer_{i}"])
     _decoder(sd, p["decoder"])
     return sd
+
+
+def state_dict_from_flax_pipeline_params(params: dict, layers_per_stage: int, stage: int) -> dict:
+    """Map a JAX ``PipelinedPFN``'s params ({"embed", "stages", "decoder"},
+    each {"params": ...}, every stage leaf with a leading stage axis) to the
+    state_dict of the port's ``PipelinedPFN`` on stage ``stage``:
+    ``embed.encoder``, ``embed.y_encoder``, ``embed.pos_encoder``,
+    ``stage.layer_{i}.*`` (that stage's slice) and ``decoder.*``."""
+    sd: dict = {}
+    _embed(sd, "embed.", params["embed"]["params"])
+    stages = params["stages"]["params"]
+    for i in range(layers_per_stage):
+        layer = _index_tree(stages[f"layer_{i}"], stage)
+        _layer(sd, f"stage.layer_{i}.", layer)
+    _decoder(sd, params["decoder"]["params"])
+    return sd
+
+
+def _index_tree(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
 
 
 def seeded_flax_params(num_features: int, emsize: int, nhid: int, nlayers: int, n_out: int, seed: int = 0,
                        encoder: str = "linear", y_encoder: str = "linear", input_normalization: bool = False,
                        pos_encoder: str | None = None, max_len: int = 0, decoder: str = "mlp",
-                       num_classes: int = 2, num_embs: int = 100) -> dict:
+                       num_classes: int = 2, num_embs: int = 100, num_experts: int = 0) -> dict:
     """A params tree in the JAX package's layout, every entry drawn from a
     numpy generator seeded with ``seed``: kernels N(0, 1/fan_in), biases
     N(0, 0.1^2), LayerNorm scales 1 + N(0, 0.1^2). Unlike a fresh init,
@@ -168,7 +209,9 @@ def seeded_flax_params(num_features: int, emsize: int, nhid: int, nlayers: int, 
     ``input_normalization`` (SeqBN scale and bias, as the LayerNorms);
     ``pos_encoder`` learned or paired_scrambled_learned (a (max_len, emsize)
     table of N(0, 1/emsize)); ``decoder`` mlp / scaled / fixed_scaled (T 1 +
-    N(0, 0.1^2))."""
+    N(0, 0.1^2)); ``num_experts`` > 0: every layer's FFN becomes an MoE
+    (``moe``: the router a dense of N(0, 1/fan_in), w1 and w2 N(0, 1/fan_in)
+    per expert, b1 and b2 N(0, 0.1^2)) in place of linear1 and linear2."""
     rng = np.random.default_rng(seed)
 
     def dense(fan_in: int, fan_out: int) -> dict:
@@ -225,4 +268,14 @@ def seeded_flax_params(num_features: int, emsize: int, nhid: int, nlayers: int, 
                         "T": np.float32(1.0 + 0.1 * rng.standard_normal())}
     elif decoder != "mlp":
         raise ValueError(f"unknown decoder {decoder!r}")
+    for i in range(nlayers if num_experts > 0 else 0):
+        L = p[f"layer_{i}"]
+        del L["linear1"], L["linear2"]
+        L["moe"] = {
+            "router": dense(emsize, num_experts),
+            "w1": (rng.standard_normal((num_experts, emsize, nhid)) / np.sqrt(emsize)).astype(np.float32),
+            "b1": (0.1 * rng.standard_normal((num_experts, nhid))).astype(np.float32),
+            "w2": (rng.standard_normal((num_experts, nhid, emsize)) / np.sqrt(nhid)).astype(np.float32),
+            "b2": (0.1 * rng.standard_normal((num_experts, emsize))).astype(np.float32),
+        }
     return {"params": p}

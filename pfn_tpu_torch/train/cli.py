@@ -16,6 +16,15 @@ trained model's ``state_dict`` (``train.checkpoints.save_checkpoint``);
 ``--warm_start PATH`` loads one into ``train(init_params=...)``.
 :func:`main` returns the ``TrainResult``, which is how scripts call it in
 process.
+
+On a device mesh, one process a rank under ``torchrun`` (N cards, NCCL):
+
+    torchrun --nproc_per_node N -m pfn_tpu_torch.train gp ... \\
+        --set mesh.enabled=true --set mesh.sp=2
+
+``config.build`` starts the rank from torchrun's environment; only rank 0
+prints and saves, and the process group ends with the run where ``main``
+started it.
 """
 
 from __future__ import annotations
@@ -75,6 +84,8 @@ def config_from_args(args) -> config_lib.ExperimentConfig:
 
 def main(argv=None):
     """Parse ``argv``, train, save; returns the ``TrainResult``."""
+    import torch.distributed as dist
+
     from pfn_tpu_torch.device import require_cuda
     from pfn_tpu_torch.train.checkpoints import restore_checkpoint, save_checkpoint
     from pfn_tpu_torch.train.loop import train
@@ -83,19 +94,25 @@ def main(argv=None):
     cfg = config_from_args(args)
     if cfg.train.device is None:
         require_cuda()  # before the prior and criterion are built: no CPU fallback
+    owns_group = cfg.mesh.enabled and not dist.is_initialized()
     prior, criterion, train_cfg, mesh = config_lib.build(cfg)
+    lead = mesh is None or mesh.rank == 0
+    try:
+        init_params = None
+        if cfg.warm_start_from:
+            init_params = restore_checkpoint(cfg.warm_start_from, map_location="cpu")
+            if lead:
+                print(f"warm-started params from {cfg.warm_start_from}")
 
-    init_params = None
-    if cfg.warm_start_from:
-        init_params = restore_checkpoint(cfg.warm_start_from, map_location="cpu")
-        print(f"warm-started params from {cfg.warm_start_from}")
-
-    result = train(prior, criterion, train_cfg, mesh=mesh, init_params=init_params)
-    print(f"final mean loss {result.final_loss:.5f}")
-
-    if cfg.checkpoint_path:
-        save_checkpoint(cfg.checkpoint_path, {k: v.detach().cpu() for k, v in result.model.state_dict().items()})
-        print(f"saved checkpoint to {cfg.checkpoint_path}")
+        result = train(prior, criterion, train_cfg, mesh=mesh, init_params=init_params)
+        if lead:
+            print(f"final mean loss {result.final_loss:.5f}")
+        if cfg.checkpoint_path and lead:
+            save_checkpoint(cfg.checkpoint_path, {k: v.detach().cpu() for k, v in result.model.state_dict().items()})
+            print(f"saved checkpoint to {cfg.checkpoint_path}")
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
     return result
 
 

@@ -35,6 +35,20 @@ How it maps to PyTorch:
     port's counterpart is its device rule: on the card the fused kernels run,
     and their plain PyTorch versions run only where the caller set
     ``device="cpu"``.
+  * ``num_experts > 0`` trains MoE FFNs; the loss adds ``moe_aux_weight``
+    times the layers' load-balancing loss (the reported loss is the task's),
+    and the automatic LR counts each expert weight at 1/E
+    (:func:`_active_param_count`).
+  * ``train(..., mesh=parallel.make_mesh(...))`` runs one rank of a device
+    mesh (one process a rank; ``parallel.init_distributed``). Every rank
+    draws the global batch, and sep, from the same seeded generator, which
+    is the one-rank run's batch, and keeps its rows (dp) and positions (sp).
+    The masked mean's numerator and denominator are summed over dp and sp;
+    gradients are summed over the data axes (``parallel.mesh.sync_grads_``)
+    and the clip's norm counts every parameter once. With ``fsdp`` the
+    parameters and the Adam state are split over dp as well. Checkpoints
+    hold the gathered state (they load on one device), only rank 0 writes
+    them and prints, and ``TrainResult.model`` is the one-device model.
 """
 
 from __future__ import annotations
@@ -47,8 +61,21 @@ import torch
 
 from pfn_tpu_torch.device import require_cuda
 from pfn_tpu_torch.models.fused_apply import fused_forward, fused_supported
-from pfn_tpu_torch.models.transformer import PFNTransformer, TransformerConfig, num_params
+from pfn_tpu_torch.models.transformer import PFNTransformer, TransformerConfig
 from pfn_tpu_torch.ops import _ext
+from pfn_tpu_torch.parallel.collectives import sum_over
+from pfn_tpu_torch.parallel.mesh import (
+    Mesh,
+    batch_sharding,
+    gathered_optimizer_state,
+    gathered_state_dict,
+    global_grad_norm,
+    load_full_optimizer_state_,
+    load_full_state_dict_,
+    shard,
+    shard_module_,
+    sync_grads_,
+)
 from pfn_tpu_torch.train.checkpoints import (
     latest_state_checkpoint,
     prune_state_checkpoints,
@@ -68,9 +95,9 @@ class TrainConfig:
     when there is no card; pass "cpu" to train on the CPU) and
     ``exact_gelu``, which the JAX config lacks (so a model the JAX loop
     builds from an exact-GELU checkpoint runs the tanh GELU; here it reaches
-    ``TransformerConfig.exact_gelu``). The fields for options the port does
-    not have yet (fsdp, experts) are kept and raise, naming their ROADMAP.md
-    item. The module factories take the port's protocols (``models/``).
+    ``TransformerConfig.exact_gelu``). ``fsdp`` splits the parameters and
+    the optimizer state over the mesh's dp axis (no effect without a mesh).
+    The module factories take the port's protocols (``models/``).
     ``attention_impl="fused"`` trains through the fused-layer kernels (module
     docstring)."""
 
@@ -137,19 +164,11 @@ class TrainResult:
     epoch_stats: list
 
 
-def _check_ported(cfg: TrainConfig, mesh=None) -> None:
-    """Raise for the options the port does not have yet."""
-    todo = {
-        "a device mesh": (mesh is not None, "queue 1 item 14 (parallelism)"),
-        "fsdp": (cfg.fsdp, "queue 1 item 14 (parallelism)"),
-        "num_experts > 0": (cfg.num_experts > 0, "queue 1 item 14 (MoE)"),
-    }
-    for name, (used, item) in todo.items():
-        if used:
-            raise NotImplementedError(f"training with {name} is not ported yet (ROADMAP.md {item})")
-
-
-def _device(cfg: TrainConfig) -> torch.device:
+def _device(cfg: TrainConfig, mesh: Mesh | None = None) -> torch.device:
+    if mesh is not None:
+        if cfg.device is not None and torch.device(cfg.device).type != mesh.device.type:
+            raise ValueError(f"TrainConfig.device {cfg.device} is not the mesh's device {mesh.device}")
+        return mesh.device
     if cfg.device is not None:
         return torch.device(cfg.device)
     return require_cuda()
@@ -159,12 +178,15 @@ def _updates_per_epoch(cfg: TrainConfig) -> int:
     return max(1, cfg.steps_per_epoch // cfg.aggregate_k_gradients)
 
 
-def build_model(prior, criterion: Criterion, cfg: TrainConfig) -> PFNTransformer:
+def build_model(prior, criterion: Criterion, cfg: TrainConfig, mesh: Mesh | None = None) -> PFNTransformer:
     """The PFN for ``prior`` and ``criterion`` (the head width follows the
     criterion), on the training device. Its initial weights are drawn from a
     generator seeded with ``cfg.seed``; the global RNG state is left as it
-    was."""
+    was. With ``mesh``: on the mesh's device, holding this rank's slices of
+    those weights (``parallel.mesh.shard_module_``, fsdp as ``cfg.fsdp``)."""
     mcfg = TransformerConfig(
+        mesh=mesh,
+        moe_capacity_factor=cfg.moe_capacity_factor,
         num_features=prior.num_features,
         n_out=criterion.n_out(prior.num_outputs),
         emsize=cfg.emsize,
@@ -186,7 +208,40 @@ def build_model(prior, criterion: Criterion, cfg: TrainConfig) -> PFNTransformer
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
         model = PFNTransformer(mcfg)
-    return model.to(_device(cfg))
+    model = model.to(_device(cfg, mesh))
+    return shard_module_(model, mesh, cfg.fsdp) if mesh is not None else model
+
+
+def _active_param_count(model: PFNTransformer, num_experts: int) -> int:
+    """The dense-equivalent parameter count of the one-device model for the
+    automatic LR: each MoE expert weight counts at 1/E (one expert is active
+    a token), so experts do not lower ``get_openai_lr``. A sharded
+    parameter counts whole."""
+    mesh, total = model.config.mesh, 0
+    for name, p in model.named_parameters():
+        n = p.numel()
+        for axis in model.param_specs.get(name, ()):
+            n *= mesh.axis_size(axis) if axis else 1
+        is_expert = ".moe." in name and name.rsplit(".", 1)[-1] in ("w1", "w2", "b1", "b2")
+        total += n // num_experts if is_expert and num_experts > 1 else n
+    return total
+
+
+def _validate_mesh_shapes(cfg: TrainConfig, mesh: Mesh | None) -> None:
+    """Raise, with the reason, where the batch, sequence, heads or experts do
+    not divide the mesh (the JAX package asserts the same)."""
+    if mesh is None:
+        return
+    dp, sp, tp, ep = (mesh.axis_size(a) for a in ("dp", "sp", "tp", "ep"))
+    if cfg.batch_size % dp:
+        raise ValueError(f"batch_size={cfg.batch_size} must divide over dp={dp}")
+    if sp > 1 and cfg.bptt % sp:
+        raise ValueError(f"bptt={cfg.bptt} must divide over sp={sp} for sequence parallelism (pad bptt or change sp)")
+    if tp > 1 and cfg.nhead % tp:
+        raise ValueError(f"nhead={cfg.nhead} must divide over tp={tp} (heads are the tensor-parallel axis of "
+                         "attention)")
+    if ep > 1 and cfg.num_experts % ep:
+        raise ValueError(f"num_experts={cfg.num_experts} must divide over ep={ep}")
 
 
 def _make_optimizer(cfg: TrainConfig, model: PFNTransformer):
@@ -194,7 +249,7 @@ def _make_optimizer(cfg: TrainConfig, model: PFNTransformer):
     epoch's cosine-warmup LR, constant within an epoch as the reference steps
     its scheduler once per epoch. Returns (optimizer, base_lr,
     step_schedule); the step applies the global-norm clip itself."""
-    base_lr = cfg.lr if cfg.lr is not None else get_openai_lr(num_params(model))
+    base_lr = cfg.lr if cfg.lr is not None else get_openai_lr(_active_param_count(model, cfg.num_experts))
     epoch_schedule = cosine_schedule_with_warmup(base_lr, cfg.warmup_epochs, cfg.epochs)
     updates_per_epoch = _updates_per_epoch(cfg)
 
@@ -237,26 +292,61 @@ def _check_fused(model: PFNTransformer, cfg: TrainConfig) -> None:
         raise ValueError(f"fused path does not support this config: {reason}")
 
 
-def _masked_loss(model, criterion: Criterion, cfg: TrainConfig, x, y, target_y, sep,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
-    """Mean loss over the eval positions (>= sep) of one microbatch, the
-    forward through the fused layers where ``cfg.attention_impl`` is
-    "fused"; dropout masks, if any, from ``generator``."""
+def _local_batch(mesh: Mesh | None, x, y, target_y):
+    """This rank's part of a global batch: its rows (dp) of x and y, whole
+    sequences, and its rows and positions (dp, sp) of target_y."""
+    if mesh is None:
+        return x, y, target_y
+    return shard(x, mesh, ("dp",)), shard(y, mesh, ("dp",)), shard(target_y, mesh, batch_sharding(mesh))
+
+
+def _loss_terms(criterion: Criterion, out, target_y, sep, mesh: Mesh | None):
+    """(numerator, denominator) of the mean loss over eval positions (>= sep)
+    of a batch, each rank's numerator over its rows and positions, the
+    denominator summed over dp and sp."""
+    start = mesh.axis_index("sp") * target_y.shape[1] if mesh is not None else 0
+    losses = criterion.per_position(out, target_y)  # (B, T)
+    positions = torch.arange(start, start + target_y.shape[1], device=losses.device)
+    mask = (positions >= sep).to(losses.dtype).expand_as(losses) * criterion.valid_weight(target_y)
+    return (losses * mask).sum(), sum_over(mask.sum(), mesh, ("dp", "sp")).clamp_min(1.0)
+
+
+def _loss_parts(model, criterion: Criterion, cfg: TrainConfig, x, y, target_y, sep,
+                generator: torch.Generator | None = None):
+    """(objective, task loss) of one microbatch, a global batch: the
+    objective to differentiate (on a mesh the rank's share, which sums over
+    dp and sp to the whole) and the mean task loss over eval positions. The
+    forward goes through the fused layers where ``cfg.attention_impl`` is
+    "fused"; dropout masks, if any, come from ``generator``."""
+    mesh = model.config.mesh
+    x, y, target_y = _local_batch(mesh, x, y, target_y)
     if cfg.attention_impl == "fused":
         out = fused_forward(model, x, y, sep)
+    elif cfg.num_experts > 0:
+        out, aux = model(x, y, sep, generator=generator, return_aux=True)
     else:
         out = model(x, y, sep, generator=generator)
-    losses = criterion.per_position(out, target_y)  # (B, T)
-    eval_rows = (torch.arange(cfg.bptt, device=losses.device) >= sep).to(losses.dtype)
-    mask = eval_rows.expand_as(losses) * criterion.valid_weight(target_y)
-    return (losses * mask).sum() / mask.sum().clamp_min(1.0)
+    num, den = _loss_terms(criterion, out, target_y, sep, mesh)
+    objective = num / den
+    if cfg.num_experts > 0:
+        objective = objective + cfg.moe_aux_weight * aux
+    return objective, sum_over(num.detach(), mesh, ("dp", "sp")) / den
+
+
+def _masked_loss(model, criterion: Criterion, cfg: TrainConfig, x, y, target_y, sep,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """The objective of :func:`_loss_parts`: the mean loss over the eval
+    positions (>= sep) of one microbatch, plus the weighted MoE loss."""
+    return _loss_parts(model, criterion, cfg, x, y, target_y, sep, generator)[0]
 
 
 def _update(state: TrainState, criterion: Criterion, cfg: TrainConfig, schedule, microbatches) -> dict:
     """One optimizer update from the (x, y, target_y, sep) ``microbatches``:
-    gradients summed over them, the global norm clipped to 1.0 by optax's
-    rule g / max(1, |g|), then Adam at ``schedule(state.step)``."""
+    gradients summed over them (and on a mesh over the data axes), the
+    global norm clipped to 1.0 by optax's rule g / max(1, |g|), then Adam at
+    ``schedule(state.step)``."""
     model, optimizer = state.model, state.optimizer
+    mesh = model.config.mesh
     if cfg.attention_impl == "fused":
         _check_fused(model, cfg)  # before a microbatch is drawn
     device = next(model.parameters()).device
@@ -268,16 +358,20 @@ def _update(state: TrainState, criterion: Criterion, cfg: TrainConfig, schedule,
     optimizer.zero_grad(set_to_none=True)
     k = 0
     for x, y, target_y, sep in microbatches:
-        loss = _masked_loss(model, criterion, cfg, x, y, target_y, sep, state.generator)
-        loss.backward()  # accumulates into .grad: the sum over microbatches
-        loss = loss.detach()
+        objective, loss = _loss_parts(model, criterion, cfg, x, y, target_y, sep, state.generator)
+        objective.backward()  # accumulates into .grad: the sum over microbatches
         onehot = (positions == sep).to(torch.float32)
         loss_sum += loss
         pos_loss += onehot * loss
         pos_cnt += onehot
         k += 1
-    grads = [p.grad for p in model.parameters()]
-    grad_norm = torch.nn.utils.get_total_norm(grads)
+    if mesh is None:
+        grads = [p.grad for p in model.parameters()]
+        grad_norm = torch.nn.utils.get_total_norm(grads)
+    else:
+        sync_grads_(model.named_parameters(), model.param_specs, mesh)
+        grads = [p.grad for p in model.parameters()]
+        grad_norm = global_grad_norm(model.named_parameters(), model.param_specs, mesh)
     # optax.clip_by_global_norm(1.0): g unchanged below the norm, g / |g| at or above it.
     divisor = torch.where(grad_norm < 1.0, torch.ones_like(grad_norm), grad_norm)
     for g in grads:
@@ -350,15 +444,29 @@ def make_train_chunk(train_step, updates_per_call: int):
 
 
 def _checkpoint(state: TrainState, epoch: int) -> dict:
-    return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(), "step": state.step,
+    """The one-device state: on a mesh the gathered model and Adam state
+    (every rank takes part)."""
+    return {"model": gathered_state_dict(state.model),
+            "optimizer": gathered_optimizer_state(state.model, state.optimizer), "step": state.step,
             "generator": state.generator.get_state(), "epoch": epoch}
 
 
 def _restore(state: TrainState, ckpt: dict) -> None:
-    state.model.load_state_dict(ckpt["model"], strict=True)
-    state.optimizer.load_state_dict(ckpt["optimizer"])
+    load_full_state_dict_(state.model, ckpt["model"])
+    load_full_optimizer_state_(state.model, state.optimizer, ckpt["optimizer"])
     state.generator.set_state(ckpt["generator"])
     state.step = int(ckpt["step"])
+
+
+def _one_device_model(prior, criterion: Criterion, cfg: TrainConfig, model: PFNTransformer) -> PFNTransformer:
+    """``model`` itself, or off a mesh: the one-device model of its gathered
+    weights, on the rank's device."""
+    mesh = model.config.mesh
+    if mesh is None:
+        return model
+    one = build_model(prior, criterion, dataclasses.replace(cfg, device=mesh.device))
+    one.load_state_dict(gathered_state_dict(model), strict=True)
+    return one
 
 
 def train(prior, criterion: Criterion, cfg: TrainConfig, mesh=None, init_params: dict[str, Any] | None = None,
@@ -369,19 +477,24 @@ def train(prior, criterion: Criterion, cfg: TrainConfig, mesh=None, init_params:
     ``validate_fn(model) -> float`` runs every ``validation_period`` epochs.
     ``data_iter``: an iterator of host ``(x, y, target_y)`` batches of shape
     (batch_size, bptt, ...), which switches to the host-fed step; ``prior``
-    then only gives num_features and num_outputs. ``mesh`` is the JAX
-    package's parameter and is not ported (it raises).
+    then only gives num_features and num_outputs; every rank of a mesh
+    passes the same global batches. ``mesh``: this rank's place on a device
+    mesh (``parallel.make_mesh``); ``validate_fn`` then sees the one-device
+    model of the gathered weights, as ``TrainResult.model`` is.
     """
-    _check_ported(cfg, mesh)
-    device = _device(cfg)
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a pfn_tpu_torch.parallel Mesh (parallel.make_mesh), not {type(mesh).__name__}")
+    _validate_mesh_shapes(cfg, mesh)
+    device = _device(cfg, mesh)
     updates_per_epoch = _updates_per_epoch(cfg)
     if cfg.steps_per_epoch % cfg.aggregate_k_gradients:
         raise ValueError("steps_per_epoch must be divisible by aggregate_k_gradients")
-    model = build_model(prior, criterion, cfg)
+    model = build_model(prior, criterion, cfg, mesh=mesh)
     if cfg.attention_impl == "fused":
         _check_fused(model, cfg)
     if init_params is not None:
-        model.load_state_dict(init_params, strict=True)
+        load_full_state_dict_(model, init_params)
+    lead = mesh is None or mesh.rank == 0  # the rank that prints and writes
     criterion = criterion.to(device)
     optimizer, _, schedule = _make_optimizer(cfg, model)
     state = TrainState(model, optimizer, torch.Generator(device=device).manual_seed(cfg.seed))
@@ -403,7 +516,7 @@ def train(prior, criterion: Criterion, cfg: TrainConfig, mesh=None, init_params:
             path, ckpt_epoch = latest
             _restore(state, restore_checkpoint(path, map_location="cpu"))
             start_epoch = ckpt_epoch + 1
-            if cfg.verbose:
+            if cfg.verbose and lead:
                 print(f"resumed from {path} (epoch {ckpt_epoch})")
 
     epoch_stats = []
@@ -436,7 +549,7 @@ def train(prior, criterion: Criterion, cfg: TrainConfig, mesh=None, init_params:
         positional = (pos_loss_acc / pos_cnt_acc.clamp_min(1.0)).tolist()
         val_score = None
         if validate_fn is not None and epoch % cfg.validation_period == 0:
-            val_score = validate_fn(model.eval())  # deterministic, as the JAX hook's apply
+            val_score = validate_fn(_one_device_model(prior, criterion, cfg, model).eval())  # deterministic
         lr_now = float(schedule((epoch - 1) * updates_per_epoch))
         stats = {
             "epoch": epoch,
@@ -449,21 +562,24 @@ def train(prior, criterion: Criterion, cfg: TrainConfig, mesh=None, init_params:
         }
         epoch_stats.append(stats)
         if cfg.checkpoint_dir and cfg.checkpoint_every > 0 and epoch % cfg.checkpoint_every == 0:
-            save_checkpoint(f"{cfg.checkpoint_dir}/epoch_{epoch}", _checkpoint(state, epoch))
-            if cfg.checkpoint_keep > 0:
-                prune_state_checkpoints(cfg.checkpoint_dir, cfg.checkpoint_keep)
-        if cfg.verbose:
+            ckpt = _checkpoint(state, epoch)
+            if lead:
+                save_checkpoint(f"{cfg.checkpoint_dir}/epoch_{epoch}", ckpt)
+                if cfg.checkpoint_keep > 0:
+                    prune_state_checkpoints(cfg.checkpoint_dir, cfg.checkpoint_keep)
+            if mesh is not None:  # no rank looks for a checkpoint before the lead has written it
+                torch.distributed.barrier()
+        if cfg.verbose and lead:
             print(
                 f"| epoch {epoch:3d} | time {stats['epoch_time']:5.2f}s "
                 f"| mean loss {total_loss:5.3f} | lr {lr_now:.2e}"
                 + (f" | val {val_score}" if val_score is not None else "")
             )
 
-    model.eval()
     return TrainResult(
         final_loss=total_loss,
         positional_losses=positional,
-        model=model,
+        model=_one_device_model(prior, criterion, cfg, model).eval(),
         criterion=criterion,
         config=cfg,
         epoch_stats=epoch_stats,

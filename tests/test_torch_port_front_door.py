@@ -6,7 +6,8 @@ tests/test_config.py.
 Deviations, named: the port's ``TrainConfig`` has ``device`` and
 ``exact_gelu`` (absent from the JAX config, so the tree comparisons drop
 them); ``--cpu`` sets ``TrainConfig.device`` where the JAX flag selects a
-JAX backend; ``mesh.enabled`` raises (no device mesh in the port yet).
+JAX backend; ``mesh.enabled`` on the CPU raises unless the caller started a
+gloo world (NCCL takes one card a rank).
 """
 
 import dataclasses
@@ -138,10 +139,16 @@ def test_ce_defaults_to_the_priors_classes_and_refuses_regression():
 
 
 def test_mesh_raises_naming_its_item():
+    """``mesh.enabled`` builds a mesh over the world's ranks (since ROADMAP.md
+    queue 1 item 14; tests/test_torch_port_mesh_cli.py). Started here, the
+    world's backend is NCCL, one card a rank: on the CPU it raises, naming
+    the backend, and falls back to neither gloo nor the CPU."""
     cfg = config.ExperimentConfig()
     cfg.mesh.enabled = True
-    with pytest.raises(NotImplementedError, match="item 14"):
+    cfg.train.device = "cpu"
+    with pytest.raises(ValueError, match="NCCL needs CUDA"):
         config.build(cfg)
+    assert not torch.distributed.is_initialized()
 
 
 def test_cli_trains_saves_and_warm_starts_on_the_cpu(tmp_path, monkeypatch, capsys):

@@ -5,7 +5,8 @@
   * No source of the port, and not chip_smoke.py, imports jax or pfn_tpu;
     the experiments run with both blocked, and the evaluation modules import
     without sklearn, pandas, matplotlib and scipy (the card's machine).
-  * The kernel wrappers refuse CPU tensors (they never fall back).
+  * The kernel wrappers refuse CPU tensors (they never fall back); the
+    parallel layer catches no exception and sets no backend but NCCL.
   * A library's build hash covers every header under csrc/, so an edited
     header rebuilds the libraries that include it.
   * The ctypes argument types of every C entry point match its extern "C"
@@ -55,6 +56,29 @@ def test_every_module_imports_with_jax_blocked():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 20
+
+
+def test_the_walk_covers_the_parallel_layer():
+    """The import walk above reaches the device-mesh modules and MoE."""
+    import pkgutil
+
+    import pfn_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(pfn_tpu_torch.__path__, "pfn_tpu_torch.")}
+    assert {"pfn_tpu_torch.parallel", "pfn_tpu_torch.parallel.mesh", "pfn_tpu_torch.parallel.collectives",
+            "pfn_tpu_torch.parallel.pipeline", "pfn_tpu_torch.models.moe"} <= names
+
+
+def test_the_parallel_layer_has_no_fallback():
+    """No source under pfn_tpu_torch/parallel/ catches an exception (so none
+    can pick another backend or device after a failure), and the backend
+    is NCCL unless the caller names gloo: the only place that sets it."""
+    for path in sorted((PACKAGE / "parallel").glob("*.py")):
+        tree = ast.parse(path.read_text())
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], path
+        sets_backend = [n for n in ast.walk(tree) if isinstance(n, ast.Assign)
+                        and any(isinstance(t, ast.Name) and t.id == "backend" for t in n.targets)]
+        assert all(isinstance(n.value, ast.Constant) and n.value.value == "nccl" for n in sets_backend), path
 
 
 _EXPERIMENTS = ("gp_fitting", "fig3a_longrun", "fig3a_analytic_gap", "fig3a_robust_eval", "grid_fidelity",

@@ -138,17 +138,12 @@ def test_eval_labels_are_invisible_and_sep_may_be_a_tensor():
     ("decoder", lambda emsize, nhid, n_out: ScaledDecoder(emsize, nhid, n_out)),
 ])
 def test_unported_options_raise(field, value):
-    """Of these options only the MoE FFN (ROADMAP.md queue 1 item 14) is
-    still unported and raises, naming its item. SeqBN and the encoder,
-    positional-encoding and decoder factories (queue 1 item 9, ported since)
-    build and run; their parity with the JAX model is
-    tests/test_torch_port_model_options.py's."""
+    """None of these options raises any more: SeqBN and the encoder,
+    positional-encoding and decoder factories (queue 1 item 9) and the MoE
+    FFN (item 14) build and run. Their parity with the JAX model is
+    tests/test_torch_port_model_options.py's and test_torch_port_moe.py's."""
     cfg = dataclasses.replace(TransformerConfig(num_features=1, n_out=4, emsize=8, nhead=2, nhid=8, nlayers=1),
                               **{field: value})
-    if field == "num_experts":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PFNTransformer(cfg)
-        return
     out = PFNTransformer(cfg).eval()(torch.rand(2, 5, 1), torch.rand(2, 5), 2)
     assert out.shape == (2, 5, 4) and bool(torch.isfinite(out).all())
 

@@ -1,8 +1,8 @@
 """The port's training loop on its own, at a tiny GP configuration on the CPU:
 train() runs and learns, its bookkeeping, chunked updates, checkpoints and
 bitwise resume, the host-fed path, the inference constructors, the options
-that are not ported, and the attention dispatch rule the training path runs
-on the card.
+of ROADMAP.md queue 1 (all ported now), and the attention dispatch rule the
+training path runs on the card.
 """
 
 import dataclasses
@@ -146,25 +146,27 @@ def test_regressor_from_train_result_and_checkpoint(criterion, tmp_path):
 
 
 @pytest.mark.parametrize("over,kwargs,raises", [
-    ({"fsdp": True}, {}, NotImplementedError),
-    ({"num_experts": 2}, {}, NotImplementedError),
+    ({"fsdp": True}, {}, None),
+    ({"num_experts": 2}, {}, None),
     ({"dropout": 0.1}, {}, None),
     ({"encoder": lambda in_features, emsize: MLPEncoder(in_features, emsize)}, {}, None),
     ({"decoder": lambda emsize, nhid, n_out: FixedScaledDecoder(emsize, nhid, n_out)}, {}, None),
     ({"eval_pos_sampler": "custom"}, {}, KeyError),
-    ({}, {"mesh": object()}, NotImplementedError),
+    ({}, {"mesh": object()}, TypeError),
 ], ids=["fsdp", "experts", "dropout", "encoder", "decoder", "sampler", "mesh"])
 def test_unported_options_raise_naming_their_roadmap_item(criterion, over, kwargs, raises):
-    """fsdp, experts and a mesh (ROADMAP.md queue 1 item 14) still raise,
-    naming their item. Dropout and custom modules (item 9) now train; an
-    eval-position sampler resolves through registries.EVAL_POS_SAMPLERS
-    (item 13), so an unregistered name raises KeyError listing the
-    available ones."""
+    """Every option of ROADMAP.md queue 1 now trains: fsdp (without a mesh
+    it has nothing to split, as in the JAX package), experts (item 14),
+    dropout and custom modules (item 9). A mesh must be a
+    ``pfn_tpu_torch.parallel`` Mesh (tests/test_torch_port_mesh_train.py
+    trains on them), so another object raises TypeError; an eval-position
+    sampler resolves through registries.EVAL_POS_SAMPLERS (item 13), so an
+    unregistered name raises KeyError listing the available ones."""
     if raises is None:
         result = train(PRIOR, criterion, _cfg(epochs=1, steps_per_epoch=2, **over), **kwargs)
         assert np.isfinite(result.final_loss)
         return
-    with pytest.raises(raises, match="ROADMAP.md" if raises is NotImplementedError else "available"):
+    with pytest.raises(raises, match="Mesh" if raises is TypeError else "available"):
         train(PRIOR, criterion, _cfg(**over), **kwargs)
 
 
