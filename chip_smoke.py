@@ -157,7 +157,13 @@ Phases, each printing one JSON line:
      run), bitwise equal to an uninterrupted 2-epoch run, 2 epochs on the
      exact sampler (s/epoch of both); fig3a_analytic_gap (f64 moments on the
      card, KL finite and >= -1e-6) and fig3a_robust_eval on 2 chunks of 8
-     datasets; the oracle pass alone (its throughput); grid_fidelity with
+     datasets; on that analytic gap's files the two gap analyses,
+     bar_resolution_floor (the floor at 1000 and 10 000 buckets on borders
+     rebuilt at cap 128, finite and >= 0, the out-of-support mass, the
+     rebuilt 10 000 borders' shift against the run's) and
+     analytic_gap_decompose (KL_total in f64 equal to the analytic gap's
+     mean within 1e-6, the tail's share at ctx 1 and 2000), each timed;
+     the oracle pass alone (its throughput); grid_fidelity with
      both methods at G 8192, T 2010, batch 64 (effective noise, the prior's
      moments); gp_fitting --quick cut to 2 epochs (finite, decreasing
      losses). The flash kernels' launches are counted over the phase.
@@ -3043,7 +3049,9 @@ def phase_fig3a(device, smi: str, size: dict = FIG3A_EXPERIMENTS):
     an uninterrupted 2-epoch run, and 2 epochs on the exact sampler (s/epoch
     of both samplers); fig3a_analytic_gap (f64 moments on the card) and
     fig3a_robust_eval on the checkpoint, 2 chunks of 8 datasets at the 14
-    positions; grid_fidelity with both methods at G 8192, T 2010, batch 64;
+    positions; bar_resolution_floor and analytic_gap_decompose on the
+    analytic gap's files; grid_fidelity with both methods at G 8192, T 2010,
+    batch 64;
     gp_fitting --quick cut to 2 epochs. Returns the flash kernels' launches
     over the whole phase."""
     import tempfile
@@ -3053,6 +3061,8 @@ def phase_fig3a(device, smi: str, size: dict = FIG3A_EXPERIMENTS):
     from torch.profiler import ProfilerActivity, profile
 
     from pfn_tpu_torch.experiments import (
+        analytic_gap_decompose,
+        bar_resolution_floor,
         fig3a_analytic_gap,
         fig3a_longrun,
         fig3a_robust_eval,
@@ -3111,6 +3121,13 @@ def phase_fig3a(device, smi: str, size: dict = FIG3A_EXPERIMENTS):
     gap, _ = timed("analytic_gap", fig3a_analytic_gap.main,
                    score + grid + ["--bucket_seq_cap", str(size["bucket_seq_cap"]), "--out", str(tmp / "agap")])
     robust, _ = timed("robust_eval", fig3a_robust_eval.main, score + ["--out", str(tmp / "robust")])
+    agap = tmp / "agap"
+    floor, _ = timed("bar_resolution_floor", bar_resolution_floor.main, dev + [
+        "--moments", str(agap / "oracle_moments.npz"), "--analytic", str(agap / "analytic_gap.json"),
+        "--check_borders", str(agap / "borders.npy"), "--bptt", str(T), "--seq_cap", str(size["bucket_seq_cap"]),
+        "--buckets", "1000", str(buckets), "--out", str(tmp / "floor.json")])
+    decomp, _ = timed("analytic_gap_decompose", analytic_gap_decompose.main, dev + [
+        "--dir", str(agap), "--label", "chip_smoke", "--out", str(tmp / "decompose.json")])
     launches = dict(_ext.launch_counts)
     oracle, _ = timed("oracle_pass", fig3a_longrun.main, dev + grid + ["--out", str(tmp / "run"), "--oracle_pass"])
     fidelity = {}
@@ -3132,6 +3149,9 @@ def phase_fig3a(device, smi: str, size: dict = FIG3A_EXPERIMENTS):
     stats = {name: [s["epoch_time"] for s in run["epoch_stats"]] for name, run in (
         ("grid_run", first), ("grid_resumed", resumed), ("grid_straight", straight), ("exact", exact))}
     oracle_pairs = 2 * size["eval_batch"] * P  # dataset-positions at two noises
+    floors = np.asarray([floor[f"floor_mean_{nb}b"] for nb in (1000, buckets)])
+    tail_share = [t / max(tot, 1e-300) for t, tot in zip(decomp["kl_tail_mean"], decomp["kl_total_mean"])]
+    at = {gap["positions"][0]: 0, gap["positions"][-1]: P - 1}  # ctx 1 and 2000
     fit_losses = [s["mean_loss"] for s in fit["epoch_stats"]]
     checks = {
         "resumed": "resumed from" in resume_log,
@@ -3148,6 +3168,12 @@ def phase_fig3a(device, smi: str, size: dict = FIG3A_EXPERIMENTS):
         "kl_shape": kl.shape == (2, P, n_gap),
         "kl_finite": bool(np.isfinite(kl).all()),
         "kl_nonnegative": bool(kl.min() >= -1e-6),
+        "floor_finite_nonnegative": floors.shape == (2, P) and bool(np.isfinite(floors).all() and floors.min() >= 0),
+        "floor_borders_checked_against_the_run": bool(np.isfinite(
+            floor.get(f"borders_{buckets}b_max_shift_vs_run", np.nan))),
+        "decompose_total_equals_gap": bool(np.abs(np.asarray(decomp["kl_total_mean"])
+                                                  - np.asarray(gap["kl_mean_effective"])).max() < 1e-6),
+        "decompose_finite": bool(np.isfinite(decomp["kl_interior_mean"] + decomp["kl_tail_mean"]).all()),
         "robust_finite": bool(np.isfinite(np.asarray(robust["gap_ci95_effective"])).all()),
         "grid_fidelity_finite": all(np.isfinite(f["effective_noise"]) and np.isfinite(f["latent_err_rms"])
                                     for f in fidelity.values()),
@@ -3169,6 +3195,14 @@ def phase_fig3a(device, smi: str, size: dict = FIG3A_EXPERIMENTS):
         "analytic_gap": {k: gap[k] for k in ("kl_mean_effective", "kl_median_effective", "kl_ci95_effective",
                                              "verdict_effective", "kl_mean_nominal")},
         "robust_eval": {k: robust[k] for k in ("gap_mean_effective", "gap_ci95_effective")},
+        "bar_resolution_floor": {
+            "s": seconds["bar_resolution_floor"], f"floor_mean_{buckets}b": floor[f"floor_mean_{buckets}b"],
+            f"out_of_support_mass_mean_{buckets}b": floor[f"out_of_support_mass_mean_{buckets}b"],
+            f"borders_{buckets}b_max_shift_vs_run": floor.get(f"borders_{buckets}b_max_shift_vs_run")},
+        "analytic_gap_decompose": {
+            "s": seconds["analytic_gap_decompose"],
+            "kl_tail_over_total": {f"ctx{ctx}": tail_share[i] for ctx, i in at.items()},
+            "kl_total_mean": {f"ctx{ctx}": decomp["kl_total_mean"][i] for ctx, i in at.items()}},
         "grid_fidelity": {m: {k: f[k] for k in ("duplicate_pairs", "effective_noise", "effective_noise_ci95",
                                                 "latent_err_rms_over_noise_sd", "verdict", "prior_moments")}
                           for m, f in fidelity.items()},

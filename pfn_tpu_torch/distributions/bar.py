@@ -44,16 +44,18 @@ def _pick(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 class BarDistribution:
     """Histogram distribution over ``num_bars`` buckets with sorted borders
-    of length num_bars + 1."""
+    of length num_bars + 1, held in ``dtype``: float32 as the JAX package's
+    ``create``; float64 as its constructor given float64 borders under x64
+    (the widths and tail scales then in float64 too)."""
 
-    def __init__(self, borders):
-        borders = torch.as_tensor(borders, dtype=torch.float32)
+    def __init__(self, borders, dtype: torch.dtype = torch.float32):
+        borders = torch.as_tensor(borders, dtype=dtype)
         if borders.dim() != 1:
             raise ValueError("borders must be 1-D (sorted)")
         self.borders = borders
 
     def to(self, device) -> "BarDistribution":
-        return type(self)(self.borders.to(device))
+        return type(self)(self.borders.to(device), dtype=self.borders.dtype)
 
     @property
     def num_bars(self) -> int:

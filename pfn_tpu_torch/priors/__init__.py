@@ -6,7 +6,13 @@ target_y (B, T))``, every draw from the generator, on its device.
 """
 
 from pfn_tpu_torch.priors import hyper, transforms
-from pfn_tpu_torch.priors.base import Prior, default_group_size, sample_y_for_buckets
+from pfn_tpu_torch.priors.base import (
+    Prior,
+    PriorDataLoader,
+    default_group_size,
+    make_dataloader,
+    sample_y_for_buckets,
+)
 from pfn_tpu_torch.priors.binarize import BinarizedPrior, binarized_gp_mix_prior, binarized_gp_prior
 from pfn_tpu_torch.priors.gp import GPPrior
 from pfn_tpu_torch.priors.gp_mix import GPMixPrior
@@ -26,12 +32,14 @@ __all__ = [
     "ModulePrior",
     "OmniglotPrior",
     "Prior",
+    "PriorDataLoader",
     "RidgePrior",
     "StrokePrior",
     "binarized_gp_mix_prior",
     "binarized_gp_prior",
     "default_group_size",
     "hyper",
+    "make_dataloader",
     "omniglot_accuracy",
     "sample_y_for_buckets",
     "transforms",

@@ -82,8 +82,8 @@ def test_the_parallel_layer_has_no_fallback():
 
 
 _EXPERIMENTS = ("gp_fitting", "fig3a_longrun", "fig3a_analytic_gap", "fig3a_robust_eval", "grid_fidelity",
-                "bayesian_models_custom_priors", "tabular_eval", "tabular_hgb_baseline", "fewshot_omniglot",
-                "bayesopt_eval")
+                "bar_resolution_floor", "analytic_gap_decompose", "bayesian_models_custom_priors", "tabular_eval",
+                "tabular_hgb_baseline", "fewshot_omniglot", "bayesopt_eval")
 # The device flag each takes: the Fig-3a ones --device, the evaluation,
 # few-shot and Bayesian-optimisation drivers the JAX drivers' --cpu; the hgb
 # baseline, host only as its JAX script, neither.
