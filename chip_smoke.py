@@ -260,7 +260,25 @@ Phases, each printing one JSON line:
      a checkpoint resumed bitwise, the flash kernels 6 a update, the
      load-balancing loss finite, a forward against the dense path by the
      bf16 rule, update time, datasets/s, peak memory.
- 29. dkv_against_library: the dk/dv kernel at sep 1000, both variants,
+ 29. The measurement drivers (pfn_tpu_torch.experiments) at the full width,
+     cut only in repeats and epochs (PROFILE_STEP_CONFIGS, MEASURE):
+     profile_step at the Fig-3a microbatch (B 4, T 2010, grid 8192, 10 000
+     buckets) and the flagship: stage times, the JAX formula's roofline
+     share, 23.394064 M parameters at the Fig-3a microbatch, the flash
+     launches of its stages exactly. batch_sweep: first the bf16 flash
+     kernels at B*H 40 and 400, T 2010, sep 1000 and 1595 against their
+     plain f32 versions (the forward by kernel_timing's budget, dq and
+     dk/dv by kernel_bwd's rule, repeat calls bitwise equal), their ms
+     beside their bounds (SWEEP_HOLD); then batch_shape_sweep's main, all
+     six shapes 4x25 to 100x1 at T 2010 (every one must time), s/epoch and
+     peak memory a shape. anomaly: anomaly_10x10's main, the step at 4x25,
+     10x10, 20x5, the flash attention alone and the exact prior alone at B
+     4, 10, 20, 25. fused_ab: fused_ab's main (auto, fused, auto at grid
+     2048; the speedup), then flagship_throughput's main once (the exact
+     sampler, and the stock-torch baseline on the card). Each phase's
+     flash and fused launches are held to their expected counts and join
+     the kernels line's.
+ 30. dkv_against_library: the dk/dv kernel at sep 1000, both variants,
      beside SDPA's backward less the dq kernel, from this run.
 Then the kernels line (each kernel's launches on its path, error, time,
 plain time, bound and library time, for the fused kernels also the library
@@ -466,6 +484,24 @@ MESH_TIMEOUT_S = 300
 # T 2010, batch 4, the exact GP prior, 1000 buckets, 2 epochs of 2 updates.
 MOE = dict(T=2010, emsize=512, nhead=4, nhid=1024, nlayers=6, buckets=1000, batch_size=4, experts=4, updates=2,
            lr=1e-4, timed_updates=4)
+# The measurement drivers (pfn_tpu_torch/experiments: profile_step,
+# batch_shape_sweep, anomaly_10x10, fused_ab, flagship_throughput) at the
+# full width, cut only in repeats and epochs: one timed epoch-equivalent a
+# sweep or step shape (the scripts time 2), 4 timed calls of 25 updates a
+# flagship measurement (20). The attention and the prior alone keep the
+# script's 3 timed 100-dataset repeats, the stock-torch baseline takes 10
+# steps (3), and profile_step runs uncut at the Fig-3a microbatch and at
+# the flagship (its defaults).
+PROFILE_STEP_CONFIGS = {
+    "fig3a_microbatch": ["--bptt", "2010", "--batch_size", "4", "--grid", "8192", "--num_buckets", "10000"],
+    "flagship": [],
+}
+MEASURE = dict(bptt=2010, epochs_timed=1, reps_timed=3, ab_steps=4, baseline_steps=10)
+# The bf16 flash kernels at two of the sweep's microbatches, 10x10's and
+# 100x1's: B 10 and 100 datasets of 4 heads (B*H 40 and 400), T 2010, D 128,
+# at sep 1000 and at the mixture sampler's mean sep 1595; the plain f32
+# versions run ``chunk`` datasets at a time.
+SWEEP_HOLD = dict(batches=[10, 100], seps=[1000, 1595], H=4, T=2010, D=128, chunk=25)
 # Device kernels of the flash f32 bodies, as the profiler names them.
 FLASH_F32_KERNELS = {"pfn_flash_fwd": "fwd_f32", "pfn_flash_bwd_dq": "dq_f32", "pfn_flash_bwd_dkv": "dkv_f32"}
 TIMING_SEPS = [400, 1000, 2000]
@@ -785,12 +821,10 @@ def phase_card():
     import torch
 
     from pfn_tpu_torch.device import require_cuda
+    from pfn_tpu_torch.experiments.common import card
 
     device = require_cuda()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card(device)
     print(smi, flush=True)
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is True; the port's f32 numerics need it off")
@@ -4267,6 +4301,288 @@ def phase_moe(device, smi: str, size: dict = MOE):
     return launches
 
 
+def _launch_delta(before: dict) -> dict:
+    """Launches of every kernel since the ``before`` reading of the counts."""
+    from pfn_tpu_torch.ops import _ext
+
+    return {k: _ext.launch_counts[k] - before[k] for k in _ext.launch_counts}
+
+
+def _finite_positive(values) -> bool:
+    import math
+
+    return all(isinstance(v, float) and math.isfinite(v) and v > 0 for v in values)
+
+
+def phase_profile_step(device, smi: str, configs: dict = PROFILE_STEP_CONFIGS):
+    """pfn_tpu_torch.experiments.profile_step at each of PROFILE_STEP_CONFIGS
+    (the Fig-3a microbatch, the flagship): its stage times, the JAX
+    formula's roofline share at 989 TFLOP/s, the card it read; the flash
+    kernels launched once per layer per forward and per backward of its
+    stages (the dense path at T 100). Returns the phase's launches."""
+    import tempfile
+
+    from pfn_tpu_torch.experiments import profile_step
+    from pfn_tpu_torch.experiments.common import FIG3A_MODEL
+    from pfn_tpu_torch.ops import _ext
+
+    tmp = Path(tempfile.mkdtemp(prefix="pfn_profile_"))
+    readings, launches, expected, seconds = {}, {}, {}, {}
+    _ext.reset_launch_counts()
+    for name, argv in configs.items():
+        before = dict(_ext.launch_counts)
+        t0 = time.perf_counter()
+        readings[name], _ = _quietly(profile_step.main, ["--device", str(device), *argv,
+                                                          "--out", str(tmp / f"{name}.json")])
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = _launch_delta(before)
+        # Forward: its own stage, the forward + backward stage and the extra
+        # call that gives the optimizer stage its gradients, the full step;
+        # backward: the last three.
+        n, L, flash = profile_step.WARMUP + profile_step.REPS, FIG3A_MODEL["nlayers"], readings[name]["bptt"] >= 256
+        expected[name] = {k: 0 for k in _ext.launch_counts}
+        if flash:
+            expected[name].update({"pfn_flash_fwd": L * (3 * n + 1), "pfn_flash_bwd_dq": L * (2 * n + 1),
+                                   "pfn_flash_bwd_dkv": L * (2 * n + 1)})
+    stages = ("prior_sample_ms", "forward_ms", "fwd_bwd_ms", "optimizer_ms", "full_step_ms")
+    checks = {
+        "stages_finite_positive": all(_finite_positive([r[k] for k in stages]) for r in readings.values()),
+        "roofline_finite_positive": all(_finite_positive(list(r["roofline"].values())) for r in readings.values()),
+        "fig3a_params": readings["fig3a_microbatch"]["params_m"] == 23.394064,
+        "card_read": all(r["card"] == smi for r in readings.values()),
+        "launches": launches == expected,
+    }
+    emit({"phase": "profile_step", "card": smi, "readings": readings, "seconds": seconds, "launches": launches,
+          "expected_launches": expected, "checks": checks})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"profile_step checks failed: {failed}")
+    return {k: sum(run[k] for run in launches.values()) for k in _ext.launch_counts}
+
+
+def _by_chunks(fn, chunk: int, *tensors):
+    """fn over ``chunk`` rows at a time of the leading dim of ``tensors``,
+    each output (a tensor or a tuple of tensors) joined along it: the plain
+    f32 versions at B*H 400 without the whole (B*H, T, T) scores at once."""
+    import torch
+
+    parts = [fn(*(t[i:i + chunk] for t in tensors)) for i in range(0, tensors[0].shape[0], chunk)]
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts)
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def _hold_flash_bf16(device, B: int, sep: int, size: dict, g) -> dict:
+    """bf16 kernels 1-3 at B datasets of ``size``'s heads, T and D, at sep:
+    the forward by the bf16 budget (kernel_timing's rule), dq and dk/dv by
+    kernel_bwd's rule against the plain dense f32 version (run by chunks
+    of datasets), repeat calls bitwise equal; each kernel's ms by events
+    beside its bound."""
+    import torch
+
+    from pfn_tpu_torch.ops import _ext
+    from pfn_tpu_torch.ops.attention import pfn_attention_reference
+    from pfn_tpu_torch.ops.flash_attention import _flash_bwd_plain, _flash_fwd, _flash_fwd_plain
+
+    H, T, D, chunk = size["H"], size["T"], size["D"], size["chunk"]
+    BH, where = B * H, f"batch_sweep hold, B*H {B * H}, sep {sep}"
+    q, k, v, do4 = (torch.randn(B, H, T, D, generator=g, device=device).to(torch.bfloat16) for _ in range(4))
+    qs = (q * D**-0.5).reshape(BH, T, D)
+    kf, vf, do = k.reshape(BH, T, D), v.reshape(BH, T, D), do4.reshape(BH, T, D)
+    sep_t = torch.full((1,), sep, dtype=torch.int32, device=device)
+    o, lse = _flash_fwd(qs, kf, vf, sep_t, True)
+    o2, lse2 = _flash_fwd(qs, kf, vf, sep_t, True)
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"{where}: a repeat forward call differs")
+    with torch.no_grad():
+        gold = _by_chunks(lambda a, b, c: pfn_attention_reference(a.float(), b.float(), c.float(), sep), chunk, q, k, v)
+        dense = _by_chunks(lambda a, b, c: pfn_attention_reference(a, b, c, sep), chunk, q, k, v)
+    fwd_err = max_abs(o.reshape(B, H, T, D), gold)
+    fwd_budget = 2 * max_abs(dense, gold) + 1e-3
+    del gold, dense
+    delta = (do.float() * o.float()).sum(-1)
+    dq, dk, dv = _repeat_bitwise(qs, kf, vf, do, lse, delta, sep_t, True, where)
+
+    def gold_bwd(a, b, c, d):
+        f32 = [t.float() for t in (a, b, c)]
+        o32, lse32 = _flash_fwd_plain(*f32, sep, T, True)
+        return _flash_bwd_plain(*f32, o32, lse32, d.float(), None, sep, T, True)
+
+    def dense_bwd(a, b, c, d):
+        leaves = [t.detach().requires_grad_() for t in (a, b, c)]
+        loss = (pfn_attention_reference(*leaves, sep, scale=1.0).float() * d.float()).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    with torch.no_grad():
+        gold_g = _by_chunks(gold_bwd, chunk * H, qs, kf, vf, do)
+    dense_g = _by_chunks(dense_bwd, chunk, *(t.reshape(B, H, T, D) for t in (qs, kf, vf)), do4)
+    errs = _grad_errors((dq, dk, dv), gold_g, [t.reshape(BH, T, D) for t in dense_g])
+    del gold_g, dense_g
+    if fwd_err > fwd_budget or not _bf16_ok(errs):
+        raise AssertionError(f"{where}: bf16 error over budget: forward {fwd_err} (budget {fwd_budget}), {errs}")
+    ms = {"fwd": cuda_ms(lambda: _flash_fwd(qs, kf, vf, sep_t, True)),
+          "dq": cuda_ms(lambda: _ext.flash_bwd_dq(qs, kf, vf, do, lse, delta, sep_t, True)),
+          "dkv": cuda_ms(lambda: _ext.flash_bwd_dkv(qs, kf, vf, do, lse, delta, sep_t, True))}
+    return {"BH": BH, "sep": sep, "fwd_bf16_err": fwd_err, "fwd_bf16_budget": fwd_budget, "bwd_bf16_rel_err": errs,
+            "repeat_bitwise_equal": True,
+            **{kind: {"ms": ms[kind], **flash_bound(kind, BH, T, D, sep), **rate(kind, BH, T, D, sep, ms[kind])}
+               for kind in ("fwd", "dq", "dkv")}}
+
+
+def phase_batch_sweep(device, smi: str, hold: dict = SWEEP_HOLD, size: dict = MEASURE):
+    """First the bf16 flash kernels at the sweep's largest and smallest
+    microbatch (``_hold_flash_bf16`` at SWEEP_HOLD); then
+    pfn_tpu_torch.experiments.batch_shape_sweep's main, all six shapes at
+    the full width and T 2010 (exact GP prior, 1000 buckets, bf16),
+    ``size["epochs_timed"]`` epoch-equivalents each: every shape must time (a
+    "failed: ..." entry fails the phase), s/epoch and peak memory a shape,
+    the flash kernels once per layer per microbatch. Returns the sweep's
+    launches."""
+    import tempfile
+
+    import torch
+
+    from pfn_tpu_torch.experiments import batch_shape_sweep
+    from pfn_tpu_torch.experiments.common import FIG3A_MODEL
+    from pfn_tpu_torch.ops import _ext
+
+    g = torch.Generator(device=device).manual_seed(5)
+    t0 = time.perf_counter()
+    holds = [_hold_flash_bf16(device, B, sep, hold, g) for B in hold["batches"] for sep in hold["seps"]]
+    hold_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    peak_gib = {}
+    real = batch_shape_sweep.time_config
+
+    def time_config(batch_size, agg, bptt, epochs, dev):
+        torch.cuda.reset_peak_memory_stats(dev)
+        s = real(batch_size, agg, bptt, epochs, dev)
+        peak_gib[f"{batch_size}x{agg}"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        return s
+
+    out = Path(tempfile.mkdtemp(prefix="pfn_sweep_")) / "batch_sweep.json"
+    _ext.reset_launch_counts()
+    batch_shape_sweep.time_config = time_config
+    t0 = time.perf_counter()
+    try:
+        payload, log = _quietly(batch_shape_sweep.main, ["--device", str(device), "--bptt", str(size["bptt"]),
+                                                         "--epochs_timed", str(size["epochs_timed"]),
+                                                         "--out", str(out)])
+    finally:
+        batch_shape_sweep.time_config = real
+    sweep_s = time.perf_counter() - t0
+    launches = dict(_ext.launch_counts)
+    per_shape = FIG3A_MODEL["nlayers"] * (2 + 4 * size["epochs_timed"])  # 2 warm-up updates
+    microbatches = sum(agg for _, agg in batch_shape_sweep.SHAPES)
+    expected = {k: per_shape * microbatches if k in FLASH_F32_KERNELS else 0 for k in launches}
+    shapes = [f"{b}x{agg}" for b, agg in batch_shape_sweep.SHAPES]
+    checks = {
+        "every_shape_timed": set(payload["s_per_epoch"]) == set(shapes)
+        and _finite_positive([payload["s_per_epoch"][s] for s in shapes]),
+        "launches": launches == expected,
+    }
+    emit({"phase": "batch_sweep", "card": smi, "holds": holds, "hold_s": hold_s,
+          "s_per_epoch": payload["s_per_epoch"], "winner": payload["winner"], "peak_memory_gib": peak_gib,
+          "epochs_timed": size["epochs_timed"], "sweep_s": sweep_s, "launches": launches, "expected_launches": expected,
+          "checks": checks})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        print(log, flush=True)
+        raise AssertionError(f"batch_sweep checks failed: {failed}")
+    return launches
+
+
+def phase_anomaly(device, smi: str, size: dict = MEASURE):
+    """pfn_tpu_torch.experiments.anomaly_10x10's main at the full width, T
+    2010: the step shapes 4x25, 10x10, 20x5 (``size["epochs_timed"]``
+    each), then the flash attention alone and the exact GP prior alone at B
+    4, 10, 20 and 25 (``size["reps_timed"]`` repeats of 100 datasets); every entry timed; the
+    flash kernels once per layer per microbatch of the steps and once per
+    attention call. Returns the phase's launches."""
+    import tempfile
+
+    from pfn_tpu_torch.experiments import anomaly_10x10
+    from pfn_tpu_torch.experiments.common import FIG3A_MODEL
+    from pfn_tpu_torch.ops import _ext
+
+    out = Path(tempfile.mkdtemp(prefix="pfn_anomaly_")) / "anomaly_10x10.json"
+    epochs_timed, reps_timed = size["epochs_timed"], size["reps_timed"]
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, log = _quietly(anomaly_10x10.main, ["--device", str(device), "--bptt", str(size["bptt"]), "--epochs_timed",
+                                             str(epochs_timed), "--reps_timed", str(reps_timed), "--out", str(out)])
+    seconds = time.perf_counter() - t0
+    launches = dict(_ext.launch_counts)
+    steps = FIG3A_MODEL["nlayers"] * (2 + 4 * epochs_timed) * sum(agg for _, agg in anomaly_10x10.STEP_SHAPES)
+    attn = sum(1 + reps_timed * (100 // b) for b in anomaly_10x10.ATTN_BATCHES)  # a warm-up call each
+    expected = {k: steps + attn if k in FLASH_F32_KERNELS else 0 for k in launches}
+    tables = ("step_s_per_epoch", "attn_s_per_100ds", "prior_s_per_100ds")
+    checks = {
+        "every_entry_timed": all(_finite_positive(list(res[t].values())) for t in tables)
+        and [len(res[t]) for t in tables] == [3, 4, 4],
+        "launches": launches == expected,
+    }
+    emit({"phase": "anomaly", "card": smi, **{t: res[t] for t in tables}, "epochs_timed": epochs_timed,
+          "reps_timed": reps_timed, "seconds": seconds, "launches": launches, "expected_launches": expected,
+          "checks": checks})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        print(log, flush=True)
+        raise AssertionError(f"anomaly checks failed: {failed}")
+    return launches
+
+
+def phase_fused_ab(device, smi: str, size: dict = MEASURE):
+    """pfn_tpu_torch.experiments.fused_ab's main at the flagship (grid 2048,
+    ``size["ab_steps"]`` timed calls of 25 updates after 3): auto (dense at T 100),
+    fused (kernels 4-6), auto again and the speedup; then
+    flagship_throughput's main once: the flagship on the exact sampler
+    (grid 0) and the reference-style stock-torch pipeline on the card. The
+    fused kernels once per layer per update of the fused run, no flash
+    kernel. Returns the phase's launches."""
+    import tempfile
+
+    from pfn_tpu_torch.experiments import flagship_throughput, fused_ab
+    from pfn_tpu_torch.experiments.common import FIG3A_MODEL
+    from pfn_tpu_torch.ops import _ext
+
+    steps, baseline_steps = size["ab_steps"], size["baseline_steps"]
+    out = Path(tempfile.mkdtemp(prefix="pfn_fused_ab_")) / "fused_ab.json"
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    ab, _ = _quietly(fused_ab.main, ["--device", str(device), "--steps", str(steps), "--out", str(out)])
+    ab_s = time.perf_counter() - t0
+    launches = dict(_ext.launch_counts)
+    t0 = time.perf_counter()
+    flagship, _ = _quietly(flagship_throughput.main, ["--device", str(device), "--grid", "0", "--steps", str(steps),
+                                                      "--baseline_steps", str(baseline_steps),
+                                                      "--attention_impl", "auto"])
+    flagship_s = time.perf_counter() - t0
+    # measure_pfn_torch's 3 warm-up calls, then ``steps``, of 25 updates.
+    fused_calls = FIG3A_MODEL["nlayers"] * (3 + steps) * ab["config"]["updates_per_call"]
+    expected = {k: fused_calls if k.startswith("pfn_fused") else 0 for k in launches}
+    checks = {
+        "readings_finite_positive": _finite_positive([ab[k] for k in ("baseline_a", "fused", "baseline_b", "speedup")]
+                                                     + [flagship[k] for k in ("prior_batches_per_sec",
+                                                                              "torch_baseline_prior_batches_per_sec")]),
+        "speedup_formula": ab["speedup"] == ab["fused"] / (0.5 * (ab["baseline_a"] + ab["baseline_b"])),
+        "launches": launches == expected,
+        "no_launch_outside_the_fused_run": _launch_delta(launches) == {k: 0 for k in launches},
+    }
+    emit({"phase": "fused_ab", "card": smi, "prior_batches_per_s": {k: ab[k] for k in ("baseline_a", "fused",
+                                                                                          "baseline_b")},
+          "speedup": ab["speedup"], "config": ab["config"], "ab_s": ab_s,
+          "flagship_exact_prior_batches_per_s": flagship["prior_batches_per_sec"],
+          "torch_baseline_prior_batches_per_s": flagship["torch_baseline_prior_batches_per_sec"],
+          "torch_baseline_steps": baseline_steps, "flagship_s": flagship_s, "launches": launches,
+          "expected_launches": expected, "checks": checks})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"fused_ab checks failed: {failed}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4332,15 +4648,22 @@ def main() -> int:
     mesh_reference, mesh_batch, mesh_launches, mesh_prefix = phase_mesh(device, smi)
     phase_mesh_nccl(device, smi, mesh_reference, mesh_batch)
     moe_launches = phase_moe(device, smi)
+    # The measurement drivers: their flash and fused launches join the
+    # kernels' launches on the main paths.
+    measure_launches = [phase_profile_step(device, smi), phase_batch_sweep(device, smi), phase_anomaly(device, smi),
+                        phase_fused_ab(device, smi)]
+    measured = {k: sum(m[k] for m in measure_launches) for k in measure_launches[0]}
     # The flash kernels' launches on the main paths: the train phase's, the
     # fig3a phase's, the front door's run (a), the comparison's, the compat
     # workflow's, the mesh layouts' compared updates (all ranks), the MoE
-    # run's and the forward's in the BO scoring at 2048 candidates (the
-    # tabular, few-shot and BO-loop paths run dense at T < 256). The prefix
+    # run's, the measurement drivers' and the forward's in the BO scoring at
+    # 2048 candidates (the tabular, few-shot and BO-loop paths run dense at T
+    # < 256). The prefix
     # variant's launches (launches_prefix) come from the mesh phase's sp and
     # pp layouts.
     flash_launches = {name: launches[name] + fig3a_launches[name] + front_launches[name] + comparison_launches[name]
-                      + compat_launches[name] + mesh_launches[name] + moe_launches[name] for name in FLASH_F32_KERNELS}
+                      + compat_launches[name] + mesh_launches[name] + moe_launches[name] + measured[name]
+                      for name in FLASH_F32_KERNELS}
     flash_launches["pfn_flash_fwd"] += bayesopt_launches
     fwd = next(r for r in timing if r["sep"] == 1000)
     bwd = next(r for r in bwd_timing if r["sep"] == 1000)
@@ -4384,14 +4707,14 @@ def main() -> int:
          "f32_long_prefix": f32_long["dkv_prefix"], "f32_comparison": comparison_timing["dkv"]},
         {"name": "pfn_fused_layer_fwd", "route": "cuda", "design": SM90_DESIGN,
          "source": "pfn_tpu_torch/ops/csrc/pfn_fused_layer_fwd.cu",
-         "replaces": "pfn_tpu/ops/fused_layer.py:324", "launches": fused_launches,
+         "replaces": "pfn_tpu/ops/fused_layer.py:324", "launches": fused_launches + measured["pfn_fused_layer_fwd"],
          "max_abs_err": fused["max_abs_err"], "ms": fused["kernel_ms"], "dev_ms": fused["kernel_dev_ms"],
          "plain_ms": fused["plain_ms"], "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
          "library_ms": fused["unfused_layer_ms"], "library_dev_ms": fused["unfused_layer_dev_ms"],
          "f32": fused_f32["fwd"]},
         *({"name": f"pfn_fused_layer_bwd_{part}", "route": "cuda", "design": SM90_DESIGN, "source": fused_bwd_source,
            "replaces": f"pfn_tpu/ops/fused_layer.py:{line}",
-           "launches": fused_train_launches[f"pfn_fused_layer_bwd_{part}"],
+           "launches": fused_train_launches[f"pfn_fused_layer_bwd_{part}"] + measured[f"pfn_fused_layer_bwd_{part}"],
            "max_abs_err": fused_bwd[f"{part}_max_abs_err"], "ms": fused_bwd[f"{part}_kernel_ms"],
            "dev_ms": fused_bwd[f"{part}_kernel_dev_ms"],
            "plain_ms": fused_bwd[f"{part}_plain_ms"], "bound_ms": fused_bwd[f"{part}_bound"]["bound_ms"],

@@ -1,8 +1,10 @@
-"""What the Fig-3a experiments share: the prior's hyperparameters, the scored
-context sizes, the device flag, the bucket criterion and the model of a
-checkpoint."""
+"""What the experiments share: the prior's hyperparameters, the scored
+context sizes, the device flag, the bucket criterion, the model of a
+checkpoint, and the measurement drivers' device sync and card line."""
 
 from __future__ import annotations
+
+import subprocess
 
 import torch
 
@@ -34,6 +36,25 @@ def add_device_argument(parser) -> None:
 def resolve_device(name: str | None) -> torch.device:
     """``--device``: None is the current CUDA device, and raises without one."""
     return require_cuda() if name is None else torch.device(name)
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on a CUDA ``device`` (the host's work is done
+    when a call returns). Every timed region of the measurement drivers ends
+    in it, so the clock never stops on a queue."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def card(device) -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them for the
+    first card; "cpu" for the host."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def bucket_criterion(prior, num_buckets: int, bptt: int, device, seed: int = 0, max_seq_len: int | None = None):

@@ -346,7 +346,6 @@ def _update(state: TrainState, criterion: Criterion, cfg: TrainConfig, schedule,
     global norm clipped to 1.0 by optax's rule g / max(1, |g|), then Adam at
     ``schedule(state.step)``."""
     model, optimizer = state.model, state.optimizer
-    mesh = model.config.mesh
     if cfg.attention_impl == "fused":
         _check_fused(model, cfg)  # before a microbatch is drawn
     device = next(model.parameters()).device
@@ -365,6 +364,17 @@ def _update(state: TrainState, criterion: Criterion, cfg: TrainConfig, schedule,
         pos_loss += onehot * loss
         pos_cnt += onehot
         k += 1
+    grad_norm = _clip_and_step(state, schedule)
+    return {"loss": loss_sum / k, "pos_loss": pos_loss, "pos_cnt": pos_cnt, "grad_norm": grad_norm}
+
+
+def _clip_and_step(state: TrainState, schedule) -> torch.Tensor:
+    """The optimizer's part of an update, from the gradients in ``.grad``
+    (on a mesh first summed over the data axes): the global norm clipped to
+    1.0 by optax's rule g / max(1, |g|), then Adam at
+    ``schedule(state.step)``. Returns the norm before the clip."""
+    model, optimizer = state.model, state.optimizer
+    mesh = model.config.mesh
     if mesh is None:
         grads = [p.grad for p in model.parameters()]
         grad_norm = torch.nn.utils.get_total_norm(grads)
@@ -380,7 +390,7 @@ def _update(state: TrainState, criterion: Criterion, cfg: TrainConfig, schedule,
         group["lr"] = schedule(state.step)
     optimizer.step()
     state.step += 1
-    return {"loss": loss_sum / k, "pos_loss": pos_loss, "pos_cnt": pos_cnt, "grad_norm": grad_norm}
+    return grad_norm
 
 
 def make_train_step(prior, criterion: Criterion, cfg: TrainConfig, schedule):

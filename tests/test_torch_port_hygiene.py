@@ -83,10 +83,11 @@ def test_the_parallel_layer_has_no_fallback():
 
 _EXPERIMENTS = ("gp_fitting", "fig3a_longrun", "fig3a_analytic_gap", "fig3a_robust_eval", "grid_fidelity",
                 "bar_resolution_floor", "analytic_gap_decompose", "bayesian_models_custom_priors", "tabular_eval",
-                "tabular_hgb_baseline", "fewshot_omniglot", "bayesopt_eval")
-# The device flag each takes: the Fig-3a ones --device, the evaluation,
-# few-shot and Bayesian-optimisation drivers the JAX drivers' --cpu; the hgb
-# baseline, host only as its JAX script, neither.
+                "tabular_hgb_baseline", "fewshot_omniglot", "bayesopt_eval", "flagship_throughput", "profile_step",
+                "batch_shape_sweep", "anomaly_10x10", "fused_ab")
+# The device flag each takes: the Fig-3a ones and the measurement drivers
+# --device, the evaluation, few-shot and Bayesian-optimisation drivers the
+# JAX drivers' --cpu; the hgb baseline, host only as its JAX script, neither.
 _DEVICE_FLAG = {"bayesian_models_custom_priors": "--cpu", "tabular_eval": "--cpu", "tabular_hgb_baseline": None,
                 "fewshot_omniglot": "--cpu", "bayesopt_eval": "--cpu"}
 
