@@ -44,15 +44,21 @@ Phases, each printing one JSON line:
      nhid 1024, 6 layers, bf16, seeded random weights through the weight
      bridge) at T = 2010: positional logits for 8 datasets, a PFNRegressor
      predict and predict_quantiles, the f64 exact-GP oracle and the analytic
-     KL; kernel path against the dense path and an f32 model; a device
-     profile of one positional-logits request.
+     KL; the kernel path's logits against the dense path's, max-abs and
+     relative L2 (logits_vs_dense), each within 2x the dense bf16 path's own
+     distance from an f32 model + 1e-3, and each check must see a probe:
+     the f32 model with the attention output scaled by 1 + FUSED_BF16_PROBE
+     moves the logits past both budgets; a device profile of one
+     positional-logits request.
   7. train: the round-5 Fig-3a recipe at full width through train(...): 2
      epochs of 2 updates (100 datasets each) with a checkpoint after epoch 1
      and a second train(...) call that resumes it; every kernel launched
      exactly 6 layers x 25 microbatches x 4 updates times; one update on the
-     kernel path against the dense path; update time, datasets/s, peak
-     memory and a device profile of one update; a PFNRegressor from the
-     result predicts a held-out dataset.
+     kernel path against the dense path (bf16_update_vs_dense: loss, grad
+     norm and the whole clipped gradient vector, with a probe of
+     FUSED_BF16_PROBE that must move the vector past its budget); update
+     time, datasets/s, peak memory and a device profile of one update; a
+     PFNRegressor from the result predicts a held-out dataset.
   8. fused_kernel: the fused encoder-layer forward kernel against its plain
      version (y, r and lse) over T in {1, 16, 100, 127, 128, 129, 512}, sep
      in {0, 1, T//2, T-1, T}, B in {1, 3} (and 64 at T = 100), (D, H, F) in
@@ -380,6 +386,12 @@ F32_PATH_PROBE = 1e-3
 # an attention output off by 2 %, which moves the vector ~1.5x as much
 # (~3e-2, about twice the budget). Should the budget grow past its reach,
 # the check is blind, and the phase fails.
+# The same probe backs the main path's bf16 checks. train's one update of
+# the round-5 recipe (T 2010, 10 000 buckets): the gradient vector within 2x
+# the dense path's own bf16 distance + 1e-3, 2.05e-2 on an H100, where the
+# probe reached 3.77e-2. slice's positional logits at T 2010, each within
+# 2x the dense bf16 model's distance from an f32 one + 1e-3: max-abs 4.74e-2
+# (the probe 7.42e-2), relative L2 1.63e-2 (the probe 2.60e-2).
 FUSED_BF16_PROBE = 2e-2
 # The Bayesian comparison at the reference config
 # (experiments/bayesian_models_custom_priors.py:97-107, the port's driver's
@@ -1270,12 +1282,8 @@ def phase_slice(device, smi: str, size: dict = FIG3A):
         if not bool(state_dict[f"transformer_encoder.layers.0.{name}"].abs().sum() > 0):
             raise AssertionError(f"{name} is zero: attention would not reach the output")
 
-    def build(**over):
-        model = PFNTransformer(dataclasses.replace(cfg, **over)).to(device).eval()
-        model.load_state_dict(state_dict, strict=True)
-        return model
-
-    model = build()
+    model = PFNTransformer(cfg).to(device).eval()
+    model.load_state_dict(state_dict, strict=True)
     g = torch.Generator(device=device).manual_seed(991)
     x, y, _ = prior.sample(size["datasets"], T, generator=g, device=device)
     x_np, y_np = x[0].cpu().numpy(), y[0].cpu().numpy()
@@ -1311,13 +1319,7 @@ def phase_slice(device, smi: str, size: dict = FIG3A):
     logits, (mean, std), quants = out["positional_logits"], out["predict_return_std"], out["predict_quantiles"]
     (mu, var), kl = out["oracle_f64"], out["gaussian_kl_f64"]
 
-    logits_dense = eval_positional_logits_per_dataset(build(attention_impl="dense"), x, y, positions)
-    logits_f32 = eval_positional_logits_per_dataset(
-        build(attention_impl="dense", dtype=torch.float32), x, y, positions)
-    err_kernel_dense = max_abs(logits, logits_dense)
-    err_dense_f32 = max_abs(logits_dense, logits_f32)
-    err_kernel_f32 = max_abs(logits, logits_f32)
-
+    agreement, agreement_checks = logits_vs_dense(cfg, state_dict, x, y, positions, logits, device)
     checks = {
         "logits_shape": tuple(logits.shape) == (len(positions), size["datasets"], cfg.n_out),
         "logits_finite": bool(torch.isfinite(logits).all()),
@@ -1326,22 +1328,100 @@ def phase_slice(device, smi: str, size: dict = FIG3A):
         "oracle_finite": bool(torch.isfinite(mu).all() and torch.isfinite(var).all() and (var > 0).all()),
         "kl_finite": bool(torch.isfinite(kl).all()),
         "kl_nonnegative": bool(kl.min() >= -1e-6),
-        # bf16 tolerance: the kernel path and the dense path may differ by at
-        # most twice the dense bf16 path's own distance from an f32 model.
-        "kernel_vs_dense": err_kernel_dense <= 2 * err_dense_f32 + 1e-3,
+        **agreement_checks,
     }
     emit({
         "phase": "slice", "card": smi, "size": size, "dtype": "bf16",
         "latency_ms": latency, "wall_ms": wall,
         "kl_mean_per_position": kl.mean(dim=1).tolist(),
-        "err_kernel_vs_dense": err_kernel_dense, "err_dense_vs_f32": err_dense_f32,
-        "err_kernel_vs_f32": err_kernel_f32, "launches": launches, "positional_logits_profile": profile,
+        **agreement, "launches": launches, "positional_logits_profile": profile,
         "checks": checks,
     })
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"slice checks failed: {failed}")
     return launches
+
+
+def logits_vs_dense(cfg, state_dict: dict, x, y, positions, logits, device) -> tuple[dict, dict]:
+    """The kernel path's positional ``logits`` (a bf16 model of ``cfg`` with
+    ``state_dict``, on datasets ``x``, ``y`` at ``positions``) against the
+    same model on the dense path, in max-abs and in relative L2 (|kernel -
+    dense| / |f32|). bf16 rounds at other places on the two paths, so each
+    is held to 2x the dense bf16 model's own distance from a dense f32 model
+    + 1e-3. The reach: the f32 model with the attention output scaled by 1
+    + FUSED_BF16_PROBE; its change of the logits, in each measure, must
+    exceed that measure's budget, or the check is blind. Returns (readings,
+    checks)."""
+    import torch
+
+    from pfn_tpu_torch.evals import eval_positional_logits_per_dataset
+    from pfn_tpu_torch.models import PFNTransformer
+
+    def dense_logits(weights: dict, dtype):
+        model = PFNTransformer(dataclasses.replace(cfg, attention_impl="dense", dtype=dtype)).to(device).eval()
+        model.load_state_dict(weights, strict=True)
+        return eval_positional_logits_per_dataset(model, x, y, positions).float()
+
+    logits = logits.float()
+    dense = dense_logits(state_dict, torch.bfloat16)
+    f32 = dense_logits(state_dict, torch.float32)
+    probe = dense_logits(_value_probe(state_dict, cfg.emsize, FUSED_BF16_PROBE), torch.float32)
+    err_dense_f32 = max_abs(dense, f32)
+    budget = {"max_abs": 2 * err_dense_f32 + 1e-3, "rel_l2": 2 * _rel_l2(dense, f32) + 1e-3}
+    diff = {"max_abs": max_abs(logits, dense), "rel_l2": float((logits - dense).norm() / f32.norm())}
+    reach = {"max_abs": max_abs(probe, f32), "rel_l2": _rel_l2(probe, f32)}
+    readings = {
+        "err_kernel_vs_dense": diff["max_abs"], "err_dense_vs_f32": err_dense_f32,
+        "err_kernel_vs_f32": max_abs(logits, f32), "rel_l2_kernel_vs_dense": diff["rel_l2"],
+        "logits_budget": budget, "probe_scale": FUSED_BF16_PROBE, "probe_change": reach,
+    }
+    checks = {
+        "kernel_vs_dense": diff["max_abs"] <= budget["max_abs"],
+        "kernel_vs_dense_rel_l2": diff["rel_l2"] <= budget["rel_l2"],
+        "max_abs_check_sees_the_probe": reach["max_abs"] > budget["max_abs"],
+        "rel_l2_check_sees_the_probe": reach["rel_l2"] > budget["rel_l2"],
+    }
+    return readings, checks
+
+
+def bf16_update_vs_dense(prior, criterion, cfg, weights: dict, device, kernel_weights: dict | None = None) -> dict:
+    """One bf16 update of ``cfg`` from ``weights`` on the kernel path
+    (attention_impl "auto": the flash kernels at T >= 256 on the card) and on
+    the dense path, with the dense f32 update as the yardstick, on the same 2
+    microbatches of a seeded batch at sep T // 2; ``kernel_weights``, where
+    given, start the kernel path in place of ``weights``. Held: the loss and
+    the grad norm within 2x the dense path's own bf16 difference + 1e-3 of
+    the f32 value, and the whole clipped gradient vector within 2x the dense
+    bf16 path's relative L2 distance + 1e-3 (|kernel - dense| / |f32|). The
+    reach: the dense f32 update with the attention output scaled by 1 +
+    FUSED_BF16_PROBE; its relative change of the gradient vector must
+    exceed the vector's budget, or the check is blind. Returns {one, diff,
+    budget, probe_rel_change, checks}."""
+    import torch
+
+    batch = _two_microbatches(prior, cfg, device)
+    bf16, f32 = {"dtype": torch.bfloat16}, {"attention_impl": "dense", "dtype": torch.float32}
+    variants = (("kernel_bf16", bf16, weights if kernel_weights is None else kernel_weights),
+                ("dense_bf16", {**bf16, "attention_impl": "dense"}, weights), ("dense_f32", f32, weights),
+                ("dense_f32_probe", f32, _value_probe(weights, cfg.emsize, FUSED_BF16_PROBE)))
+    one, grads = {}, {}
+    for name, over, w in variants:
+        pcfg = dataclasses.replace(cfg, aggregate_k_gradients=2, steps_per_epoch=2, eval_pos_sampler="fixed",
+                                   fixed_eval_pos=cfg.bptt // 2, checkpoint_dir=None, **over)
+        one[name], grads[name] = _one_update(prior, criterion, pcfg, w, batch, device)
+    ref = grads["dense_f32"]
+    keys = ("loss", "grad_norm")
+    budget = {**{key: 2 * abs(one["dense_bf16"][key] - one["dense_f32"][key]) + 1e-3 * abs(one["dense_f32"][key])
+                 for key in keys},
+              "grads": 2 * _rel_l2(grads["dense_bf16"], ref) + 1e-3}
+    diff = {**{key: abs(one["kernel_bf16"][key] - one["dense_bf16"][key]) for key in keys},
+            "grads": float((grads["kernel_bf16"] - grads["dense_bf16"]).norm() / ref.norm())}
+    reach = _rel_l2(grads["dense_f32_probe"], ref)
+    return {"one": one, "diff": diff, "budget": budget, "probe_rel_change": reach, "checks": {
+        "kernel_vs_dense_update": all(diff[key] <= budget[key] for key in budget),
+        # A check that cannot see an attention error of known size is blind.
+        "bf16_check_sees_the_probe": reach > budget["grads"]}}
 
 
 def _param_vector(state_dict):
@@ -1366,14 +1446,11 @@ def phase_train(device, smi: str, size: dict = FIG3A_TRAIN):
     from pfn_tpu_torch.priors import GPPrior, sample_y_for_buckets
     from pfn_tpu_torch.train import (
         TrainConfig,
-        TrainState,
-        build_model,
         full_support_bar_criterion,
         seeded_flax_params,
         state_dict_from_flax_params,
         train,
     )
-    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step_from_batch
 
     T, k = size["T"], size["agg"]
     prior = GPPrior(num_features=1, noise=1e-4, outputscale=1.0, lengthscale=0.6, grid=size["grid"])
@@ -1411,24 +1488,8 @@ def phase_train(device, smi: str, size: dict = FIG3A_TRAIN):
     after_epoch2 = _param_vector(result.model.state_dict())
 
     # One update on the kernel path and on the dense path (and an f32 dense
-    # model as the yardstick), from the same params, batch and sep.
-    g = torch.Generator(device=device).manual_seed(5)
-    batch = [prior.sample(size["batch_size"], T, generator=g, device=device) for _ in range(2)]
-    xs, ys_b, tys = (torch.stack([b[i] for b in batch]) for i in range(3))
-    one = {}
-    for name, over in {"kernel_bf16": {}, "dense_bf16": {"attention_impl": "dense"},
-                       "dense_f32": {"attention_impl": "dense", "dtype": torch.float32}}.items():
-        pcfg = dataclasses.replace(cfg, aggregate_k_gradients=2, steps_per_epoch=2, eval_pos_sampler="fixed",
-                                   fixed_eval_pos=T // 2, checkpoint_dir=None, **over)
-        model = build_model(prior, criterion, pcfg)
-        model.load_state_dict(result.model.state_dict())
-        optimizer, _, schedule = _make_optimizer(pcfg, model)
-        state = TrainState(model, optimizer, torch.Generator(device=device).manual_seed(0))
-        m = make_train_step_from_batch(criterion, pcfg, schedule)(state, xs, ys_b, tys)
-        one[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
-    budget = {key: 2 * abs(one["dense_bf16"][key] - one["dense_f32"][key]) + 1e-3 * abs(one["dense_f32"][key])
-              for key in ("loss", "grad_norm")}
-    diff = {key: abs(one["kernel_bf16"][key] - one["dense_bf16"][key]) for key in budget}
+    # model as the yardstick, and a probe), from the same params, batch and sep.
+    one = bf16_update_vs_dense(prior, criterion, cfg, result.model.state_dict(), device)
 
     # Update time, continuing from the trained weights: the first update of a
     # new optimizer state, then the median of the rest.
@@ -1459,7 +1520,7 @@ def phase_train(device, smi: str, size: dict = FIG3A_TRAIN):
         "lr0_epoch_keeps_params": bool(torch.equal(after_epoch1, initial)),
         "params_changed_in_epoch2": bool((after_epoch2 != after_epoch1).any()),
         "launches": all(n == expected for n in launches.values()),
-        "kernel_vs_dense_update": all(diff[key] <= budget[key] for key in budget),
+        **one["checks"],
         "predict_finite": bool(np.isfinite(mean).all() and np.isfinite(std).all() and (std > 0).all()),
         "update_without_host_sync": no_host_sync,
     }
@@ -1468,7 +1529,8 @@ def phase_train(device, smi: str, size: dict = FIG3A_TRAIN):
         "train_calls_s": train_s, "launches": launches, "expected_launches": expected,
         "update_ms": {"first": update_ms[0], f"median_of_{size['timed_updates']}": median_ms},
         "datasets_per_s": size["batch_size"] * k / (median_ms / 1e3), "peak_memory_gb": peak_gb,
-        "one_update": one, "one_update_diff": diff, "one_update_budget": budget, "update_profile": profile,
+        "one_update": one["one"], "one_update_diff": one["diff"], "one_update_budget": one["budget"],
+        "probe_scale": FUSED_BF16_PROBE, "probe_rel_change": one["probe_rel_change"], "update_profile": profile,
         "checks": checks,
     })
     failed = [name for name, ok in checks.items() if not ok]
@@ -2040,7 +2102,7 @@ def phase_fused_train(device, smi: str, size: dict = FLAGSHIP, updates: int = 2,
         state_dict_from_flax_params,
         train,
     )
-    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step, make_train_step_from_batch
+    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step
 
     B, T = size["B"], size["T"]
     prior = GPPrior(num_features=1, noise=1e-4, outputscale=1.0, lengthscale=0.6, grid=size["grid"])
@@ -2087,13 +2149,8 @@ def phase_fused_train(device, smi: str, size: dict = FLAGSHIP, updates: int = 2,
     def one_update(name, over, w):
         pcfg = dataclasses.replace(cfg, eval_pos_sampler="fixed", fixed_eval_pos=size["sep"], checkpoint_dir=None,
                                    **over)
-        model = build_model(prior, criterion, pcfg)
-        model.load_state_dict(w)
-        optimizer, _, schedule = _make_optimizer(pcfg, model)
-        state = TrainState(model, optimizer, torch.Generator(device=device).manual_seed(0))
-        m = make_train_step_from_batch(criterion, pcfg, schedule)(state, xs, ys, tys)
-        one[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
-        return _grad_vector(model)
+        one[name], vector = _one_update(prior, criterion, pcfg, w, (xs, ys, tys), device)
+        return vector
 
     variants = {"fused_bf16": {}, "unfused_bf16": {"attention_impl": "auto"},
                 "fused_f32": {"dtype": torch.float32},
@@ -2523,6 +2580,33 @@ def _rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
+def _two_microbatches(prior, cfg, device):
+    """Two microbatches of ``cfg.batch_size`` datasets of ``cfg.bptt`` from a
+    generator seeded with 5, stacked: (xs, ys, target ys)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(5)
+    batch = [prior.sample(cfg.batch_size, cfg.bptt, generator=g, device=device) for _ in range(2)]
+    return tuple(torch.stack([b[i] for b in batch]) for i in range(3))
+
+
+def _one_update(prior, criterion, pcfg, weights: dict, batch, device):
+    """One update of a new model of ``pcfg`` from ``weights`` on ``batch``
+    (xs, ys, target ys; a leading microbatch axis): ({loss, grad_norm}, the
+    clipped gradient vector)."""
+    import torch
+
+    from pfn_tpu_torch.train import TrainState, build_model
+    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step_from_batch
+
+    model = build_model(prior, criterion, pcfg)
+    model.load_state_dict(weights)
+    optimizer, _, schedule = _make_optimizer(pcfg, model)
+    state = TrainState(model, optimizer, torch.Generator(device=device).manual_seed(0))
+    m = make_train_step_from_batch(criterion, pcfg, schedule)(state, *batch)
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}, _grad_vector(model)
+
+
 def one_update_vs_dense(prior, criterion, cfg, weights: dict, device):
     """One update of ``cfg`` from ``weights`` through the flash f32 kernels
     (attention_impl "auto", T >= 256) and through the dense f32 path, on the
@@ -2533,31 +2617,18 @@ def one_update_vs_dense(prior, criterion, cfg, weights: dict, device):
     through none; the relative change of the same three on the dense path
     when the attention output is scaled by 1 + F32_PATH_PROBE, which says
     how large an error of the attention the comparison would see)."""
-    import torch
-
     from pfn_tpu_torch.ops import _ext
-    from pfn_tpu_torch.train import TrainState, build_model
-    from pfn_tpu_torch.train.loop import _make_optimizer, make_train_step_from_batch
 
-    T, B = cfg.bptt, cfg.batch_size
-    g = torch.Generator(device=device).manual_seed(5)
-    batch = [prior.sample(B, T, generator=g, device=device) for _ in range(2)]
-    xs, ys, tys = (torch.stack([b[i] for b in batch]) for i in range(3))
+    batch = _two_microbatches(prior, cfg, device)
     probe = _value_probe(weights, cfg.emsize, F32_PATH_PROBE)
     one, grads = {}, {}
     for name, impl, w in (("kernel_f32", "auto", weights), ("dense_f32", "dense", weights),
                           ("dense_f32_probe", "dense", probe)):
         pcfg = dataclasses.replace(cfg, aggregate_k_gradients=2, steps_per_epoch=2, eval_pos_sampler="fixed",
-                                   fixed_eval_pos=T // 2, attention_impl=impl)
-        model = build_model(prior, criterion, pcfg)
-        model.load_state_dict(w)
-        optimizer, _, schedule = _make_optimizer(pcfg, model)
-        state = TrainState(model, optimizer, torch.Generator(device=device).manual_seed(0))
+                                   fixed_eval_pos=cfg.bptt // 2, attention_impl=impl)
         _ext.reset_launch_counts()
-        m = make_train_step_from_batch(criterion, pcfg, schedule)(state, xs, ys, tys)
-        one[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                     "launches": {k: _ext.launch_counts[k] for k in FLASH_F32_KERNELS}}
-        grads[name] = _grad_vector(model)
+        one[name], grads[name] = _one_update(prior, criterion, pcfg, w, batch, device)
+        one[name]["launches"] = {k: _ext.launch_counts[k] for k in FLASH_F32_KERNELS}
 
     def rel_to_dense(other: str) -> dict:
         ref = one["dense_f32"]

@@ -16,7 +16,9 @@ Adam).
 runs both measurements once and prints their prior-batches/s. ``device``
 None is the current CUDA device (an error without one); "cpu" runs on the
 host. ``attention_impl="best"`` reads the port's own fused A/B
-(``FUSED_AB_FILE``, what ``fused_ab`` writes).
+(``FUSED_AB_FILE``, what ``fused_ab`` writes), found beside the package as
+``bench.py`` finds its own, from any working directory; ``main`` prints the
+implementation it resolved.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import argparse
 import json
 import math
 import time
+from pathlib import Path
 
 import torch
 
@@ -37,9 +40,10 @@ from pfn_tpu_torch.train.loop import _make_optimizer, make_train_chunk, make_tra
 BATCH_SIZE = 64
 BPTT = 100
 NUM_BUCKETS = 100
-# The port's fused-vs-unfused A/B (fused_ab's default --out); never
+# The port's fused-vs-unfused A/B on the H100 (fused_ab's default --out),
+# anchored at the checkout as bench.py:36-38 anchors its own; never
 # docs/results/fused_ab.json, which holds the TPU's.
-FUSED_AB_FILE = "results/fused_ab.json"
+FUSED_AB_FILE = str(Path(__file__).resolve().parents[2] / "docs" / "results" / "torch_h100" / "fused_ab.json")
 
 
 def _resolve_impl(attention_impl: str) -> str:
@@ -161,13 +165,15 @@ def main(argv=None) -> dict:
     p.add_argument("--attention_impl", default="best")
     p.add_argument("--baseline_steps", type=int, default=3)
     args = p.parse_args(argv)
+    impl = _resolve_impl(args.attention_impl)
+    print(f"attention_impl {args.attention_impl} -> {impl}"
+          + (f" (the A/B in {FUSED_AB_FILE})" if args.attention_impl == "best" else ""), flush=True)
     device = resolve_device(args.device)
     out = {
         "prior_batches_per_sec": measure_pfn_torch(steps=args.steps, updates_per_call=args.updates_per_call,
-                                                   grid=args.grid, attention_impl=args.attention_impl,
-                                                   device=device),
+                                                   grid=args.grid, attention_impl=impl, device=device),
         "torch_baseline_prior_batches_per_sec": measure_torch_baseline(steps=args.baseline_steps, device=device),
-        "attention_impl": _resolve_impl(args.attention_impl),
+        "attention_impl": impl,
         "config": {"steps": args.steps, "updates_per_call": args.updates_per_call, "grid": args.grid,
                    "baseline_steps": args.baseline_steps, "device": str(device)},
     }

@@ -9,9 +9,11 @@ fused prior-batches/s over the mean of the two baselines.
 
     python -m pfn_tpu_torch.experiments.fused_ab [--steps 20] [--device cpu]
 
-It writes ``--out`` (default results/fused_ab.json, what
-``flagship_throughput``'s ``attention_impl="best"`` reads; never the
-TPU's docs/results/fused_ab.json).
+It writes ``--out`` (default ``flagship_throughput.FUSED_AB_FILE``,
+docs/results/torch_h100/fused_ab.json in the checkout, what
+``flagship_throughput``'s ``attention_impl="best"`` reads from any working
+directory; never the TPU's docs/results/fused_ab.json), with the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -20,18 +22,23 @@ import argparse
 import json
 import os
 
-from pfn_tpu_torch.experiments.common import add_device_argument, resolve_device
-from pfn_tpu_torch.experiments.flagship_throughput import FUSED_AB_FILE, measure_pfn_torch
+from pfn_tpu_torch.experiments import flagship_throughput
+from pfn_tpu_torch.experiments.common import add_device_argument, card, resolve_device
+from pfn_tpu_torch.experiments.flagship_throughput import measure_pfn_torch
 
 
-def main(argv=None) -> dict:
+def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_device_argument(p)
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--grid", type=int, default=2048)
     p.add_argument("--updates_per_call", type=int, default=25)
-    p.add_argument("--out", default=FUSED_AB_FILE)
-    args = p.parse_args(argv)
+    p.add_argument("--out", default=flagship_throughput.FUSED_AB_FILE)
+    return p
+
+
+def main(argv=None) -> dict:
+    args = parser().parse_args(argv)
     device = resolve_device(args.device)
 
     kw = dict(steps=args.steps, grid=args.grid, updates_per_call=args.updates_per_call)
@@ -44,6 +51,7 @@ def main(argv=None) -> dict:
     base = 0.5 * (results["baseline_a"] + results["baseline_b"])
     results["speedup"] = results["fused"] / base
     results["config"] = kw
+    results["card"] = card(device)
     print(f"fused speedup vs the unfused step: {results['speedup']:.3f}x")
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

@@ -5,7 +5,8 @@ batch_shape_sweep, anomaly_10x10, fused_ab, flagship_throughput) on the CPU.
     top-level imports are the standard library's; no JAX driver's main
     runs): the sweep's payload (``_write``) key for key, including a failed
     shape and the winner rule; ``_resolve_impl`` against ``bench.py``'s on
-    one A/B file; the anomaly driver's shapes and batches, whose keys are
+    one A/B file, and read from the same anchored file from any working
+    directory; the anomaly driver's shapes and batches, whose keys are
     JAX's without the block suffix (the named deviation: the TPU tile rule
     is not ported).
   * Held to the JAX package: the parameter count of the profiled Fig-3a
@@ -202,6 +203,39 @@ def test_resolve_impl_agrees_with_bench(ab, tmp_path, monkeypatch):
         assert flagship_throughput._resolve_impl("best") == ("fused" if ab == {"speedup": 1.06} else "auto")
 
 
+@pytest.mark.parametrize("cwd", ["root", "tmp", "experiments"])
+def test_resolve_impl_reads_the_anchored_ab_from_any_directory(cwd, tmp_path, monkeypatch):
+    # The port's A/B lies beside the package, as bench.py:36-38 anchors its
+    # own, and never under the TPU's docs/results/fused_ab.json.
+    anchored = ROOT / "docs" / "results" / "torch_h100" / "fused_ab.json"
+    assert flagship_throughput.FUSED_AB_FILE == str(anchored)
+    assert fused_ab.parser().get_default("out") == flagship_throughput.FUSED_AB_FILE
+    want = "auto"
+    if anchored.exists():
+        want = "fused" if json.loads(anchored.read_text()).get("speedup", 0.0) > 1.05 else "auto"
+    # An A/B with the other answer where the working directory's results/
+    # would hold one is not read.
+    (tmp_path / "results").mkdir()
+    (tmp_path / "results" / "fused_ab.json").write_text(json.dumps({"speedup": 2.0 if want == "auto" else 0.5}))
+    monkeypatch.chdir({"root": ROOT, "tmp": tmp_path, "experiments": Path(flagship_throughput.__file__).parent}[cwd])
+    assert flagship_throughput._resolve_impl("best") == want
+
+
+def test_flagship_main_prints_the_impl_it_resolved(tmp_path, monkeypatch, capsys):
+    path = tmp_path / "fused_ab.json"
+    path.write_text(json.dumps({"speedup": 1.2}))
+    monkeypatch.setattr(flagship_throughput, "FUSED_AB_FILE", str(path))
+    measured = []
+    monkeypatch.setattr(flagship_throughput, "measure_pfn_torch", lambda **kw: measured.append(kw) or 30.0)
+    monkeypatch.setattr(flagship_throughput, "measure_torch_baseline", lambda **kw: 20.0)
+    got = flagship_throughput.main(["--device", "cpu"])
+    assert measured[0]["attention_impl"] == "fused" and got["attention_impl"] == "fused"
+    assert f"attention_impl best -> fused (the A/B in {path})" in capsys.readouterr().out
+    got = flagship_throughput.main(["--device", "cpu", "--attention_impl", "auto"])
+    assert measured[1]["attention_impl"] == "auto" and got["attention_impl"] == "auto"
+    assert "attention_impl auto -> auto\n" in capsys.readouterr().out
+
+
 def test_fused_ab_runs_aba_and_writes_where_best_reads(tmp_path, monkeypatch):
     readings = {"auto": [100.0, 110.0], "fused": [126.0]}
     calls = []
@@ -211,6 +245,9 @@ def test_fused_ab_runs_aba_and_writes_where_best_reads(tmp_path, monkeypatch):
         return readings[attention_impl].pop(0)
 
     monkeypatch.setattr(fused_ab, "measure_pfn_torch", fake_measure)
+    # The anchored A/B moved aside, so that the committed one stays as it is.
+    ab_file = tmp_path / "docs" / "results" / "torch_h100" / "fused_ab.json"
+    monkeypatch.setattr(flagship_throughput, "FUSED_AB_FILE", str(ab_file))
     monkeypatch.chdir(tmp_path)
     assert flagship_throughput._resolve_impl("best") == "auto"  # no A/B yet
     got = fused_ab.main(["--device", "cpu", "--steps", "3"])
@@ -218,8 +255,11 @@ def test_fused_ab_runs_aba_and_writes_where_best_reads(tmp_path, monkeypatch):
     assert all(c[1:] == (CPU, 3, 2048, 25) for c in calls)
     assert got["speedup"] == 126.0 / (0.5 * (100.0 + 110.0))
     assert got["config"] == {"steps": 3, "grid": 2048, "updates_per_call": 25}
-    # The default --out is the port's own A/B, never the TPU's under docs/.
-    assert json.loads((tmp_path / "results" / "fused_ab.json").read_text()) == got
+    assert got["card"] == "cpu"
+    # The default --out is the port's own A/B, never the TPU's under docs/,
+    # and never the working directory's results/.
+    assert json.loads(ab_file.read_text()) == got
+    assert not (tmp_path / "results").exists()
     assert flagship_throughput._resolve_impl("best") == "fused"  # 1.2 > 1.05
 
 
