@@ -32,6 +32,7 @@ from pfn_tpu_torch.models.positional import NoPositionalEncoding
 from pfn_tpu_torch.models.transformer import PFNEncoderLayer, PFNTransformer, TransformerConfig
 from pfn_tpu_torch.ops import _ext
 from pfn_tpu_torch.ops.fused_layer import fused_encoder_layer
+from pfn_tpu_torch.utils.profiling import span, split_backward_at
 
 
 def fused_supported(cfg: TransformerConfig, device=None) -> str | None:
@@ -97,10 +98,14 @@ def fused_forward(model: PFNTransformer, x: torch.Tensor, y: torch.Tensor, singl
             "attention_impl='flash' for the long-context regime"
         )
     dtype = cfg.dtype
-    x_emb = model.encoder(x.to(dtype).float())
-    y_emb = model.y_encoder(y[..., None].to(dtype).float())
-    pos = torch.arange(T, device=x.device)[None, :, None]
-    tokens = x_emb + torch.where(pos < single_eval_pos, y_emb, torch.zeros_like(y_emb))
-    for layer in model.transformer_encoder.layers:
-        tokens = fused_encoder_layer(tokens, _layer_params(layer), single_eval_pos, cfg.nhead, dtype)
-    return model.decoder(tokens.float())
+    with span("model.forward"):
+        x_emb = model.encoder(x.to(dtype).float())
+        y_emb = model.y_encoder(y[..., None].to(dtype).float())
+        pos = torch.arange(T, device=x.device)[None, :, None]
+        tokens = x_emb + torch.where(pos < single_eval_pos, y_emb, torch.zeros_like(y_emb))
+        for layer in model.transformer_encoder.layers:
+            tokens = fused_encoder_layer(tokens, _layer_params(layer), single_eval_pos, cfg.nhead, dtype)
+        decoder_input = tokens.float()
+        split_backward_at(decoder_input)  # the spans of PFNTransformer.forward (utils.profiling)
+        with span("model.decoder"):
+            return model.decoder(decoder_input)

@@ -62,6 +62,7 @@ from pfn_tpu_torch.models.positional import NoPositionalEncoding
 from pfn_tpu_torch.ops.attention import _mesh_divisible, pfn_attention
 from pfn_tpu_torch.parallel.collectives import all_reduce, copy_to
 from pfn_tpu_torch.parallel.mesh import gather_at_use
+from pfn_tpu_torch.utils.profiling import span, split_backward_at
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,25 +303,29 @@ class PFNTransformer(nn.Module):
                 (x.shape[0] * mesh.axis_size("dp"), c.nhead, T, c.emsize // c.nhead), mesh):
             raise ValueError(f"batch {x.shape[0]} a rank, {c.nhead} heads and T {T} do not divide the mesh "
                              f"{mesh.shape}")
-        # The encoders take the compute-dtype-rounded inputs as f32 values.
-        x_emb = self._run(self.encoder, "encoder.", x.to(c.dtype).float())
-        y_emb = self._run(self.y_encoder, "y_encoder.", y[..., None].to(c.dtype).float())
-        pos = torch.arange(T, device=x.device)[None, :, None]
-        tokens = x_emb + torch.where(pos < single_eval_pos, y_emb, torch.zeros_like(y_emb))
-        if c.input_normalization:
-            tokens = self._run(self.input_ln, "input_ln.", tokens)
-        tokens = self._run(self.pos_encoder, "pos_encoder.", tokens, deterministic=deterministic)
-        if mesh is not None and mesh.axis_size("sp") > 1:  # this rank's positions of sp
-            Tq = T // mesh.axis_size("sp")
-            tokens = tokens[:, mesh.axis_index("sp") * Tq:(mesh.axis_index("sp") + 1) * Tq]
-        masks = None if deterministic else generator
-        aux = tokens.new_zeros(())
-        for i, layer in enumerate(self.transformer_encoder.layers):
-            tokens, layer_aux = self._run(layer, f"transformer_encoder.layers.{i}.", tokens, single_eval_pos, masks,
-                                          return_aux=True)
-            aux = aux + layer_aux
-        out = self._run(self.decoder, "decoder.", tokens.float())
-        return (out, aux) if return_aux else out
+        with span("model.forward"):
+            # The encoders take the compute-dtype-rounded inputs as f32 values.
+            x_emb = self._run(self.encoder, "encoder.", x.to(c.dtype).float())
+            y_emb = self._run(self.y_encoder, "y_encoder.", y[..., None].to(c.dtype).float())
+            pos = torch.arange(T, device=x.device)[None, :, None]
+            tokens = x_emb + torch.where(pos < single_eval_pos, y_emb, torch.zeros_like(y_emb))
+            if c.input_normalization:
+                tokens = self._run(self.input_ln, "input_ln.", tokens)
+            tokens = self._run(self.pos_encoder, "pos_encoder.", tokens, deterministic=deterministic)
+            if mesh is not None and mesh.axis_size("sp") > 1:  # this rank's positions of sp
+                Tq = T // mesh.axis_size("sp")
+                tokens = tokens[:, mesh.axis_index("sp") * Tq:(mesh.axis_index("sp") + 1) * Tq]
+            masks = None if deterministic else generator
+            aux = tokens.new_zeros(())
+            for i, layer in enumerate(self.transformer_encoder.layers):
+                tokens, layer_aux = self._run(layer, f"transformer_encoder.layers.{i}.", tokens, single_eval_pos, masks,
+                                              return_aux=True)
+                aux = aux + layer_aux
+            decoder_input = tokens.float()
+            split_backward_at(decoder_input)
+            with span("model.decoder"):
+                out = self._run(self.decoder, "decoder.", decoder_input)
+            return (out, aux) if return_aux else out
 
 
 def num_params(model: nn.Module) -> int:

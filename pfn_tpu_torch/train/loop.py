@@ -39,6 +39,9 @@ How it maps to PyTorch:
     times the layers' load-balancing loss (the reported loss is the task's),
     and the automatic LR counts each expert weight at 1/E
     (:func:`_active_param_count`).
+  * Spans (``utils.profiling.span``) mark an update, the prior's draws, the
+    loss, the backward and the optimizer for the benchmark's per-layer
+    metrics; while recording is off each is a flag check.
   * ``train(..., mesh=parallel.make_mesh(...))`` runs one rank of a device
     mesh (one process a rank; ``parallel.init_distributed``). Every rank
     draws the global batch, and sep, from the same seeded generator, which
@@ -83,7 +86,7 @@ from pfn_tpu_torch.train.checkpoints import (
     save_checkpoint,
 )
 from pfn_tpu_torch.train.losses import Criterion
-from pfn_tpu_torch.utils.profiling import StepTimers, raise_on_nan
+from pfn_tpu_torch.utils.profiling import raise_on_nan, span
 from pfn_tpu_torch.utils.samplers import draw_eval_pos
 from pfn_tpu_torch.utils.schedules import cosine_schedule_with_warmup, get_openai_lr
 
@@ -304,11 +307,12 @@ def _loss_terms(criterion: Criterion, out, target_y, sep, mesh: Mesh | None):
     """(numerator, denominator) of the mean loss over eval positions (>= sep)
     of a batch, each rank's numerator over its rows and positions, the
     denominator summed over dp and sp."""
-    start = mesh.axis_index("sp") * target_y.shape[1] if mesh is not None else 0
-    losses = criterion.per_position(out, target_y)  # (B, T)
-    positions = torch.arange(start, start + target_y.shape[1], device=losses.device)
-    mask = (positions >= sep).to(losses.dtype).expand_as(losses) * criterion.valid_weight(target_y)
-    return (losses * mask).sum(), sum_over(mask.sum(), mesh, ("dp", "sp")).clamp_min(1.0)
+    with span("train.loss"):
+        start = mesh.axis_index("sp") * target_y.shape[1] if mesh is not None else 0
+        losses = criterion.per_position(out, target_y)  # (B, T)
+        positions = torch.arange(start, start + target_y.shape[1], device=losses.device)
+        mask = (positions >= sep).to(losses.dtype).expand_as(losses) * criterion.valid_weight(target_y)
+        return (losses * mask).sum(), sum_over(mask.sum(), mesh, ("dp", "sp")).clamp_min(1.0)
 
 
 def _loss_parts(model, criterion: Criterion, cfg: TrainConfig, x, y, target_y, sep,
@@ -348,24 +352,26 @@ def _update(state: TrainState, criterion: Criterion, cfg: TrainConfig, schedule,
     model, optimizer = state.model, state.optimizer
     if cfg.attention_impl == "fused":
         _check_fused(model, cfg)  # before a microbatch is drawn
-    device = next(model.parameters()).device
-    positions = torch.arange(cfg.bptt, device=device)
-    loss_sum = torch.zeros((), device=device)
-    pos_loss = torch.zeros(cfg.bptt, device=device)
-    pos_cnt = torch.zeros(cfg.bptt, device=device)
-    model.train()
-    optimizer.zero_grad(set_to_none=True)
-    k = 0
-    for x, y, target_y, sep in microbatches:
-        objective, loss = _loss_parts(model, criterion, cfg, x, y, target_y, sep, state.generator)
-        objective.backward()  # accumulates into .grad: the sum over microbatches
-        onehot = (positions == sep).to(torch.float32)
-        loss_sum += loss
-        pos_loss += onehot * loss
-        pos_cnt += onehot
-        k += 1
-    grad_norm = _clip_and_step(state, schedule)
-    return {"loss": loss_sum / k, "pos_loss": pos_loss, "pos_cnt": pos_cnt, "grad_norm": grad_norm}
+    with span("train.update"):
+        device = next(model.parameters()).device
+        positions = torch.arange(cfg.bptt, device=device)
+        loss_sum = torch.zeros((), device=device)
+        pos_loss = torch.zeros(cfg.bptt, device=device)
+        pos_cnt = torch.zeros(cfg.bptt, device=device)
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        k = 0
+        for x, y, target_y, sep in microbatches:
+            objective, loss = _loss_parts(model, criterion, cfg, x, y, target_y, sep, state.generator)
+            with span("train.backward"):  # cut in two at the decoder's input (utils.profiling)
+                objective.backward()  # accumulates into .grad: the sum over microbatches
+            onehot = (positions == sep).to(torch.float32)
+            loss_sum += loss
+            pos_loss += onehot * loss
+            pos_cnt += onehot
+            k += 1
+        grad_norm = _clip_and_step(state, schedule)
+        return {"loss": loss_sum / k, "pos_loss": pos_loss, "pos_cnt": pos_cnt, "grad_norm": grad_norm}
 
 
 def _clip_and_step(state: TrainState, schedule) -> torch.Tensor:
@@ -375,20 +381,21 @@ def _clip_and_step(state: TrainState, schedule) -> torch.Tensor:
     ``schedule(state.step)``. Returns the norm before the clip."""
     model, optimizer = state.model, state.optimizer
     mesh = model.config.mesh
-    if mesh is None:
-        grads = [p.grad for p in model.parameters()]
-        grad_norm = torch.nn.utils.get_total_norm(grads)
-    else:
-        sync_grads_(model.named_parameters(), model.param_specs, mesh)
-        grads = [p.grad for p in model.parameters()]
-        grad_norm = global_grad_norm(model.named_parameters(), model.param_specs, mesh)
-    # optax.clip_by_global_norm(1.0): g unchanged below the norm, g / |g| at or above it.
-    divisor = torch.where(grad_norm < 1.0, torch.ones_like(grad_norm), grad_norm)
-    for g in grads:
-        g.div_(divisor)
-    for group in optimizer.param_groups:
-        group["lr"] = schedule(state.step)
-    optimizer.step()
+    with span("train.optimizer"):
+        if mesh is None:
+            grads = [p.grad for p in model.parameters()]
+            grad_norm = torch.nn.utils.get_total_norm(grads)
+        else:
+            sync_grads_(model.named_parameters(), model.param_specs, mesh)
+            grads = [p.grad for p in model.parameters()]
+            grad_norm = global_grad_norm(model.named_parameters(), model.param_specs, mesh)
+        # optax.clip_by_global_norm(1.0): g unchanged below the norm, g / |g| at or above it.
+        divisor = torch.where(grad_norm < 1.0, torch.ones_like(grad_norm), grad_norm)
+        for g in grads:
+            g.div_(divisor)
+        for group in optimizer.param_groups:
+            group["lr"] = schedule(state.step)
+        optimizer.step()
     state.step += 1
     return grad_norm
 
@@ -404,8 +411,10 @@ def make_train_step(prior, criterion: Criterion, cfg: TrainConfig, schedule):
 
         def microbatches():
             for _ in range(cfg.aggregate_k_gradients):
-                x, y, target_y = prior.sample(cfg.batch_size, cfg.bptt, generator=g, device=g.device)
-                yield x, y, target_y, _sample_eval_pos(g, cfg, weights)
+                with span("prior.sample"):
+                    x, y, target_y = prior.sample(cfg.batch_size, cfg.bptt, generator=g, device=g.device)
+                    sep = _sample_eval_pos(g, cfg, weights)
+                yield x, y, target_y, sep
 
         return _update(state, criterion, cfg, schedule, microbatches())
 
@@ -530,7 +539,6 @@ def train(prior, criterion: Criterion, cfg: TrainConfig, mesh=None, init_params:
                 print(f"resumed from {path} (epoch {ckpt_epoch})")
 
     epoch_stats = []
-    timers = StepTimers()
     total_loss = float("inf")
     positional = [float("nan")] * cfg.bptt
     for epoch in range(start_epoch, cfg.epochs + 1):
@@ -539,19 +547,19 @@ def train(prior, criterion: Criterion, cfg: TrainConfig, mesh=None, init_params:
         pos_loss_acc = torch.zeros(cfg.bptt, device=device)
         pos_cnt_acc = torch.zeros(cfg.bptt, device=device)
         grad_norm_acc = torch.zeros((), device=device)
-        timers.reset()
+        step_s = 0.0  # host time of the calls, each ending in the sync that reads its loss
         for _ in range(updates_per_epoch // upc):
-            # One channel: prior sampling, forward, backward and the update.
-            with timers.channel("fused_step", device=device):
-                if data_iter is not None:
-                    batches = [next(data_iter) for _ in range(cfg.aggregate_k_gradients)]
-                    xs, ys, tys = (_stack_host([b[i] for b in batches]) for i in range(3))
-                    metrics = step_fn(state, xs, ys, tys)
-                else:
-                    metrics = step_fn(state)
-                loss = float(metrics["loss"])  # the host sync of the call
-                raise_on_nan(loss)  # under utils.profiling.debug_nans
-                loss_acc += loss
+            t_call = time.perf_counter()
+            if data_iter is not None:
+                batches = [next(data_iter) for _ in range(cfg.aggregate_k_gradients)]
+                xs, ys, tys = (_stack_host([b[i] for b in batches]) for i in range(3))
+                metrics = step_fn(state, xs, ys, tys)
+            else:
+                metrics = step_fn(state)
+            loss = float(metrics["loss"])  # the host sync of the call
+            step_s += time.perf_counter() - t_call
+            raise_on_nan(loss)  # under utils.profiling.debug_nans
+            loss_acc += loss
             pos_loss_acc += metrics["pos_loss"]
             pos_cnt_acc += metrics["pos_cnt"]
             grad_norm_acc += metrics["grad_norm"]
@@ -566,7 +574,7 @@ def train(prior, criterion: Criterion, cfg: TrainConfig, mesh=None, init_params:
             "mean_loss": total_loss,
             "lr": lr_now,
             "epoch_time": time.perf_counter() - t0,
-            "step_time": (timers.means().get("fused_step") or 0.0) / upc,
+            "step_time": step_s / updates_per_epoch,
             "val_score": val_score,
             "grad_norm": float(grad_norm_acc) / (updates_per_epoch // upc),
         }

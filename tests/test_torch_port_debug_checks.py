@@ -1,4 +1,4 @@
-"""The port's debug checks, trace and annotations
+"""The port's debug checks, trace and spans
 (``pfn_tpu_torch.utils.profiling``) against the JAX package's, on the CPU.
 
 JAX's four ``tests/test_debug_checks.py`` cases: out-of-support bar targets
@@ -12,8 +12,8 @@ deviation is named in the module and held here: the forward NLL under the
 checks returns NaN (the value JAX's op would carry) and the train loop
 raises. With the flag off the NLL runs no support-check op.
 
-Then ``trace`` writes a Chrome trace of the block, and ``annotate`` names a
-function's ops in the profiler's events.
+Then ``trace`` writes a Chrome trace of the block, and a ``span`` inside it
+names its ops there.
 """
 
 import dataclasses
@@ -29,7 +29,7 @@ from pfn_tpu.distributions import get_bucket_limits as jax_bucket_limits
 from pfn_tpu_torch.distributions import BarDistribution, get_bucket_limits
 from pfn_tpu_torch.train import TrainConfig, bar_criterion, train
 from pfn_tpu_torch.utils import profiling
-from pfn_tpu_torch.utils.profiling import annotate, debug_checks_enabled, debug_nans, pfn_debug_checks, trace
+from pfn_tpu_torch.utils.profiling import debug_checks_enabled, debug_nans, pfn_debug_checks, recorded, span, trace
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -139,20 +139,17 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert any("mm" in str(e.get("name", "")) for e in data["traceEvents"])
 
 
-def test_annotate_names_the_ops():
-    from torch.profiler import ProfilerActivity, profile
-
-    @annotate("pfn_block")
-    def block(a, b):
-        """doc"""
-        return a @ b
-
+def test_span_names_the_ops(tmp_path):
+    profiling.clear()
     a = torch.randn(8, 8)
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        out = block(a, a)
-    assert torch.equal(out, a @ a) and block.__name__ == "block" and block.__doc__ == "doc"
-    ranges = [e for e in prof.events() if e.name == "pfn_block"]
-    mms = [e for e in prof.events() if e.name == "aten::mm"]
+    with trace(str(tmp_path / "tr")):
+        with span("pfn_block"):
+            out = a @ a
+    assert torch.equal(out, a @ a) and [s.name for s in recorded()] == ["pfn_block"]
+    profiling.clear()
+    events = json.loads((tmp_path / "tr" / "trace.json").read_text())["traceEvents"]
+    ranges = [e for e in events if e.get("name") == "pfn_block" and "dur" in e]
+    mms = [e for e in events if e.get("name") == "aten::mm" and "dur" in e]
     assert ranges and mms
-    r = ranges[0].time_range
-    assert any(r.start <= m.time_range.start and m.time_range.end <= r.end for m in mms)
+    r = ranges[0]
+    assert any(r["ts"] <= m["ts"] and m["ts"] + m["dur"] <= r["ts"] + r["dur"] for m in mms)
