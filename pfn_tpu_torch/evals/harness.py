@@ -3,8 +3,10 @@ context sizes, and the training loop's MSE validator.
 
 Port of ``pfn_tpu/evals/harness.py``. The model is a ``PFNTransformer``
 holding its weights (the JAX functions take ``model, params``); each
-``lax.map`` over positions is a Python loop, one forward per position. The
-functions run without autograd.
+``lax.map`` over positions is a Python loop, one forward per position. Each
+forward decodes only the rows the function reads (``pfn_predict(...,
+rows=)``): the scored row, or the eval rows >= sep; the values returned are
+those of the whole output. The functions run without autograd.
 """
 
 from __future__ import annotations
@@ -16,16 +18,19 @@ def _positions(positions, T: int) -> list[int]:
     return list(range(1, T)) if positions is None else [int(t) for t in positions]
 
 
-def pfn_predict(model, x, y, single_eval_pos):
+def pfn_predict(model, x, y, single_eval_pos, rows=None):
     """One amortized-inference forward pass.
 
     x: (B, T, F) with context rows [0, sep) and query rows [sep, T); y: (B, T)
     with query entries ignored (zeroed here). Returns logits (B, T, n_out);
-    rows >= sep are the posterior predictions.
+    rows >= sep are the posterior predictions. ``rows=(start, stop)``: only
+    those rows are decoded and returned, (B, stop - start, n_out).
     """
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
     y_ctx = torch.where(pos < single_eval_pos, y, torch.zeros_like(y))
-    return model(x, y_ctx, single_eval_pos)
+    if rows is None:
+        return model(x, y_ctx, single_eval_pos)
+    return model(x, y_ctx, single_eval_pos, rows=rows)
 
 
 @torch.no_grad()
@@ -33,11 +38,12 @@ def eval_positional_loss_per_dataset(model, criterion, x, y, target_y=None, posi
     """Loss at row t of a forward with single_eval_pos = t, for each t in
     ``positions`` (default 1 .. T-1): a (len(positions), B) tensor."""
     target_y = y if target_y is None else target_y
-    rows = []
+    scored = []
     for sep in _positions(positions, x.shape[1]):
-        losses = criterion.per_position(pfn_predict(model, x, y, sep), target_y)  # (B, T)
-        rows.append(losses[:, sep])
-    return torch.stack(rows)
+        losses = criterion.per_position(pfn_predict(model, x, y, sep, rows=(sep, sep + 1)),
+                                        target_y[:, sep:sep + 1])  # (B, 1)
+        scored.append(losses[:, 0])
+    return torch.stack(scored)
 
 
 @torch.no_grad()
@@ -46,7 +52,8 @@ def eval_positional_logits_per_dataset(model, x, y, positions):
     logits at row t of a forward with single_eval_pos = t. Feeds analytic
     scoring against a Gaussian oracle
     (FullSupportBarDistribution.gaussian_kl)."""
-    return torch.stack([pfn_predict(model, x, y, sep)[:, sep, :] for sep in _positions(positions, x.shape[1])])
+    return torch.stack([pfn_predict(model, x, y, sep, rows=(sep, sep + 1))[:, 0, :]
+                        for sep in _positions(positions, x.shape[1])])
 
 
 def eval_positional_loss(model, criterion, x, y, target_y=None, positions=None):
@@ -78,12 +85,10 @@ def mean_mse(model, criterion, x, y, target_y, positions=None) -> torch.Tensor:
     validator's ``jnp.sum(se * mask) / jnp.sum(mask)`` does with its (1, T)
     mask; then the mean over positions. A 0-dim tensor."""
     T = x.shape[1]
-    rows = torch.arange(T, device=x.device)[None, :]
     scores = []
     for sep in _validation_positions(T, positions):
-        mean = criterion.mean(pfn_predict(model, x, y, sep))  # (B, T)
-        mask = (rows >= sep).to(mean.dtype)
-        scores.append(((mean - target_y) ** 2 * mask).sum() / mask.sum().clamp_min(1.0))
+        mean = criterion.mean(pfn_predict(model, x, y, sep, rows=(sep, T)))  # (B, T - sep): the eval rows
+        scores.append(((mean - target_y[:, sep:]) ** 2).sum() / max(T - sep, 1))
     return torch.stack(scores).mean()
 
 

@@ -6,8 +6,11 @@ fixed temperatures, reference decoders.py:6-20) and ``FixedScaledDecoder``
 
 Factory protocol: the JAX package builds a head as ``factory(nhid, n_out)``
 and flax infers the input width; the port calls ``factory(emsize, nhid,
-n_out)``. Parameter names follow the flax tree (``linear``, ``linear1``,
-``linear2``; ``fc1``, ``fc2``, ``T``).
+n_out)``. A head works row by row: each output row depends on its own input
+row alone, never on the other rows or on how many there are, since
+``PFNTransformer.forward(..., rows=)`` decodes only the rows its caller reads.
+Parameter names follow the flax tree (``linear``, ``linear1``, ``linear2``;
+``fc1``, ``fc2``, ``T``).
 """
 
 from __future__ import annotations

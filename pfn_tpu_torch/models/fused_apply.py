@@ -84,7 +84,7 @@ def _layer_params(layer: PFNEncoderLayer) -> dict:
 
 def fused_forward(model: PFNTransformer, x: torch.Tensor, y: torch.Tensor, single_eval_pos) -> torch.Tensor:
     """``model(x, y, single_eval_pos)`` with the layer stack on the fused
-    kernel: (B, T, F), (B, T) -> (B, T, n_out) f32."""
+    kernel: (B, T, F), (B, T) -> (B, T, n_out) f32, every row decoded."""
     cfg = model.config
     reason = fused_supported(cfg, x.device)
     if reason is not None:
@@ -107,5 +107,7 @@ def fused_forward(model: PFNTransformer, x: torch.Tensor, y: torch.Tensor, singl
             tokens = fused_encoder_layer(tokens, _layer_params(layer), single_eval_pos, cfg.nhead, dtype)
         decoder_input = tokens.float()
         split_backward_at(decoder_input)  # the spans of PFNTransformer.forward (utils.profiling)
-        with span("model.decoder"):
+        with span("model.decoder") as s:
+            if s is not None:
+                s.rows = (x.shape[0] * T,) * 2  # every row
             return model.decoder(decoder_input)

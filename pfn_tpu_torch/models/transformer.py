@@ -6,7 +6,11 @@ Port of ``pfn_tpu/models/transformer.py``. Behaviour:
   * PFN attention is a parameter of the attention op, never a mask.
   * Post-LN encoder layers with a GELU FFN; out_proj and linear2 start at
     zero, so the stack starts as the identity.
-  * The decoder runs on every position.
+  * The encoder runs on every position (the train rows are the keys of
+    every query); the decoder on the rows the caller reads, ``rows=(start,
+    stop)`` given on the host, else on every position, as in the JAX model.
+    Every decoder works row by row (``models/decoders.py``), so those rows
+    equal the same rows of the whole output.
   * Options, as in the JAX model: ``encoder``, ``y_encoder``, ``pos_encoder``
     and ``decoder`` factories (the port's protocols take the input width
     too: see ``models/encoders.py``, ``positional.py``, ``decoders.py``),
@@ -48,6 +52,7 @@ is fed f32. Submodule names give the reference's torch state_dict keys
 from __future__ import annotations
 
 import dataclasses
+import operator
 from typing import Callable
 
 import torch
@@ -250,6 +255,14 @@ class PFNTransformer(nn.Module):
     ``return_aux``: also return the MoE layers' load-balancing loss, summed
     over the layers (0 without experts). On a mesh: the rank's part (module
     docstring); ``param_specs`` names the parameters it holds slices of.
+
+    ``rows``: None (decode every row) or ``(start, stop)``, which decodes
+    rows start .. stop-1 only and returns (B, stop - start, n_out). Each
+    bound is an int or any object with ``__index__``, read only once the
+    encoder's kernels are enqueued: a bound still being copied from the
+    device (the train loop's sep) is waited for while the device has the
+    encoder to run. Not on a sequence-parallel mesh, whose ranks hold only
+    their positions.
     """
 
     def __init__(self, config: TransformerConfig):
@@ -292,7 +305,7 @@ class PFNTransformer(nn.Module):
         return torch.func.functional_call(module, params, args, kwargs)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, single_eval_pos,
-                generator: torch.Generator | None = None, return_aux: bool = False):
+                generator: torch.Generator | None = None, return_aux: bool = False, rows=None):
         c, mesh = self.config, self.config.mesh
         deterministic = not self.training or c.dropout == 0.0
         if not deterministic and generator is None:
@@ -303,6 +316,8 @@ class PFNTransformer(nn.Module):
                 (x.shape[0] * mesh.axis_size("dp"), c.nhead, T, c.emsize // c.nhead), mesh):
             raise ValueError(f"batch {x.shape[0]} a rank, {c.nhead} heads and T {T} do not divide the mesh "
                              f"{mesh.shape}")
+        if rows is not None and mesh is not None and mesh.axis_size("sp") > 1:
+            raise ValueError("rows= on a sequence-parallel mesh: each rank holds only its own positions")
         with span("model.forward"):
             # The encoders take the compute-dtype-rounded inputs as f32 values.
             x_emb = self._run(self.encoder, "encoder.", x.to(c.dtype).float())
@@ -323,8 +338,16 @@ class PFNTransformer(nn.Module):
                 aux = aux + layer_aux
             decoder_input = tokens.float()
             split_backward_at(decoder_input)
-            with span("model.decoder"):
+            produced = decoder_input.shape[0] * decoder_input.shape[1]
+            if rows is not None:
+                start, stop = (operator.index(r) for r in rows)
+                if not 0 <= start <= stop <= decoder_input.shape[1]:
+                    raise ValueError(f"rows ({start}, {stop}) outside the {decoder_input.shape[1]} positions")
+                decoder_input = decoder_input[:, start:stop]
+            with span("model.decoder") as s:
                 out = self._run(self.decoder, "decoder.", decoder_input)
+                if s is not None:
+                    s.rows = (decoder_input.shape[0] * decoder_input.shape[1], produced)
             return (out, aux) if return_aux else out
 
 

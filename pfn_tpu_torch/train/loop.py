@@ -12,10 +12,16 @@ How it maps to PyTorch:
   * Every draw (prior data, ``sep``) comes from one explicit
     ``torch.Generator`` on the training device, which the checkpoint saves.
     ``sep`` stays a one-element device tensor from the sampler through the
-    model, the kernels and the loss mask, so a step costs no host sync until
-    the loop reads the loss.
-  * The loss is masked (positions >= sep), not sliced, so every microbatch
-    has the same shapes.
+    model, the kernels and the loss mask. The host needs its value for one
+    thing: on one device the model decodes only the eval rows sep .. T-1,
+    the rows the loss reads (the others would carry weight 0 and a zero
+    gradient). So right after the draw sep is copied to pinned host memory
+    without blocking (:class:`_HostSep`), and the host waits for that copy
+    only once the encoder's kernels are enqueued: it never drains the
+    device's queue before the loop reads the loss.
+  * On a device mesh and on the fused path the decoder runs on every row and
+    the loss is masked (positions >= sep), not sliced, so every microbatch
+    has the same shapes there.
   * The JAX package's ``lax.scan`` over microbatches is a Python loop whose
     ``backward()`` calls accumulate into ``.grad``: the sum over the k
     microbatches. ``updates_per_call`` updates run between host syncs
@@ -295,6 +301,43 @@ def _check_fused(model: PFNTransformer, cfg: TrainConfig) -> None:
         raise ValueError(f"fused path does not support this config: {reason}")
 
 
+class _HostSep:
+    """A one-element sep tensor on its way to the host. On the card: a
+    non-blocking copy into pinned memory, enqueued when this is made, and an
+    event behind it. ``operator.index`` waits for that event alone (once),
+    so a caller that asks after enqueuing more work leaves the device that
+    work to run; off the card it reads the value."""
+
+    __slots__ = ("host", "event", "value")
+
+    def __init__(self, sep: torch.Tensor):
+        self.host, self.event, self.value = sep, None, None
+        if sep.device.type == "cuda":
+            self.host = torch.empty(sep.shape, dtype=sep.dtype, pin_memory=True)
+            self.host.copy_(sep, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def __index__(self) -> int:
+        if self.value is None:
+            if self.event is not None:
+                self.event.synchronize()
+            self.value = int(self.host.reshape(-1)[0])
+        return self.value
+
+
+def _decodes_eval_rows(model: PFNTransformer, cfg: TrainConfig) -> bool:
+    """Whether the forward decodes only the eval rows: on one device, off the
+    fused path (module docstring)."""
+    return model.config.mesh is None and cfg.attention_impl != "fused"
+
+
+def _sep_to_host(model: PFNTransformer, cfg: TrainConfig, sep) -> _HostSep | None:
+    """sep's copy to the host where the forward decodes only the eval rows,
+    else None; made right after the draw, before the microbatch's forward."""
+    return _HostSep(sep) if _decodes_eval_rows(model, cfg) else None
+
+
 def _local_batch(mesh: Mesh | None, x, y, target_y):
     """This rank's part of a global batch: its rows (dp) of x and y, whole
     sequences, and its rows and positions (dp, sp) of target_y."""
@@ -306,30 +349,39 @@ def _local_batch(mesh: Mesh | None, x, y, target_y):
 def _loss_terms(criterion: Criterion, out, target_y, sep, mesh: Mesh | None):
     """(numerator, denominator) of the mean loss over eval positions (>= sep)
     of a batch, each rank's numerator over its rows and positions, the
-    denominator summed over dp and sp."""
+    denominator summed over dp and sp. ``out`` holds every row of
+    ``target_y`` or its last ones (a forward that decoded the rows sep ..
+    T-1 alone), which are scored against the last rows of ``target_y``."""
     with span("train.loss"):
-        start = mesh.axis_index("sp") * target_y.shape[1] if mesh is not None else 0
-        losses = criterion.per_position(out, target_y)  # (B, T)
-        positions = torch.arange(start, start + target_y.shape[1], device=losses.device)
+        T, decoded = target_y.shape[1], out.shape[1]
+        target_y = target_y[:, T - decoded:]
+        start = (mesh.axis_index("sp") * T if mesh is not None else 0) + T - decoded
+        losses = criterion.per_position(out, target_y)  # (B, decoded)
+        positions = torch.arange(start, start + decoded, device=losses.device)
         mask = (positions >= sep).to(losses.dtype).expand_as(losses) * criterion.valid_weight(target_y)
         return (losses * mask).sum(), sum_over(mask.sum(), mesh, ("dp", "sp")).clamp_min(1.0)
 
 
 def _loss_parts(model, criterion: Criterion, cfg: TrainConfig, x, y, target_y, sep,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, host_sep: _HostSep | None = None):
     """(objective, task loss) of one microbatch, a global batch: the
     objective to differentiate (on a mesh the rank's share, which sums over
     dp and sp to the whole) and the mean task loss over eval positions. The
     forward goes through the fused layers where ``cfg.attention_impl`` is
-    "fused"; dropout masks, if any, come from ``generator``."""
+    "fused"; dropout masks, if any, come from ``generator``. On one device
+    the model decodes the rows sep .. T-1 alone, sep read from ``host_sep``
+    (:func:`_sep_to_host`), made here where the caller gives none."""
     mesh = model.config.mesh
     x, y, target_y = _local_batch(mesh, x, y, target_y)
+    rows = None
+    if _decodes_eval_rows(model, cfg):
+        rows = (host_sep if host_sep is not None else _HostSep(sep), x.shape[1])
     if cfg.attention_impl == "fused":
         out = fused_forward(model, x, y, sep)
     elif cfg.num_experts > 0:
-        out, aux = model(x, y, sep, generator=generator, return_aux=True)
+        out, aux = model(x, y, sep, generator=generator, return_aux=True, rows=rows)
     else:
-        out = model(x, y, sep, generator=generator)
+        out = model(x, y, sep, generator=generator, rows=rows)
     num, den = _loss_terms(criterion, out, target_y, sep, mesh)
     objective = num / den
     if cfg.num_experts > 0:
@@ -345,7 +397,8 @@ def _masked_loss(model, criterion: Criterion, cfg: TrainConfig, x, y, target_y, 
 
 
 def _update(state: TrainState, criterion: Criterion, cfg: TrainConfig, schedule, microbatches) -> dict:
-    """One optimizer update from the (x, y, target_y, sep) ``microbatches``:
+    """One optimizer update from the (x, y, target_y, sep, host_sep)
+    ``microbatches`` (``host_sep``: :func:`_sep_to_host`):
     gradients summed over them (and on a mesh over the data axes), the
     global norm clipped to 1.0 by optax's rule g / max(1, |g|), then Adam at
     ``schedule(state.step)``."""
@@ -361,8 +414,8 @@ def _update(state: TrainState, criterion: Criterion, cfg: TrainConfig, schedule,
         model.train()
         optimizer.zero_grad(set_to_none=True)
         k = 0
-        for x, y, target_y, sep in microbatches:
-            objective, loss = _loss_parts(model, criterion, cfg, x, y, target_y, sep, state.generator)
+        for x, y, target_y, sep, host_sep in microbatches:
+            objective, loss = _loss_parts(model, criterion, cfg, x, y, target_y, sep, state.generator, host_sep)
             with span("train.backward"):  # cut in two at the decoder's input (utils.profiling)
                 objective.backward()  # accumulates into .grad: the sum over microbatches
             onehot = (positions == sep).to(torch.float32)
@@ -403,7 +456,8 @@ def _clip_and_step(state: TrainState, schedule) -> torch.Tensor:
 def make_train_step(prior, criterion: Criterion, cfg: TrainConfig, schedule):
     """The step fed by the prior on the device: ``train_step(state) ->
     metrics``. Each of the k microbatches draws its datasets, then its sep,
-    from ``state.generator``, which lies on the training device."""
+    from ``state.generator``, which lies on the training device, then starts
+    sep's copy to the host (:func:`_sep_to_host`)."""
     weights = _eval_pos_weights(cfg, _device(cfg))
 
     def train_step(state: TrainState) -> dict:
@@ -414,7 +468,7 @@ def make_train_step(prior, criterion: Criterion, cfg: TrainConfig, schedule):
                 with span("prior.sample"):
                     x, y, target_y = prior.sample(cfg.batch_size, cfg.bptt, generator=g, device=g.device)
                     sep = _sample_eval_pos(g, cfg, weights)
-                yield x, y, target_y, sep
+                yield x, y, target_y, sep, _sep_to_host(state.model, cfg, sep)
 
         return _update(state, criterion, cfg, schedule, microbatches())
 
@@ -425,16 +479,22 @@ def make_train_step_from_batch(criterion: Criterion, cfg: TrainConfig, schedule)
     """The step fed by the host: ``train_step(state, xs, ys, target_ys) ->
     metrics``, with a leading aggregate_k_gradients axis on each array (xs
     (k, B, T, F), ys and target_ys (k, B, T)), for data the device cannot
-    generate. Each microbatch draws its sep from ``state.generator``; the
-    rest is :func:`make_train_step`'s update."""
+    generate. Each microbatch draws its sep from ``state.generator`` and
+    starts its copy to the host; the rest is :func:`make_train_step`'s
+    update."""
     weights = _eval_pos_weights(cfg, _device(cfg))
 
     def train_step(state: TrainState, xs, ys, target_ys) -> dict:
         g = state.generator
         # From pinned host memory the copy is asynchronous.
         xs, ys, target_ys = (torch.as_tensor(a).to(g.device, non_blocking=True) for a in (xs, ys, target_ys))
-        microbatches = ((xs[i], ys[i], target_ys[i], _sample_eval_pos(g, cfg, weights)) for i in range(xs.shape[0]))
-        return _update(state, criterion, cfg, schedule, microbatches)
+
+        def microbatches():
+            for i in range(xs.shape[0]):
+                sep = _sample_eval_pos(g, cfg, weights)
+                yield xs[i], ys[i], target_ys[i], sep, _sep_to_host(state.model, cfg, sep)
+
+        return _update(state, criterion, cfg, schedule, microbatches())
 
     return train_step
 

@@ -60,7 +60,9 @@ The spans the port opens (the per-layer metrics of ``pfnbench/`` read them):
   ``prior.sample``            a microbatch's ``prior.sample`` and its sep draw
                               (``train/loop.make_train_step``)
   ``model.forward``           ``PFNTransformer.forward`` and ``fused_forward``
-  ``model.decoder``           the decoder call inside either forward
+  ``model.decoder``           the decoder call inside either forward; its
+                              counter ``Span.rows`` holds the rows it decoded
+                              and the rows the forward produced (B times T)
   ``train.loss``              ``train/loop._loss_terms``: the criterion's
                               per-position loss and its mask
   ``train.backward``          a microbatch's ``objective.backward()``, cut
@@ -104,14 +106,17 @@ def _mark() -> tuple:
 class Span:
     """One recorded span, between two marks (:func:`_mark`). ``parent``: the
     index in :func:`recorded` of the span open around it, or None.
-    ``device_ms``: set by :func:`recorded` where both marks hold an event."""
+    ``device_ms``: set by :func:`recorded` where both marks hold an event.
+    ``rows``: a counter the code inside the span may set, (rows decoded,
+    rows produced) on ``model.decoder``; None elsewhere."""
 
-    __slots__ = ("name", "parent", "start", "end", "cut", "device_ms")
+    __slots__ = ("name", "parent", "start", "end", "cut", "device_ms", "rows")
 
     def __init__(self, name: str, parent: int | None, start: tuple, end: tuple | None = None):
         self.name, self.parent, self.start, self.end = name, parent, start, end
         self.cut = None
         self.device_ms = None
+        self.rows = None
 
     @property
     def start_ns(self) -> int:

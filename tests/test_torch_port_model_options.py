@@ -373,9 +373,9 @@ def test_train_draws_the_masks_from_its_own_generator(monkeypatch):
     seen = []
     real = PFNTransformer.forward
 
-    def recording(self, x, y, sep, generator=None):
+    def recording(self, x, y, sep, generator=None, rows=None):
         seen.append((generator, None if generator is None else generator.get_state()))
-        return real(self, x, y, sep, generator=generator)
+        return real(self, x, y, sep, generator=generator, rows=rows)
 
     monkeypatch.setattr(PFNTransformer, "forward", recording)
     cfg = TrainConfig(emsize=EMSIZE, nhid=NHID, nlayers=1, nhead=NHEAD, bptt=12, batch_size=2, epochs=1,
