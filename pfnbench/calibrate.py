@@ -6,7 +6,7 @@
 For each of ``--seeds``: a sound run of the program (a short window), and
 its numbers against the reference: the lower readings. For each of
 ``--control-seeds``: the control (the reference computed one precision
-below the configuration's, ``reference.precision.control``) put in the
+below the configuration's, the model kind's ``control``) put in the
 program's place, and the planted faults the cell can have, each against the
 reference: the upper readings. Train cells: half of every microbatch's
 datasets left out (the mean over the rest); a state left unchanged reads 1
@@ -25,23 +25,23 @@ from pathlib import Path
 import torch
 
 from pfnbench import borders, check, program, run, spec, weights
-from pfnbench.reference import part, precision
-from pfnbench.reference.model import F32 as REFERENCE
+from pfnbench.reference import part
 from pfnbench.reference import score as ref_score
 from pfnbench.reference import train as ref_train
 from pfnbench.seeds import DATA, SCORE, WEIGHTS, derive
 
 
-def _train_side(cfg: dict, wl: dict, seed: int, device, prec: dict, prior_mode: str, drop_half: bool = False):
-    """What the check reads of a run of the reference (at ``prec``) in the
-    program's place."""
-    t, m = cfg["train"], cfg["model"]
+def _train_side(cfg: dict, wl: dict, seed: int, device, prec: dict | None, prior_mode: str, drop_half: bool = False):
+    """What the check reads of a run of the reference (at ``prec``, None:
+    float32) in the program's place."""
+    t, m, n_out, kind = cfg["train"], cfg["model"], program.n_out(cfg), spec.model_kind(cfg)
     B, k = wl["batch_size"], wl["aggregate_k_gradients"]
     steps = ref_train.replay(torch.Generator(device=device).manual_seed(derive(seed, DATA)), t, cfg["prior"], B, k,
                              3, prior_mode)
-    shapes = weights.parameter_shapes(m, cfg["prior"]["num_features"], program.n_out(cfg))
-    out = ref_train.follow(weights.make(shapes, derive(seed, WEIGHTS), device), m, cfg["criterion"]["kind"],
-                           borders.make(cfg["criterion"], cfg["prior"], device), steps, t["lr"], prec, drop_half)
+    shapes = spec.program_model(kind).parameter_shapes(m, cfg["prior"]["num_features"], n_out)
+    out = ref_train.follow(part("model", kind), weights.make(shapes, derive(seed, WEIGHTS), device), m, n_out,
+                           cfg["criterion"]["kind"], borders.make(cfg["criterion"], cfg["prior"], device), steps,
+                           t["lr"], prec, drop_half)
     out["batches"] = [mb for update in steps for mb in update]
     out["seps"] = [[mb["sep"] for mb in update] for update in steps]
     out["pos_cnt"] = []
@@ -54,11 +54,11 @@ def _train_side(cfg: dict, wl: dict, seed: int, device, prec: dict, prior_mode: 
 
 
 def train_upper(cfg: dict, wl: dict, seed: int, device) -> dict:
-    ref = _train_side(cfg, wl, seed, device, REFERENCE, "f32")
-    ctl = precision.control(cfg["model"]["dtype"])
+    ref = _train_side(cfg, wl, seed, device, None, "f32")
+    ctl = part("model", spec.model_kind(cfg)).control(cfg["model"]["dtype"])
     readings = {"control": check.train_numbers(_train_side(cfg, wl, seed, device, ctl, ctl["prior"]), ref,
                                                cfg["train"]["bptt"]),
-                "half_batch": check.train_numbers(_train_side(cfg, wl, seed, device, REFERENCE, "f32", True), ref,
+                "half_batch": check.train_numbers(_train_side(cfg, wl, seed, device, None, "f32", True), ref,
                                                   cfg["train"]["bptt"])}
     unchanged = dict(ref, change_leaf_norms={n: 0.0 for n in ref["change_leaf_norms"]})
     readings["unchanged_state"] = {"change_gap": check.train_numbers(unchanged, ref, cfg["train"]["bptt"])[
@@ -67,18 +67,19 @@ def train_upper(cfg: dict, wl: dict, seed: int, device) -> dict:
 
 
 def score_upper(cfg: dict, wl: dict, seed: int, device) -> dict:
-    m, T = cfg["model"], cfg["train"]["bptt"]
+    m, T, kind = cfg["model"], cfg["train"]["bptt"], spec.model_kind(cfg)
     B, P, positions = wl["datasets"], wl["pool_chunks"], wl["positions"]
     g = torch.Generator(device=device).manual_seed(derive(seed, SCORE))
     draw = part("prior", cfg["prior"]["kind"]).draw
     pool = [draw(g, B, T, cfg["prior"]) for _ in range(P)]
-    shapes = weights.parameter_shapes(m, cfg["prior"]["num_features"], program.n_out(cfg))
+    shapes = spec.program_model(kind).parameter_shapes(m, cfg["prior"]["num_features"], program.n_out(cfg))
     params = weights.make(shapes, derive(seed, WEIGHTS), device)
-    ctl = precision.control(m["dtype"])
+    net = part("model", kind)
+    ctl = net.control(m["dtype"])
     control, altered = 0.0, 0.0
     for chunk in pool:
-        ref = ref_score.logits_at(params, m, chunk["x"], chunk["y"], positions).cpu()
-        low = ref_score.logits_at(params, m, chunk["x"], chunk["y"], positions, ctl).cpu()
+        ref = ref_score.logits_at(net, params, m, chunk["x"], chunk["y"], positions).cpu()
+        low = ref_score.logits_at(net, params, m, chunk["x"], chunk["y"], positions, ctl).cpu()
         control = max(control, check.logit_tv(low, ref))
         wrong = ref.clone()
         wrong[len(positions) // 2, 0] = ref[len(positions) // 2, 1]

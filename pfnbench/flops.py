@@ -1,7 +1,9 @@
 """The yardstick: the operations and bytes the inputs need, and the peaks.
 
 Counted is the work these inputs require, never what the program happens to
-run, so that a change that skips wasted work cannot read above 100 %:
+run, so that a change that skips wasted work cannot read above 100 %. Each
+model kind counts its own products by this rule (``models/<kind>.py``:
+``train_flops``, ``score_flops``); for the ``pfn`` kind:
 
 * Encoder products (qkv, out-projection, the FFN's two) and the input
   encoders: 2 operations a weight and row, on every row the result needs.
@@ -31,37 +33,6 @@ def pfn_pairs(T: int, sep: int) -> int:
     """(query, key) pairs the PFN rule allows over T rows at ``sep``."""
     s = min(max(sep, 0), T)
     return T * s + (T - s)
-
-
-def layer_weights(model: dict) -> int:
-    """Weights of one encoder layer's four products."""
-    D, F = model["emsize"], model["nhid"]
-    return 3 * D * D + D * D + 2 * D * F
-
-
-def forward_flops(model: dict, num_features: int, n_out: int, datasets: int, rows: int, pairs: int,
-                  decoder_rows: int) -> float:
-    """One forward of ``datasets`` datasets, each with ``rows`` encoder rows
-    and ``pairs`` attention pairs a head, and ``decoder_rows`` decoded rows
-    in all."""
-    D, F, L, H = model["emsize"], model["nhid"], model["nlayers"], model["nhead"]
-    encoder = 2.0 * datasets * rows * (L * layer_weights(model) + num_features * D + D)
-    attention = 2.0 * 2 * L * datasets * H * pairs * (D // H)
-    decoder = 2.0 * decoder_rows * (D * F + F * n_out)
-    return encoder + attention + decoder
-
-
-def train_flops(model: dict, num_features: int, n_out: int, batch_size: int, T: int, seps) -> float:
-    """An update's required operations over microbatches with ``seps``."""
-    return sum(3.0 * forward_flops(model, num_features, n_out, batch_size, T, pfn_pairs(T, s),
-                                   batch_size * (T - s)) for s in seps)
-
-
-def score_flops(model: dict, num_features: int, n_out: int, datasets: int, positions) -> float:
-    """A scoring pass's required operations: for each position p, the rows
-    0 .. p and the one decoded row."""
-    return sum(forward_flops(model, num_features, n_out, datasets, p + 1, pfn_pairs(p + 1, p), datasets)
-               for p in positions)
 
 
 def attention_bound_s(BH: int, T: int, D: int, sep: int, dtype: str, backward: bool) -> float:

@@ -1,4 +1,5 @@
-"""The PFN transformer's forward pass, from its equations.
+"""The reference side of the ``pfn`` model kind: the PFN transformer's
+forward pass, from its equations.
 
 Tokens: encoder(x) + y_encoder(y) on the rows below ``sep``, encoder(x)
 alone on the rows at and after it. Each encoder layer is post-LN:
@@ -9,6 +10,12 @@ Parameters are a dict by the torch names of the reference model's
 state_dict. ``prec`` maps a part of the model ("enc": the layers' four
 products, "attn": the two attention products, "dec": the decoder) to a
 precision of :mod:`.precision`; the reference itself is float32 throughout.
+
+A reference model module gives ``forward(params, model, x, y, sep, prec)``
+(logits of every row), ``block_rows(model, n_out, T)`` (datasets a block of
+the training reference), ``F32`` (its parts all in float32) and
+``control(dtype)`` (the control's ``prec``, with the prior's precision
+under "prior").
 """
 
 from __future__ import annotations
@@ -17,9 +24,17 @@ import math
 
 import torch
 
-from pfnbench.reference.precision import matmul
+from pfnbench.reference.precision import BELOW, matmul
 
 F32 = {"enc": "f32", "attn": "f32", "dec": "f32"}
+
+
+def control(dtype: str) -> dict:
+    """The control's precision of each part, for a model whose products run
+    in ``dtype``: its layers and attention one step below it
+    (``precision.BELOW``), its float32 decoder and the prior ("prior", read
+    by ``reference.train.replay``) in TF32."""
+    return {"enc": BELOW[dtype], "attn": BELOW[dtype], "dec": "tf32", "prior": "tf32"}
 
 
 def linear(x, w, b, mode="f32"):
@@ -48,8 +63,10 @@ def pfn_attention(q, k, v, sep: int, mode="f32"):
     return matmul(p, v, mode)
 
 
-def forward(params: dict, nlayers: int, nhead: int, x, y, sep: int, prec: dict = F32):
-    """Logits (B, T, n_out) of x (B, T, F) and y (B, T) at ``sep``."""
+def forward(params: dict, model: dict, x, y, sep: int, prec: dict = F32):
+    """Logits (B, T, n_out) of x (B, T, F) and y (B, T) at ``sep``, for the
+    model of sizes ``model`` (the config's ``model``)."""
+    nlayers, nhead = model["nlayers"], model["nhead"]
     B, T, _ = x.shape
     pos = torch.arange(T, device=x.device)[None, :, None]
     x_emb = linear(x, params["encoder.weight"], params["encoder.bias"])
@@ -68,3 +85,9 @@ def forward(params: dict, nlayers: int, nhead: int, x, y, sep: int, prec: dict =
         t = layer_norm(h + f, p("norm2.weight"), p("norm2.bias"))
     d = gelu_tanh(linear(t, params["decoder.0.weight"], params["decoder.0.bias"], prec["dec"]))
     return linear(d, params["decoder.2.weight"], params["decoder.2.bias"], prec["dec"])
+
+
+def block_rows(model: dict, n_out: int, T: int, budget_bytes: float = 16e9) -> int:
+    """Datasets a block, so that a block's activations stay near ``budget_bytes``."""
+    per = model["nlayers"] * 3 * model["nhead"] * T * T * 4 + 4 * T * n_out * 4 + 12 * T * model["nhid"] * 4
+    return max(1, int(budget_bytes // per))

@@ -6,7 +6,9 @@ the precision below the configuration's: fp8 (e4m3, one scale a tensor) for
 the parts the configuration runs in bfloat16, TF32 for its float32 parts
 when the port keeps TF32 off, bfloat16 for other float32 work (the GP
 sampler's field). Rounding the operands and accumulating in float32 is what
-the tensor cores do for these types.
+the tensor cores do for these types. Which part of a model runs in which
+precision under the control is the model kind's (``control`` in
+``reference/model_<kind>.py``).
 """
 
 from __future__ import annotations
@@ -36,13 +38,6 @@ ROUNDING = {"f32": None, "tf32": round_tf32, "bf16": round_bf16, "fp8": round_fp
 # The precision below each stated one: fp8 for bfloat16, TF32 for float32
 # that the port runs with TF32 off.
 BELOW = {"bfloat16": "fp8", "float32": "tf32"}
-
-
-def control(dtype: str) -> dict:
-    """The control's precision of each part of a model whose products run
-    in ``dtype``: its layers and attention one step below it, its float32
-    decoder and prior in TF32."""
-    return {"enc": BELOW[dtype], "attn": BELOW[dtype], "dec": "tf32", "prior": "tf32"}
 
 
 class _RoundedMatmul(torch.autograd.Function):

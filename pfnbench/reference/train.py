@@ -12,7 +12,6 @@ from __future__ import annotations
 import torch
 
 from pfnbench import check
-from pfnbench.reference import model as ref_model
 from pfnbench.reference import part
 
 BETA1, BETA2, EPS = 0.9, 0.999, 1e-8
@@ -54,15 +53,12 @@ def replay(generator: torch.Generator, train: dict, prior: dict, batch_size: int
     return out
 
 
-def block_rows(model: dict, n_out: int, T: int, budget_bytes: float = 16e9) -> int:
-    """Datasets a block, so that a block's activations stay near ``budget_bytes``."""
-    per = model["nlayers"] * 3 * model["nhead"] * T * T * 4 + 4 * T * n_out * 4 + 12 * T * model["nhid"] * 4
-    return max(1, int(budget_bytes // per))
-
-
-def follow(params0: dict, model: dict, criterion: str, borders, steps: list[list[dict]], lr: float,
-           prec: dict = ref_model.F32, drop_half: bool = False) -> dict:
-    """Run the updates ``steps`` (from :func:`replay`) from ``params0``.
+def follow(net, params0: dict, model: dict, n_out: int, criterion: str, borders, steps: list[list[dict]], lr: float,
+           prec: dict | None = None, drop_half: bool = False) -> dict:
+    """Run the updates ``steps`` (from :func:`replay`) from ``params0``
+    through ``net``, the reference model of the configuration's kind
+    (``part("model", kind)``), of sizes ``model`` and head width ``n_out``;
+    ``prec`` None is ``net.F32``.
 
     Returns the loss of each update (the mean over its microbatches of each
     one's mean loss), the per-leaf norms of the first update's clipped
@@ -71,11 +67,11 @@ def follow(params0: dict, model: dict, criterion: str, borders, steps: list[list
     leaves out the second half of every microbatch's datasets (a planted
     fault)."""
     crit = part("criterion", criterion)
+    prec = net.F32 if prec is None else prec
     names = list(params0)
     params = {n: params0[n].detach().float().clone().requires_grad_(True) for n in names}
     m = {n: torch.zeros_like(params[n]) for n in names}
     v = {n: torch.zeros_like(params[n]) for n in names}
-    n_out = params["decoder.2.weight"].shape[0]
     losses, first_grads, first_norm = [], None, None
     for t, mbs in enumerate(steps, 1):
         grads = {n: torch.zeros_like(params[n]) for n in names}
@@ -87,10 +83,9 @@ def follow(params0: dict, model: dict, criterion: str, borders, steps: list[list
             B, T = y.shape
             den = max(B * (T - sep), 1)
             num_total = 0.0
-            step = block_rows(model, n_out, T)
+            step = net.block_rows(model, n_out, T)
             for s in range(0, B, step):
-                out = ref_model.forward(params, model["nlayers"], model["nhead"], x[s:s + step], y[s:s + step],
-                                        sep, prec)
+                out = net.forward(params, model, x[s:s + step], y[s:s + step], sep, prec)
                 num = crit.nll(out, y[s:s + step], borders)[:, sep:].sum()
                 for n, g in zip(names, torch.autograd.grad(num / den, [params[n] for n in names])):
                     grads[n] += g

@@ -26,6 +26,7 @@ import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import types  # noqa: E402
+from pathlib import Path  # noqa: E402
 
 from pfnbench import check, spec  # noqa: E402
 from pfnbench import trace as tracing  # noqa: E402
@@ -47,17 +48,19 @@ def _cache_dirs() -> None:
 
 
 def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cuda", bench: dict | None = None,
-        workload_spec: dict | None = None, config: dict | None = None, t_start: float | None = None) -> dict:
+        workload_spec: dict | None = None, config: dict | None = None, t_start: float | None = None,
+        root: Path = spec.ROOT) -> dict:
     """One run of ``workload``: the result object, without the device
     check. ``workload_spec`` and ``config`` replace the cell's files (the
-    tests run small copies on the CPU)."""
+    tests run small copies on the CPU); the config's model kind is found
+    under ``root``."""
     bench = spec.benchmark() if bench is None else bench
     wl = spec.workload(workload) if workload_spec is None else workload_spec
     cfg = spec.config(wl["config"]) if config is None else config
     t_start = T_START if t_start is None else t_start
     marks = []
     cell = types.SimpleNamespace(name=workload, workload=wl, config=cfg, seed=int(seed), seconds=float(seconds),
-                                 trace=bool(trace), device=device, t_start=t_start,
+                                 trace=bool(trace), device=device, t_start=t_start, root=root,
                                  mark=lambda phase: marks.append((phase, time.perf_counter() - t_start)))
     traffic = spec.traffic(wl["kind"])
     e2e, per_layer = spec.cell_metrics(bench, workload)

@@ -2,11 +2,13 @@
 
 A cell is ``workloads/<cell>.json``, its configuration
 ``configs/<config>.json``, its traffic ``traffic/<kind>.py``, the program's
-prior ``priors/<kind>.py`` and criterion ``criteria/<kind>.py``, and a
-per-layer metric ``metrics/<name>.py``, or
+prior ``priors/<kind>.py`` and criterion ``criteria/<kind>.py``, its model
+``models/<kind>.py`` (the program side) and ``reference/model_<kind>.py``
+(the reference side) for the configuration's ``model.kind`` (absent:
+``pfn``), and a per-layer metric ``metrics/<name>.py``, or
 ``metrics/<stem>.py`` for the part of its name before the first dot
 (``mfu.train`` and ``mfu.score`` share ``metrics/mfu.py``). Adding a cell, a
-configuration or a metric adds files and edits none.
+configuration, a model kind or a metric adds files and edits none.
 """
 
 from __future__ import annotations
@@ -57,16 +59,31 @@ def program_criterion(kind: str):
     return importlib.import_module(f"pfnbench.criteria.{_checked(kind)}")
 
 
-def metric_reader(name: str, root: Path = ROOT):
-    """The module of metric ``name``: its own file, else its stem's."""
-    _checked(name)
-    path = root / "metrics" / f"{name}.py"
-    if not path.exists():
-        path = root / "metrics" / f"{name.split('.')[0]}.py"
-    spec = importlib.util.spec_from_file_location(f"pfnbench.metrics.{path.stem}", path)
+def load(sub: str, name: str, root: Path = ROOT):
+    """The module of file ``<root>/<sub>/<name>.py``, executed afresh from
+    its file, so that a test can add one under another ``root``."""
+    path = root / sub / f"{_checked(name)}.py"
+    spec = importlib.util.spec_from_file_location(f"pfnbench.{sub}.{name}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def model_kind(cfg: dict) -> str:
+    """The model kind of configuration ``cfg``: ``model.kind``, absent ``pfn``."""
+    return cfg["model"].get("kind", "pfn")
+
+
+def program_model(kind: str, root: Path = ROOT):
+    """The program side of model ``kind``: ``models/<kind>.py``."""
+    return load("models", kind, root)
+
+
+def metric_reader(name: str, root: Path = ROOT):
+    """The module of metric ``name``: its own file, else its stem's."""
+    _checked(name)
+    stem = name if (root / "metrics" / f"{name}.py").exists() else name.split(".")[0]
+    return load("metrics", stem, root)
 
 
 def cell_metrics(bench: dict, cell: str) -> tuple[list[dict], list[dict]]:

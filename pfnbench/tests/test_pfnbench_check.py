@@ -95,9 +95,10 @@ def test_an_answer_altered_where_it_is_produced(tiny_cell, monkeypatch):
 
     predict = harness.pfn_predict
 
-    def altered(model, x, y, sep):
-        out = predict(model, x, y, sep).clone()
-        out[0, sep] = out[1, sep]
+    def altered(model, x, y, sep, rows=None):
+        out = predict(model, x, y, sep, rows=rows).clone()
+        row = sep if rows is None else sep - rows[0]
+        out[0, row] = out[1, row]
         return out
 
     monkeypatch.setattr(harness, "pfn_predict", altered)

@@ -10,7 +10,8 @@ from pfnbench import run, spec
 from pfnbench.tests.conftest import ROOT
 
 RUN_MODULES = ["pfnbench.run", "pfnbench.calibrate", "pfnbench.traffic.train", "pfnbench.traffic.score",
-               "pfnbench.priors.gp", "pfnbench.priors.bnn", "pfnbench.criteria.full_bar", "pfnbench.criteria.bce"]
+               "pfnbench.priors.gp", "pfnbench.priors.bnn", "pfnbench.criteria.full_bar", "pfnbench.criteria.bce",
+               "pfnbench.models.pfn"]
 
 
 def _loaded_after(imports: list[str]) -> set[str]:

@@ -7,8 +7,7 @@ import dataclasses
 import pytest
 import torch
 
-from pfnbench import borders, program, run, weights
-from pfnbench.reference import model as ref_model
+from pfnbench import borders, program, run, spec, weights
 from pfnbench.reference import part
 from pfnbench.reference import train as ref_train
 from pfnbench.tests.conftest import tiny
@@ -16,21 +15,21 @@ from pfnbench.tests.conftest import tiny
 
 def _port_model(cfg, params, bucket_borders):
     cfg = dict(cfg, model=dict(cfg["model"], dtype="float32"))
-    return program.build(cfg, "cpu", params, bucket_borders, batch_size=2)
+    return spec.program_model("pfn").build(cfg, "cpu", params, bucket_borders, batch_size=2)
 
 
 @pytest.mark.parametrize("config", ["gp_fig3a", "bnn_ref"])
 def test_forward_matches_the_port(config):
     cfg = tiny(config)
     bucket_borders = borders.make(cfg["criterion"], cfg["prior"], "cpu")
-    shapes = weights.parameter_shapes(cfg["model"], cfg["prior"]["num_features"], program.n_out(cfg))
+    shapes = spec.program_model("pfn").parameter_shapes(cfg["model"], cfg["prior"]["num_features"], program.n_out(cfg))
     params = weights.make(shapes, 3, "cpu")
     prior, criterion, _, model = _port_model(cfg, params, bucket_borders)
     g = torch.Generator().manual_seed(0)
     x, y, target = prior.sample(3, cfg["train"]["bptt"], generator=g)
     for sep in (0, 1, 7, cfg["train"]["bptt"] - 1):
         port = model(x, y, torch.tensor([sep], dtype=torch.int32))
-        ref = ref_model.forward(params, cfg["model"]["nlayers"], cfg["model"]["nhead"], x, y, sep)
+        ref = part("model", "pfn").forward(params, cfg["model"], x, y, sep)
         torch.testing.assert_close(ref, port, rtol=1e-5, atol=1e-5)
         nll = part("criterion", cfg["criterion"]["kind"]).nll(ref, target, bucket_borders)
         torch.testing.assert_close(nll, criterion.per_position(ref, target), rtol=1e-6, atol=1e-6)
@@ -51,7 +50,8 @@ def test_replayed_batches_and_seps_match_the_sampler(config, batch):
     from pfn_tpu_torch.train.loop import _eval_pos_weights, _sample_eval_pos
 
     cfg = tiny(config)
-    prior = program.build(cfg, "cpu", weights.make(weights.parameter_shapes(
+    net = spec.program_model("pfn")
+    prior = net.build(cfg, "cpu", weights.make(net.parameter_shapes(
         cfg["model"], cfg["prior"]["num_features"], program.n_out(cfg)), 1, "cpu"),
         borders.make(cfg["criterion"], cfg["prior"], "cpu"), batch_size=batch)[0]
     t = cfg["train"]

@@ -16,7 +16,7 @@ import time
 
 import torch
 
-from pfnbench import borders, check, flops, program, trace, weights
+from pfnbench import borders, check, flops, program, spec, trace, weights
 from pfnbench.reference import part
 from pfnbench.reference import score as ref_score
 from pfnbench.seeds import SCORE, WEIGHTS, derive
@@ -32,14 +32,15 @@ def run(cell) -> dict:
     m, T = cfg["model"], cfg["train"]["bptt"]
     B, P, positions = wl["datasets"], wl["pool_chunks"], wl["positions"]
     nf, n_out = cfg["prior"]["num_features"], program.n_out(cfg)
+    net = spec.program_model(spec.model_kind(cfg), cell.root)
     cuda = dev.type == "cuda"
 
     cell.mark("imports")
     bucket_borders = borders.make(cfg["criterion"], cfg["prior"], dev)
     cell.mark("borders")
-    shapes = weights.parameter_shapes(m, nf, n_out)
-    _, _, _, model = program.build(cfg, dev, weights.make(shapes, derive(cell.seed, WEIGHTS), dev), bucket_borders,
-                                   batch_size=B)
+    shapes = net.parameter_shapes(m, nf, n_out)
+    _, _, _, model = net.build(cfg, dev, weights.make(shapes, derive(cell.seed, WEIGHTS), dev), bucket_borders,
+                               batch_size=B)
     model.eval()
     g = torch.Generator(device=dev).manual_seed(derive(cell.seed, SCORE))
     draw = part("prior", cfg["prior"]["kind"]).draw
@@ -79,13 +80,12 @@ def run(cell) -> dict:
 
         calls = max(2, math.ceil(PROFILE_S * n / window_s))
         prof = trace.profile(one, calls)
-        H, dtype = m["nhead"], m["dtype"]
         result["trace"] = {
             "kind": "score", "enqueue_s": enqueue, "window_s": window_s,
-            "required_flops": n * flops.score_flops(m, nf, n_out, B, positions),
-            "peak_flops": flops.PEAK_FLOPS[dtype], "profile": prof,
-            "attention_calls": [{"BH": B * H, "T": p + 1, "D": m["emsize"] // H, "sep": p, "dtype": dtype,
-                                 "backward": False, "count": m["nlayers"] * calls} for p in positions]}
+            "required_flops": n * net.score_flops(m, nf, n_out, B, positions),
+            "peak_flops": flops.PEAK_FLOPS[m["dtype"]], "profile": prof,
+            "attention_calls": [dict(c, count=c["count"] * calls)
+                                for c in net.attention_calls(m, B, T, positions, "score")]}
 
     del model, logits
     gc.collect()
@@ -94,8 +94,9 @@ def run(cell) -> dict:
 
     t_ref = time.perf_counter()
     params = weights.make(shapes, derive(cell.seed, WEIGHTS), dev)
+    ref_net = part("model", spec.model_kind(cfg), cell.root)
     result["numbers"] = {"logit_tv": max(
-        check.logit_tv(last[i], ref_score.logits_at(params, m, pool[i]["x"], pool[i]["y"], positions).cpu())
+        check.logit_tv(last[i], ref_score.logits_at(ref_net, params, m, pool[i]["x"], pool[i]["y"], positions).cpu())
         for i in sorted(last))}
     result["reference_s"] = time.perf_counter() - t_ref
     result["detail"] = {"step_s": [b - a for a, b in zip(ends, ends[1:])]}

@@ -8,22 +8,29 @@ card by the port's prior, with one host sync as the loop reads the loss.
 Those updates warm every shape and give what the reference checks: the
 microbatches, each update's loss and sep histogram, the first clipped
 gradient (Adam's first moment after one step) and the change after three.
-The same state then runs the window: whole updates back to back until
-``seconds`` have passed. The traced run adds a profiled stretch of about a
+One more update at sep 0 (the port's ``fixed`` sampler) decodes every row:
+the largest shapes an update has, so that the caching allocator has grown
+to them before the window, as it has early in a long training run. The
+same state then runs the window: whole updates back to back until
+``seconds`` have passed, its generator seeded anew with ``WINDOW_DATA``,
+the same for every seed, so that every run's window draws the same seps
+and does the same work. The traced run adds a profiled stretch of about a
 second of further updates.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import math
 import time
 
 import torch
 
-from pfnbench import borders, check, flops, program, trace, weights
+from pfnbench import borders, check, flops, program, spec, trace, weights
+from pfnbench.reference import part
 from pfnbench.reference import train as ref_train
-from pfnbench.seeds import DATA, WEIGHTS, derive
+from pfnbench.seeds import DATA, WEIGHTS, WINDOW_DATA, derive
 
 END_TO_END = ("train_datasets_per_s", "setup_s")
 SETUP_UPDATES = 3
@@ -60,16 +67,16 @@ def run(cell) -> dict:
     m, t = cfg["model"], cfg["train"]
     B, k, T = wl["batch_size"], wl["aggregate_k_gradients"], t["bptt"]
     nf, n_out = cfg["prior"]["num_features"], program.n_out(cfg)
+    net = spec.program_model(spec.model_kind(cfg), cell.root)
     cuda = dev.type == "cuda"
 
     cell.mark("imports")
     bucket_borders = borders.make(cfg["criterion"], cfg["prior"], dev)
     cell.mark("borders")
-    shapes = weights.parameter_shapes(m, nf, n_out)
+    shapes = net.parameter_shapes(m, nf, n_out)
     drawn = weights.make(shapes, derive(cell.seed, WEIGHTS), dev)
     cell.mark("weights")
-    prior, criterion, tcfg, model = program.build(cfg, dev, drawn, bucket_borders, batch_size=B,
-                                                  aggregate_k_gradients=k)
+    prior, criterion, tcfg, model = net.build(cfg, dev, drawn, bucket_borders, batch_size=B, aggregate_k_gradients=k)
     del drawn
     optimizer, _, _ = _make_optimizer(tcfg, model)
     cell.mark("model")
@@ -95,10 +102,16 @@ def run(cell) -> dict:
     seen = {"losses": losses, "pos_cnt": counts, "grad_leaf_norms": grads, "change_leaf_norms": changes,
             "batches": keeping.kept}
     keeping.kept = None
+    # Sep 0 decodes every row: the allocator grows to the largest update before the window.
+    largest = make_train_step(prior, criterion, dataclasses.replace(tcfg, eval_pos_sampler="fixed", fixed_eval_pos=0),
+                              lambda count: t["lr"])
+    float(largest(state)["loss"])
+    cell.mark("update at sep 0")
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
 
     # The window.
+    state.generator.manual_seed(WINDOW_DATA)
     program.synchronize(dev)
     t0 = time.perf_counter()
     setup_s = t0 - cell.t_start
@@ -125,16 +138,13 @@ def run(cell) -> dict:
             return out["pos_cnt"]
 
         prof = trace.profile(one, max(2, math.ceil(PROFILE_S * updates / window_s)))
-        H, dtype = m["nhead"], m["dtype"]
         result["trace"] = {
             "kind": "train", "enqueue_s": enqueue, "window_s": window_s,
-            "required_flops": flops.train_flops(m, nf, n_out, B, T, _seps(window_counts)),
-            "peak_flops": flops.PEAK_FLOPS[dtype], "profile": prof,
-            "attention_calls": [{"BH": B * H, "T": T, "D": m["emsize"] // H, "sep": s, "dtype": dtype,
-                                 "backward": backward, "count": m["nlayers"]}
-                                for s in _seps(prof["results"]) for backward in (False, True)]}
+            "required_flops": net.train_flops(m, nf, n_out, B, T, _seps(window_counts)),
+            "peak_flops": flops.PEAK_FLOPS[m["dtype"]], "profile": prof,
+            "attention_calls": net.attention_calls(m, B, T, _seps(prof["results"]), "train")}
 
-    del state, optimizer, model, step, params, keeping, out
+    del state, optimizer, model, step, largest, params, keeping, out
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -144,7 +154,8 @@ def run(cell) -> dict:
     steps = ref_train.replay(torch.Generator(device=dev).manual_seed(derive(cell.seed, DATA)), t, cfg["prior"], B, k,
                              SETUP_UPDATES)
     taken = check.adopt_ambiguous_labels(seen["batches"], [mb for update in steps for mb in update])
-    ref = ref_train.follow(weights.make(shapes, derive(cell.seed, WEIGHTS), dev), m, cfg["criterion"]["kind"],
+    ref = ref_train.follow(part("model", spec.model_kind(cfg), cell.root),
+                           weights.make(shapes, derive(cell.seed, WEIGHTS), dev), m, n_out, cfg["criterion"]["kind"],
                            bucket_borders, steps, t["lr"])
     ref["batches"] = [mb for update in steps for mb in update]
     ref["seps"] = [[mb["sep"] for mb in update] for update in steps]
