@@ -33,7 +33,13 @@ Phases, each printing one JSON line:
      experiments/flash_equivalence.py's rule against the dense bf16 path's
      own error; a repeat backward bitwise equal; then autograd through
      pfn_attention(impl="flash") and impl="prefix" on the card against the
-     dense path, under the same rule.
+     dense path, under the same rule. Then item_attention: both prefix calls
+     of the per-feature model's item attention at the tabpfn2 cell's shapes
+     (ITEM_ATTENTION: the train rows, B*H 1 836, Tq sep; the test rows
+     folded, B*H 306, Tq 6 (T - sep) against Tk 1 024), bf16 at head dim 32,
+     at every sep of ITEM_ATTENTION_SEPS: the forward by the kernel phase's
+     bf16 rule, dq and dk/dv by this phase's, a repeat backward bitwise
+     equal, o and the gradients exactly zero at sep 0.
   5. kernel_bwd_timing: both backward kernels beside the plain backward and
      the dense bf16 backward at the training microbatch (B*H = 16, T = 2010,
      D = 128, bf16) at each sep of BWD_TIMING_SEPS, held to the bf16 rule
@@ -542,6 +548,15 @@ DKV_PREFIX_TQ = [63, 64, 65]
 # phase's mixture sampler, where 208 heavy units of the dk/dv kernel (B*H 16)
 # take two rounds of 132 SMs.
 BWD_TIMING_SEPS = [400, 1000, 1595, 2000]
+# The per-feature model's item attention (models/per_feature.item_attention)
+# at the tabpfn2 cell's shapes: 6 datasets x 51 token columns, 6 heads of
+# 32, T 1024, bf16. Two prefix calls a layer: the train rows, (columns x H,
+# sep, 32) against (columns x H, T, 32), and the test rows folded into one
+# head, (columns, H (T - sep), 32) against head 0's keys, Tq above Tk for
+# every sep below 5/6 T. ITEM_CHUNK heads at a time for the dense versions.
+ITEM_ATTENTION = dict(columns=6 * 51, H=6, T=1024, D=32)
+ITEM_ATTENTION_SEPS = [0, 1, 512, 1023]
+ITEM_CHUNK = 32
 REPEATS = 5  # slice requests after the first call; their median is reported
 # The bench.py flagship (bench.py:22-30): emsize 512, 4 heads, nhid 1024, 6
 # layers, 100 buckets, B 64 datasets of T 100 from the grid-2048 GP prior.
@@ -1165,6 +1180,88 @@ def phase_kernel_bwd_cases(device):
     emit({"phase": "kernel_bwd", "cases": n, "worst": worst, "tol_f32": F32_GRAD_TOL,
           "bf16_rule": f"err/max|gold| <= max({BF16_GRAD_FLOOR}, 3 * dense_bf16_err/max|gold|) per gradient",
           "repeat_bitwise_equal": True, "dispatch_autograd": dispatch})
+    return worst
+
+
+def _item_dense(qs, k, v, do, sep: int) -> tuple:
+    """(o, lse, dq, dk, dv) of one prefix call by the dense versions, ITEM_CHUNK
+    heads at a time: the plain float32 functions on float32 copies of the
+    inputs (the gold), and the port's dense prefix path on the bf16 inputs
+    (scale already in qs) with autograd."""
+    import torch
+
+    from pfn_tpu_torch.ops.attention import pfn_prefix_attention_reference
+    from pfn_tpu_torch.ops.flash_attention import _flash_bwd_plain, _flash_fwd_plain
+
+    gold, dense = [], []
+    for a in range(0, qs.shape[0], ITEM_CHUNK):
+        part = [t[a:a + ITEM_CHUNK] for t in (qs, k, v, do)]
+        f32 = [t.float() for t in part[:3]]
+        o32, lse32 = _flash_fwd_plain(*f32, sep, k.shape[1], False)
+        gold.append((o32, lse32, *_flash_bwd_plain(*f32, o32, lse32, part[3].float(), None, sep, k.shape[1], False)))
+        leaves = [t[:, None].detach().requires_grad_() for t in part[:3]]
+        o, lse = pfn_prefix_attention_reference(*leaves, sep, scale=1.0)
+        grads = torch.autograd.grad((o.float() * part[3][:, None].float()).sum(), leaves)
+        dense.append((o[:, 0].detach(), lse[:, 0].detach(), *(t[:, 0] for t in grads)))
+    return tuple(torch.cat(ts) for ts in zip(*gold)), tuple(torch.cat(ts) for ts in zip(*dense))
+
+
+def phase_item_attention(device):
+    """Both flash calls of the per-feature model's item attention at the
+    tabpfn2 cell's shapes (ITEM_ATTENTION), bf16 at head dim 32, forward and
+    backward, at each sep of ITEM_ATTENTION_SEPS, against the plain float32
+    prefix path and the dense bf16 one: the forward by the kernel phase's
+    rule (o within 2x the dense path's error + 1e-3, lse within
+    BF16_LSE_TOL), dq and dk/dv by the kernel_bwd phase's; a repeat backward
+    bitwise equal; at sep 0 o and every gradient exactly zero."""
+    import torch
+
+    from pfn_tpu_torch.ops.flash_attention import _flash_bwd, _flash_fwd
+
+    N, H, T, D = (ITEM_ATTENTION[k] for k in ("columns", "H", "T", "D"))
+    g = torch.Generator(device=device).manual_seed(28)
+    worst, n = {}, 0
+    for sep in ITEM_ATTENTION_SEPS:
+        for call, BH, Tq in (("train_rows", N * H, sep), ("test_rows", N, H * (T - sep))):
+            if Tq == 0:
+                continue
+            case = dict(call=call, BH=BH, Tq=Tq, Tk=T, sep=sep, D=D)
+            qs = (torch.randn(BH, Tq, D, generator=g, device=device) * D**-0.5).to(torch.bfloat16)
+            k, v, do = (torch.randn(BH, L, D, generator=g, device=device).to(torch.bfloat16) for L in (T, T, Tq))
+            o, lse = _flash_fwd(qs, k, v, sep, False)
+            got = _flash_bwd(qs, k, v, o, lse, do, None, sep, False)
+            again = _flash_bwd(qs, k, v, o, lse, do, None, sep, False)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"a repeat backward differs {case}")
+            if not all(bool(torch.isfinite(t).all()) for t in (o, *got)):
+                raise AssertionError(f"non-finite output or gradient {case}")
+            (o32, lse32, *gold), (o_d, _, *dense) = _item_dense(qs, k, v, do, sep)
+            lse_err = max_abs(lse, lse32)
+            if not torch.allclose(lse, lse32, atol=BF16_LSE_TOL, rtol=BF16_LSE_TOL):
+                raise AssertionError(f"lse mismatch {case}: {lse_err}")
+            err, budget = max_abs(o, o32), 2 * max_abs(o_d, o32) + 1e-3
+            if err > budget:
+                raise AssertionError(f"bf16 error {err} over budget {budget}: {case}")
+            if sep == 0:
+                if o.any() or any(t.any() for t in got) or bool((lse > -1e29).any()):
+                    raise AssertionError(f"an empty prefix must give o = 0, zero gradients, lse <= -1e29: {case}")
+                errs = {}
+            else:
+                errs = _grad_errors(got, gold, dense)
+                if not _bf16_ok(errs):
+                    raise AssertionError(f"bf16 gradient error over budget {case}: {errs}")
+            w = worst.setdefault(call, {"cases": 0, "o": 0.0, "o_budget": 0.0, "lse": 0.0})
+            w["cases"] += 1
+            w["o"], w["o_budget"], w["lse"] = max(w["o"], err), max(w["o_budget"], budget), max(w["lse"], lse_err)
+            for name, e in errs.items():
+                w[name] = max(w.get(name, 0.0), e)
+            n += 1
+            del qs, k, v, do, o, lse, got, again, gold, dense
+            torch.cuda.empty_cache()
+    emit({"phase": "item_attention", "cases": n, "shape": ITEM_ATTENTION, "seps": ITEM_ATTENTION_SEPS, "worst": worst,
+          "bf16_rule": "o: err <= 2 * dense_bf16_err + 1e-3; dq, dk, dv: err/max|gold| <= "
+                       f"max({BF16_GRAD_FLOOR}, 3 * dense_bf16_err/max|gold|)"})
     return worst
 
 
@@ -4667,6 +4764,7 @@ def main() -> int:
     phase_kernel_cases(device)
     timing, _ = phase_kernel_timing(device, smi)
     phase_kernel_bwd_cases(device)
+    phase_item_attention(device)
     bwd_timing, bwd_prefix = phase_kernel_bwd_timing(device, smi)
     phase_slice(device, smi)
     launches = phase_train(device, smi)

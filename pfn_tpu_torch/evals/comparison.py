@@ -51,31 +51,39 @@ def _as_tensor(a, device=None) -> torch.Tensor:
 class BayesianNNModel:
     """2-layer linear BNN with standard-normal priors (reference :28-67).
     Weights may carry leading batch dims: w1 (..., F, E), b1 (..., E), w2
-    (..., E, 2), b2 (..., 2)."""
+    (..., E, C), b2 (..., C), C = ``num_classes`` (the reference's 2)."""
 
     num_features: int
     embed: int
     nlayers: int = 2  # the reference spec carries this but builds 2 layers
+    # Out of repr: the sweep caches' tag hashes repr, as the JAX package's does.
+    num_classes: int = dataclasses.field(default=2, repr=False)
 
     def shapes(self) -> dict:
-        return {"w1": (self.num_features, self.embed), "b1": (self.embed,), "w2": (self.embed, 2), "b2": (2,)}
+        C = self.num_classes
+        return {"w1": (self.num_features, self.embed), "b1": (self.embed,), "w2": (self.embed, C), "b2": (C,)}
 
     def sample_params(self, generator: torch.Generator, batch_shape: tuple = ()) -> dict:
         return {k: torch.randn((*batch_shape, *s), generator=generator, device=generator.device)
                 for k, s in self.shapes().items()}
 
     def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        """x (..., T, F) -> (..., T, 2); the weights' batch dims broadcast
+        """x (..., T, F) -> (..., T, C); the weights' batch dims broadcast
         against x's. Sequential(fc1, fc2), deliberately no activation
         (reference :46)."""
         h = x @ params["w1"] + params["b1"].unsqueeze(-2)
         return h @ params["w2"] + params["b2"].unsqueeze(-2)
 
     def _draw_data(self, generator: torch.Generator, params: dict, shape: tuple):
-        """x ~ N(0, 1) of ``shape`` (..., T, F) and y ~ Cat(softmax(f(x)))."""
+        """x ~ N(0, 1) of ``shape`` (..., T, F) and y ~ Cat(softmax(f(x))),
+        one uniform u a row: y is the number of classes c >= 1 whose tail
+        p_c + ... + p_{C-1} exceeds u, so with 2 classes u < p_1, as the
+        reference draws it."""
         x = torch.randn(shape, generator=generator, device=generator.device)
-        p1 = torch.softmax(self.logits(params, x), dim=-1)[..., 1]
-        y = (torch.rand(p1.shape, generator=generator, device=generator.device) < p1).to(torch.float32)
+        p = torch.softmax(self.logits(params, x), dim=-1)
+        tails = p.flip(-1).cumsum(-1).flip(-1)[..., 1:]
+        u = torch.rand(p.shape[:-1], generator=generator, device=generator.device)
+        y = (u.unsqueeze(-1) < tails).sum(-1).to(torch.float32)
         return x, y
 
     def generate(self, generator: torch.Generator, seq_len: int, n: int):
@@ -253,13 +261,16 @@ def _numpy(a) -> np.ndarray:
 def _sweep_cache_tag(X, y, model, extra) -> str:
     """Content hash over the eval data, the model spec and the sweep's
     parameters, the JAX package's (the reference keys on method and steps
-    alone, :296-300, a stale-hit hazard)."""
+    alone, :296-300, a stale-hit hazard); a BNN of other than 2 classes adds
+    its count."""
     import hashlib
 
     h = hashlib.sha1()
     h.update(np.ascontiguousarray(_numpy(X).astype(np.float32)).tobytes())
     h.update(np.ascontiguousarray(_numpy(y).astype(np.float32)).tobytes())
     h.update(repr(model).encode())
+    if model.num_classes != 2:
+        h.update(f"num_classes={model.num_classes}".encode())
     h.update(repr(extra).encode())
     return h.hexdigest()[:10]
 

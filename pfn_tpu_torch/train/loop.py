@@ -16,7 +16,7 @@ How it maps to PyTorch:
     thing: on one device the model decodes only the eval rows sep .. T-1,
     the rows the loss reads (the others would carry weight 0 and a zero
     gradient). So right after the draw sep is copied to pinned host memory
-    without blocking (:class:`_HostSep`), and the host waits for that copy
+    without blocking (:class:`HostSep`), and the host waits for that copy
     only once the encoder's kernels are enqueued: it never drains the
     device's queue before the loop reads the loss.
   * On a device mesh and on the fused path the decoder runs on every row and
@@ -70,6 +70,7 @@ import torch
 
 from pfn_tpu_torch.device import require_cuda
 from pfn_tpu_torch.models.fused_apply import fused_forward, fused_supported
+from pfn_tpu_torch.models.per_feature import PerFeatureConfig, PerFeatureTransformer
 from pfn_tpu_torch.models.transformer import PFNTransformer, TransformerConfig
 from pfn_tpu_torch.ops import _ext
 from pfn_tpu_torch.parallel.collectives import sum_over
@@ -93,7 +94,7 @@ from pfn_tpu_torch.train.checkpoints import (
 )
 from pfn_tpu_torch.train.losses import Criterion
 from pfn_tpu_torch.utils.profiling import raise_on_nan, span
-from pfn_tpu_torch.utils.samplers import draw_eval_pos
+from pfn_tpu_torch.utils.samplers import HostSep, draw_eval_pos
 from pfn_tpu_torch.utils.schedules import cosine_schedule_with_warmup, get_openai_lr
 
 
@@ -108,7 +109,8 @@ class TrainConfig:
     the optimizer state over the mesh's dp axis (no effect without a mesh).
     The module factories take the port's protocols (``models/``).
     ``attention_impl="fused"`` trains through the fused-layer kernels (module
-    docstring)."""
+    docstring). ``model_kind="tabpfn2"`` trains TabPFN v2's per-feature
+    model (``models/per_feature.py``) through the same step."""
 
     emsize: int = 200
     nhid: int = 200
@@ -150,6 +152,9 @@ class TrainConfig:
     decoder: Callable | None = None
     exact_gelu: bool = False
     device: str | torch.device | None = None
+    # "pfn": the PFN transformer; "tabpfn2": TabPFN v2's per-feature model
+    # (models/per_feature.py).
+    model_kind: str = "pfn"
 
 
 @dataclasses.dataclass
@@ -192,7 +197,13 @@ def build_model(prior, criterion: Criterion, cfg: TrainConfig, mesh: Mesh | None
     criterion), on the training device. Its initial weights are drawn from a
     generator seeded with ``cfg.seed``; the global RNG state is left as it
     was. With ``mesh``: on the mesh's device, holding this rank's slices of
-    those weights (``parallel.mesh.shard_module_``, fsdp as ``cfg.fsdp``)."""
+    those weights (``parallel.mesh.shard_module_``, fsdp as ``cfg.fsdp``).
+    ``cfg.model_kind`` "tabpfn2" builds TabPFN v2's per-feature model
+    instead (:func:`_build_per_feature`)."""
+    if cfg.model_kind == "tabpfn2":
+        return _build_per_feature(prior, criterion, cfg, mesh)
+    if cfg.model_kind != "pfn":
+        raise ValueError(f"unknown model_kind {cfg.model_kind!r}")
     mcfg = TransformerConfig(
         mesh=mesh,
         moe_capacity_factor=cfg.moe_capacity_factor,
@@ -219,6 +230,25 @@ def build_model(prior, criterion: Criterion, cfg: TrainConfig, mesh: Mesh | None
         model = PFNTransformer(mcfg)
     model = model.to(_device(cfg, mesh))
     return shard_module_(model, mesh, cfg.fsdp) if mesh is not None else model
+
+
+def _build_per_feature(prior, criterion: Criterion, cfg: TrainConfig, mesh: Mesh | None) -> PerFeatureTransformer:
+    """TabPFN v2's model of ``cfg``'s sizes on the training device, seeded
+    as :func:`build_model`. It runs on one device, unfused, without dropout,
+    experts, SeqBN or module factories: any of those raises ValueError."""
+    unsupported = {"a device mesh": mesh is not None, 'attention_impl="fused"': cfg.attention_impl == "fused",
+                   "dropout": cfg.dropout > 0, "num_experts": cfg.num_experts > 0,
+                   "input_normalization": cfg.input_normalization,
+                   "module factories": any((cfg.encoder, cfg.y_encoder, cfg.pos_encoder, cfg.decoder))}
+    named = [what for what, used in unsupported.items() if used]
+    if named:
+        raise ValueError(f"the tabpfn2 model does not support {', '.join(named)}")
+    mcfg = PerFeatureConfig(num_features=prior.num_features, n_out=criterion.n_out(prior.num_outputs),
+                            emsize=cfg.emsize, nhead=cfg.nhead, nhid=cfg.nhid, nlayers=cfg.nlayers, dtype=cfg.dtype)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        model = PerFeatureTransformer(mcfg)
+    return model.to(_device(cfg))
 
 
 def _active_param_count(model: PFNTransformer, num_experts: int) -> int:
@@ -301,41 +331,16 @@ def _check_fused(model: PFNTransformer, cfg: TrainConfig) -> None:
         raise ValueError(f"fused path does not support this config: {reason}")
 
 
-class _HostSep:
-    """A one-element sep tensor on its way to the host. On the card: a
-    non-blocking copy into pinned memory, enqueued when this is made, and an
-    event behind it. ``operator.index`` waits for that event alone (once),
-    so a caller that asks after enqueuing more work leaves the device that
-    work to run; off the card it reads the value."""
-
-    __slots__ = ("host", "event", "value")
-
-    def __init__(self, sep: torch.Tensor):
-        self.host, self.event, self.value = sep, None, None
-        if sep.device.type == "cuda":
-            self.host = torch.empty(sep.shape, dtype=sep.dtype, pin_memory=True)
-            self.host.copy_(sep, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-
-    def __index__(self) -> int:
-        if self.value is None:
-            if self.event is not None:
-                self.event.synchronize()
-            self.value = int(self.host.reshape(-1)[0])
-        return self.value
-
-
 def _decodes_eval_rows(model: PFNTransformer, cfg: TrainConfig) -> bool:
     """Whether the forward decodes only the eval rows: on one device, off the
     fused path (module docstring)."""
     return model.config.mesh is None and cfg.attention_impl != "fused"
 
 
-def _sep_to_host(model: PFNTransformer, cfg: TrainConfig, sep) -> _HostSep | None:
+def _sep_to_host(model: PFNTransformer, cfg: TrainConfig, sep) -> HostSep | None:
     """sep's copy to the host where the forward decodes only the eval rows,
     else None; made right after the draw, before the microbatch's forward."""
-    return _HostSep(sep) if _decodes_eval_rows(model, cfg) else None
+    return HostSep(sep) if _decodes_eval_rows(model, cfg) else None
 
 
 def _local_batch(mesh: Mesh | None, x, y, target_y):
@@ -363,7 +368,7 @@ def _loss_terms(criterion: Criterion, out, target_y, sep, mesh: Mesh | None):
 
 
 def _loss_parts(model, criterion: Criterion, cfg: TrainConfig, x, y, target_y, sep,
-                generator: torch.Generator | None = None, host_sep: _HostSep | None = None):
+                generator: torch.Generator | None = None, host_sep: HostSep | None = None):
     """(objective, task loss) of one microbatch, a global batch: the
     objective to differentiate (on a mesh the rank's share, which sums over
     dp and sp to the whole) and the mean task loss over eval positions. The
@@ -375,7 +380,7 @@ def _loss_parts(model, criterion: Criterion, cfg: TrainConfig, x, y, target_y, s
     x, y, target_y = _local_batch(mesh, x, y, target_y)
     rows = None
     if _decodes_eval_rows(model, cfg):
-        rows = (host_sep if host_sep is not None else _HostSep(sep), x.shape[1])
+        rows = (host_sep if host_sep is not None else HostSep(sep), x.shape[1])
     if cfg.attention_impl == "fused":
         out = fused_forward(model, x, y, sep)
     elif cfg.num_experts > 0:

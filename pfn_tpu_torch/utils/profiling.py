@@ -59,8 +59,14 @@ The spans the port opens (the per-layer metrics of ``pfnbench/`` read them):
                               its microbatches' draws included
   ``prior.sample``            a microbatch's ``prior.sample`` and its sep draw
                               (``train/loop.make_train_step``)
-  ``model.forward``           ``PFNTransformer.forward`` and ``fused_forward``
-  ``model.decoder``           the decoder call inside either forward; its
+  ``model.forward``           ``PFNTransformer.forward``, ``fused_forward``
+                              and ``PerFeatureTransformer.forward``
+  ``model.attn_features``     in each layer of ``PerFeatureTransformer``: the
+                              attention across a row's feature tokens, its
+                              projections and its residual LayerNorm
+  ``model.attn_items``        the same for its attention across the rows of
+                              a token column (the two flash calls)
+  ``model.decoder``           the decoder call inside each forward; its
                               counter ``Span.rows`` holds the rows it decoded
                               and the rows the forward produced (B times T)
   ``train.loss``              ``train/loop._loss_terms``: the criterion's

@@ -48,3 +48,29 @@ def weighted_single_eval_pos(generator: torch.Generator, max_len: int) -> torch.
 def uniform_single_eval_pos(generator: torch.Generator, max_len: int) -> torch.Tensor:
     """Sample i uniformly from [0, max_len) on the generator's device."""
     return torch.randint(0, max_len, (1,), generator=generator, device=generator.device, dtype=torch.int32)
+
+
+class HostSep:
+    """A one-element sep tensor on its way to the host. On the card: a
+    non-blocking copy into pinned memory, enqueued when this is made, and an
+    event behind it. ``operator.index`` waits for that event alone (once),
+    so a caller that asks after enqueuing more work leaves the device that
+    work to run; off the card it reads the value. ``source`` is the tensor
+    copied."""
+
+    __slots__ = ("source", "host", "event", "value")
+
+    def __init__(self, sep: torch.Tensor):
+        self.source, self.host, self.event, self.value = sep, sep, None, None
+        if sep.device.type == "cuda":
+            self.host = torch.empty(sep.shape, dtype=sep.dtype, pin_memory=True)
+            self.host.copy_(sep, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def __index__(self) -> int:
+        if self.value is None:
+            if self.event is not None:
+                self.event.synchronize()
+            self.value = int(self.host.reshape(-1)[0])
+        return self.value

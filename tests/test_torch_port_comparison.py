@@ -17,6 +17,8 @@ against the JAX package's, on the CPU.
     ``compute_mean_and_conf_interval`` equal.
   * ``as_prior`` and ``generate_toy_data``: shapes, labels, the seeded
     eval set repeating.
+  * ``num_classes``: 2 draws the labels as before; C classes draw each by
+    its probability; the cache tag tells them apart.
 """
 
 import os
@@ -151,3 +153,32 @@ def test_prior_and_toy_data():
     X, Y = comparison.generate_toy_data(SPEC, 40, torch.Generator().manual_seed(0), n_samples=5)
     X2, _ = comparison.generate_toy_data(SPEC, 40, torch.Generator().manual_seed(0), n_samples=5)
     assert X.shape == (5, 40, 3) and Y.shape == (5, 40) and torch.equal(X, X2)
+
+
+def test_two_classes_draw_as_the_reference_does():
+    """The default 2-class BNN labels a row 1 where its uniform lies below
+    p_1, the uniforms drawn after x, as before ``num_classes`` existed."""
+    params = SPEC.sample_params(torch.Generator().manual_seed(4), (3,))
+    params = {k: v.unsqueeze(1) for k, v in params.items()}
+    x, y = SPEC._draw_data(torch.Generator().manual_seed(5), params, (3, 2, 50, 3))
+    g = torch.Generator().manual_seed(5)
+    x0 = torch.randn((3, 2, 50, 3), generator=g)
+    p1 = torch.softmax(SPEC.logits(params, x0), dim=-1)[..., 1]
+    assert torch.equal(x, x0) and torch.equal(y, (torch.rand(p1.shape, generator=g) < p1).float())
+
+
+def test_c_classes_draw_each_label_by_its_probability():
+    """With zero weights and biases log p, every row's label is a draw of
+    Cat(p): over 200 000 rows each class's share lies within 5 standard
+    errors of p_c, and the cache tag tells the model from the 2-class one."""
+    model = comparison.BayesianNNModel(num_features=3, embed=4, num_classes=5)
+    assert model.shapes()["w2"] == (4, 5) and model.shapes()["b2"] == (5,)
+    probs = torch.tensor([0.05, 0.1, 0.2, 0.25, 0.4])
+    params = {"w1": torch.zeros(3, 4), "b1": torch.zeros(4), "w2": torch.zeros(4, 5), "b2": probs.log()}
+    _, y = model._draw_data(torch.Generator().manual_seed(6), params, (200_000, 3))
+    share = torch.bincount(y.long(), minlength=5).double() / y.numel()
+    se = (probs.double() * (1 - probs.double()) / y.numel()).sqrt()
+    assert bool(((share - probs.double()).abs() < 5 * se).all()), share
+    X, Y = np.zeros((1, 4, 3), np.float32), np.zeros((1, 4), np.float32)
+    two = comparison.BayesianNNModel(num_features=3, embed=4)
+    assert comparison._sweep_cache_tag(X, Y, model, 1) != comparison._sweep_cache_tag(X, Y, two, 1)

@@ -24,7 +24,7 @@ from pfn_tpu_torch.parallel.mesh import Mesh
 from pfn_tpu_torch.train import TrainConfig, TrainState, build_model
 from pfn_tpu_torch.train.loop import (
     _eval_pos_weights,
-    _HostSep,
+    HostSep,
     _loss_parts,
     _make_optimizer,
     _sample_eval_pos,
@@ -257,5 +257,5 @@ def test_the_decoder_counter_is_rows_decoded_over_rows_produced():
 
 
 def test_sep_reaches_the_host_as_an_index():
-    host = _HostSep(torch.tensor([12], dtype=torch.int32))
+    host = HostSep(torch.tensor([12], dtype=torch.int32))
     assert operator.index(host) == 12 and list(range(20))[host:] == list(range(12, 20))

@@ -28,7 +28,7 @@ from pfn_tpu_torch.train import cli, loop
 from pfn_tpu_torch.train.checkpoints import restore_checkpoint
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_ONLY_TRAIN_FIELDS = ("device", "exact_gelu")
+PORT_ONLY_TRAIN_FIELDS = ("device", "exact_gelu", "model_kind")
 TINY = ["--bptt", "12", "--batch_size", "4", "--emsize", "16", "--nhid", "32", "--nlayers", "2", "--nhead", "2",
         "--steps_per_epoch", "2", "--cpu"]
 OVERRIDES = ["train.lr=0.0003", "train.nlayers=3", "prior.name=ridge", "prior.kwargs.noisy_std=0.05",
